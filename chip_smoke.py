@@ -6,18 +6,34 @@ It needs torch with CUDA, nvcc (the CUDA toolkit) and numpy; it imports
 neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 
 1. device: a CUDA device, and its name and power limit from nvidia-smi;
-2. build: compile csrc/sweep_march.cu with nvcc (sm_90a) into
-   lif_tpu_torch/_build/;
-3. kernel vs plain: a seeded 1280x800 scene (smooth noise plus a hard
-   near box, SFMoMA's constants: focal 0.78*W, baseline 0.045 m,
+2. build: compile csrc/sweep_march.cu and csrc/sweep_target.cu with nvcc
+   (sm_90a) into lif_tpu_torch/_build/, one nvcc per source, started
+   together;
+3. lateral kernel vs plain: a seeded 1280x800 scene (smooth noise plus a
+   hard near box, SFMoMA's constants: focal 0.78*W, baseline 0.045 m,
    inverse depth 0.0001..0.09), 8 lateral poses; the kernel's found /
    invz* / rgba* against the plain march on the card (found equal,
    max abs < 3e-5);
-4. main path: render_fast_batch(method="march") over 96 lateral poses
-   (two pose chunks) with the launch count reset just before it; tiers
-   ('march',), the kernel launched, finite output, alpha coverage in
-   (0.5, 1]; pose 0 >= 40 dB against the 640-step exact march;
-5. timing: CUDA events, median of 5 runs after a warm-up.
+4. main path 1 (lateral): render_fast_batch(method="march") over 96
+   lateral poses (two pose chunks) with every launch count reset just
+   before it; tiers ('march',), the kernel launched, finite output,
+   alpha coverage in (0.5, 1]; pose 0 >= 40 dB against the 640-step
+   exact march;
+5. lateral timing: CUDA events, median of 5 runs after a warm-up;
+6. target kernel vs plain: the same scene, 8 orbit poses
+   orbit_pose([0, 0, -1], 1, theta), theta over +-15 deg; depth-only at
+   refine 0, depth-only on a 2-px ladder with refine 1, and full color,
+   each to the kernel-vs-twin gate of tests/test_sweep_target.py;
+7. main path 2 (orbit): render_fast_batch over 120 orbit poses (theta in
+   linspace(-15, 15, 120) deg, three pose chunks) with every launch
+   count reset just before it; tiers ('target',), the kernel launched,
+   finite output, alpha coverage in (0.5, 1]; PSNR against the 640-step
+   march at poses 0, 30 and 60: pose 60 (the center) >= 40 dB, every
+   pose at most 1 dB under lif_tpu's value on the same scene and pose;
+8. main path 3 (pitch): 8 pitch-orbit poses (phi over +-8 deg) through
+   the transposed route, counts reset just before; tiers ('target',),
+   the kernel launched, finite output;
+9. orbit timing: CUDA events, median of 5 runs after a warm-up.
 
 The second-to-last line is the kernels' JSON record and the last line
 ``{"ok": true, "device": {...}}``.
@@ -30,6 +46,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -40,6 +57,18 @@ N_CHECK = 8  # poses of the kernel-vs-plain check
 N_MAIN = 96  # poses of the main-path run: two chunks of the default 48
 TOL = 3e-5  # kernel vs plain, tests/test_sweep_march.py's gate
 PSNR_MIN = 40.0  # dB against the converged (640-step) march
+N_ORBIT = 120  # orbit poses: three chunks of 40
+ORBIT_DEG = 15.0  # orbit half-angle
+PITCH_DEG = 8.0  # pitch-orbit half-angle
+# lif_tpu.render_fast_batch on this scene against its own 640-step
+# march at orbit poses 0 (edge, -15 deg), 30 and 60 (center), dB; JAX on
+# the CPU at full size (the fidelity of the tier does not depend on the
+# backend)
+LIF_TPU_PSNR = {0: 37.208, 30: 41.786, 60: 77.470}
+# the target kernel vs its plain version: tests/test_sweep_target.py's
+# bound (found flips and large errors under 0.1% of pixels, median
+# |dinvz*| on agreeing pixels under 1e-5)
+SHARE_MAX, MEDIAN_MAX = 1e-3, 1e-5
 
 
 class SmokeFailure(Exception):
@@ -59,6 +88,17 @@ def make_scene(seed: int = 0):
     disp[H // 3 : H // 2, W // 3 : W // 2] = 0.95  # near box: a hard edge
     rgb = np.stack([smooth_noise(rng, H, W, octaves=4) for _ in range(3)], -1)
     return rgb.astype(np.float32), disp.astype(np.float32)
+
+
+def orbit_cams(lt, focal, thetas=(), phis=()):
+    return [
+        lt.Camera.create(W, H, focal_px=focal, position=p, rotation=r)
+        for p, r in (
+            lt.orbit_pose([0.0, 0.0, -1.0], 1.0, t, ph)
+            for t, ph in zip(thetas or [0.0] * len(phis),
+                             phis or [0.0] * len(thetas))
+        )
+    ]
 
 
 def card_line() -> str:
@@ -87,6 +127,7 @@ def run():
         from lif_tpu_torch.models import renderer
         from lif_tpu_torch.ops.cuda import build
         from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+        from lif_tpu_torch.ops.cuda import sweep_target as ktarget
         from lif_tpu_torch.ops.sweep_march import march_translation_plain
         from lif_tpu_torch.utils.profiling import device_timer
     except ImportError as e:
@@ -103,15 +144,22 @@ def run():
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}", flush=True)
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
+    sources = ("sweep_march", "sweep_target")
     t0 = time.perf_counter()
-    build.load_library("sweep_march")
-    print(f"build: sweep_march.cu in {time.perf_counter() - t0:.2f} s "
-          f"({build.BUILD_DIR})", flush=True)
-    for log in build.BUILD_DIR.glob("libsweep_march-*.log"):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.load_library, sources))
+    print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
+          f"{time.perf_counter() - t0:.2f} s ({build.BUILD_DIR})", flush=True)
+    for name in sources:
+        for log in build.BUILD_DIR.glob(f"lib{name}-*.log"):
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    def reset_counts():
+        kmarch.sweep_lateral.launches = 0
+        ktarget.sweep_target.launches = 0
 
     rgb, disp = make_scene(0)
     proj = lif_tpu_torch.projector_from_arrays(
@@ -156,9 +204,9 @@ def run():
     check(mismatch == 0, f"{mismatch} found pixels differ from the plain march")
     check(max(err_iz, err_c) < TOL, "kernel disagrees with the plain march")
 
-    # 4. the main path, with every launch count zeroed just before it
+    # 4. main path 1, with every launch count zeroed just before it
     cams = [cam(0.135 + 0.02 * i / N_MAIN) for i in range(N_MAIN)]
-    kmarch.sweep_lateral.launches = 0
+    reset_counts()
     out, tiers = lif_tpu_torch.render_fast_batch(
         proj, cams, method="march", return_tiers=True
     )
@@ -207,8 +255,7 @@ def run():
     print(f"lateral_march kernel: {kernel_ms / N_CHECK:.4f} ms/frame, plain "
           f"march {plain_ms / N_CHECK:.3f} ms/frame ({N_CHECK}-pose batch, "
           f"K={k}) [{card}]", flush=True)
-
-    record = {"kernels": [{
+    lateral = {
         "name": "lateral_march",
         "route": "cuda",
         "source": "lif_tpu_torch/csrc/sweep_march.cu",
@@ -217,8 +264,154 @@ def run():
         "max_abs_err": max(err_iz, err_c),
         "ms": kernel_ms / N_CHECK,
         "plain_ms": plain_ms / N_CHECK,
-    }]}
-    return record, card
+    }
+    target = orbit_phases(proj, focal, lay, reset_counts, card)
+    return {"kernels": [lateral, target]}, card
+
+
+def orbit_phases(proj, focal, lay, reset_counts, card):
+    """Phases 6-9: the target-ray kernel against its plain version, the
+    120-pose orbit and the pitch route through render_fast_batch, and
+    their timing. Returns the kernel's JSON record."""
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.core.pose import relative_view_pose
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops import sweep_target as starget
+    from lif_tpu_torch.ops.cuda import sweep_target as ktarget
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    izmin, izmax = lay["izmin_host"], lay["izmax_host"]
+    disp = lay["disp"]
+
+    # 6. kernel vs plain at the main path's shapes (its planning)
+    cams8 = orbit_cams(lt, focal, thetas=list(
+        np.deg2rad(np.linspace(-ORBIT_DEG, ORBIT_DEG, N_CHECK))))
+    pos8, rot8 = zip(*(relative_view_pose(proj.position, proj.rotation,
+                                          c.position, c.rotation)
+                       for c in cams8))
+    plan = starget.plan_target(W, H, W, H, focal, focal, rot8, pos8, izmin,
+                               izmax)[0]
+    poses = torch.as_tensor(np.stack([
+        starget.target_pose_scalars(r, c, focal, focal, W, H, W, H)
+        for r, c in zip(rot8, pos8)
+    ]), device=disp.device)
+    rgbm = starget._rgbm_stack(lay["rgb"], lay["mask"])
+    max_err, kernel_args = 0.0, None
+    for name, step_px, refine, color in (
+        ("depth-only", 1.0, 0, False), ("depth-only 2-px ladder", 2.0, 1,
+                                        False), ("full color", 1.0, 0, True),
+    ):
+        grids, k = starget.target_plane_grids(
+            rot8, pos8, focal, focal, W, H, W, H, izmin, izmax,
+            step_px=step_px)
+        grids = torch.as_tensor(grids, device=disp.device)
+        out = ktarget.march_target_cuda(
+            disp, izmin, izmax, poses, grids, plan, refine=refine,
+            rgbm=rgbm if color else None)
+        torch.cuda.synchronize()
+        if kernel_args is None:  # the production configuration, timed below
+            kernel_args = (disp, izmin, izmax, poses, grids, plan)
+        flips, share, median, err = 0, 0.0, 0.0, 0.0
+        for i in range(N_CHECK):
+            ref = starget.march_target_plain(
+                disp, izmin, izmax, poses[i], grids[i], W, H, refine=refine,
+                rgbm=rgbm if color else None)
+            agree = out[0][i] == ref[0]
+            flips += int((~agree).sum())
+            for got, want in zip(out[1:], ref[1:]):
+                e = (got[i] - want).abs()
+                e = e * agree.reshape(agree.shape + (1,) * (e.ndim - 2))
+                share = max(share, float((e > 1e-3).float().mean()))
+                median = max(median, float(e.median()))
+                err = max(err, float(e.max()))
+        n_px = N_CHECK * W * H
+        print(f"target kernel vs plain, {name} ({N_CHECK} poses, {W}x{H}, "
+              f"K={k}, refine {refine}): found mismatches {flips} of {n_px}, "
+              f"max abs {err:.3g}, largest share > 1e-3 {share:.3g}, largest "
+              f"median {median:.3g}; found share {float(out[0].mean()):.4f}",
+              flush=True)
+        check(flips < SHARE_MAX * n_px, f"{name}: {flips} found flips")
+        check(share < SHARE_MAX and median < MEDIAN_MAX,
+              f"{name}: the target kernel disagrees with its plain version")
+        max_err = max(max_err, err)
+
+    # 7. main path 2: the orbit, every launch count zeroed just before it
+    thetas = np.deg2rad(np.linspace(-ORBIT_DEG, ORBIT_DEG, N_ORBIT))
+    cams = orbit_cams(lt, focal, thetas=list(thetas))
+    reset_counts()
+    out, tiers = lt.render_fast_batch(proj, cams, return_tiers=True)
+    torch.cuda.synchronize()
+    launches = ktarget.sweep_target.launches
+    coverage = float(out[..., 3].mean())
+    print(f"main path 2: render_fast_batch({N_ORBIT} orbit poses, +-"
+          f"{ORBIT_DEG:g} deg) -> {tuple(out.shape)}, tiers {tiers}, "
+          f"target_march launches {launches}, alpha coverage "
+          f"{coverage:.4f}", flush=True)
+    check(tiers == ("target",), f"orbit tiers {tiers}")
+    check(launches > 0, "the orbit did not launch the target kernel")
+    check(tuple(out.shape) == (N_ORBIT, H, W, 4), f"shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite orbit output")
+    check(0.5 < coverage <= 1.0, f"orbit alpha coverage {coverage}")
+    for i, ref_db in LIF_TPU_PSNR.items():
+        exact = lt.render_mono_view(proj, cams[i], mask_mode="none",
+                                    num_steps=640)
+        q = psnr(out[i], exact)
+        print(f"fidelity vs the 640-step march at orbit pose {i} (theta "
+              f"{np.rad2deg(thetas[i]):+.2f} deg): {q:.2f} dB, lif_tpu "
+              f"{ref_db:.2f} dB", flush=True)
+        check(q >= ref_db - 1.0, f"pose {i}: {q:.2f} dB, lif_tpu {ref_db}")
+        if i == N_ORBIT // 2:
+            check(q >= PSNR_MIN, f"center pose only {q:.2f} dB")
+
+    # 8. main path 3: pitch poses through the transposed route
+    phis = np.deg2rad(np.linspace(-PITCH_DEG, PITCH_DEG, N_CHECK))
+    pcams = orbit_cams(lt, focal, phis=list(phis))
+    n_transposed = len(renderer._TRANSPOSED_CACHE)
+    reset_counts()
+    pout, ptiers = lt.render_fast_batch(proj, pcams, return_tiers=True)
+    torch.cuda.synchronize()
+    plaunches = ktarget.sweep_target.launches
+    transposed = len(renderer._TRANSPOSED_CACHE) > n_transposed
+    print(f"main path 3: render_fast_batch({N_CHECK} pitch poses, +-"
+          f"{PITCH_DEG:g} deg) -> {tuple(pout.shape)}, tiers {ptiers}, "
+          f"transposed route {transposed}, target_march launches "
+          f"{plaunches}, alpha coverage {float(pout[..., 3].mean()):.4f}",
+          flush=True)
+    check(ptiers == ("target",), f"pitch tiers {ptiers}")
+    check(transposed, "the pitch batch did not take the transposed route")
+    check(plaunches > 0, "the pitch route did not launch the target kernel")
+    check(tuple(pout.shape) == (N_CHECK, H, W, 4), "pitch output shape")
+    check(bool(torch.isfinite(pout).all()), "non-finite pitch output")
+
+    # 9. timing on the card
+    batch_ms = device_timer(lt.render_fast_batch, proj, cams, iters=1,
+                            repeats=5)
+    kernel_ms = device_timer(ktarget.march_target_cuda, *kernel_args,
+                             iters=10, repeats=5)
+    disp_, _, _, poses_, grids_, _ = kernel_args
+    plain_ms = device_timer(lambda: [
+        starget.march_target_plain(disp_, izmin, izmax, poses_[i],
+                                   grids_[i], W, H)
+        for i in range(N_CHECK)
+    ], iters=1, repeats=5)
+    print(f"render_fast_batch orbit: {batch_ms:.3f} ms per {N_ORBIT} poses "
+          f"= {N_ORBIT / (batch_ms / 1e3):.1f} frames/s at {W}x{H} [{card}]",
+          flush=True)
+    print(f"target_march kernel: {kernel_ms / N_CHECK:.4f} ms/frame, plain "
+          f"march {plain_ms / N_CHECK:.3f} ms/frame ({N_CHECK}-pose batch, "
+          f"K={grids_.shape[1]}, depth only) [{card}]", flush=True)
+    return {
+        "name": "target_march",
+        "route": "cuda",
+        "source": "lif_tpu_torch/csrc/sweep_target.cu",
+        "replaces": "lif_tpu/ops/pallas/sweep_target.py:89",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms / N_CHECK,
+        "plain_ms": plain_ms / N_CHECK,
+    }
 
 
 def main() -> int:

@@ -2,20 +2,24 @@
 
 The counterpart of lif_tpu.models.renderer for the slice the port has so
 far: the exact ray march (render_mono_view, render(mode='raycast')) and
-the production fast path for LATERAL pose batches
-(render_fast_batch with every layer on the 'march' tier — the snap-plane
-first-crossing march, on CUDA through csrc/sweep_march.cu). A pose,
-layer or option that needs a tier the port does not have yet raises
-NotImplementedError naming it; nothing falls back to an approximate
-tier.
+the production fast path render_fast_batch on two tiers —
+  * 'march': LATERAL pose batches, the snap-plane first-crossing march
+    (on CUDA through csrc/sweep_march.cu);
+  * 'target': rotated YAW-family pose batches (the orbit), the
+    single-phase target-ray march (on CUDA through csrc/sweep_target.cu),
+    and PITCH-family batches through an x<->y transpose onto it.
+A pose, layer or option that needs a tier the port does not have yet
+('scaled', 'rotated', 'sweep', ...) raises NotImplementedError naming
+it; nothing falls back to an approximate tier.
 
-Host-side planning (relative poses, snap-plane grids, pad plans) runs in
-numpy; the textures and every per-pixel operation stay on the
-projector's device.
+Host-side planning (relative poses, plane grids, pad plans, the target
+tier's extents and pose packs) runs in numpy; the textures and every
+per-pixel operation stay on the projector's device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import OrderedDict
 from typing import Sequence
 
@@ -28,6 +32,7 @@ from ..core.pose import relative_view_pose
 from ..ops import composite as _composite
 from ..ops import raycast as _raycast
 from ..ops import sweep_march as _sweep_march
+from ..ops import sweep_target as _sweep_target
 from ..ops.cuda.sweep_march import prepare_translation_src
 from .projector import Projector
 
@@ -44,6 +49,44 @@ _TEX_CACHE: OrderedDict = OrderedDict()
 _TEX_CACHE_MAX = 16
 _TABLE_CACHE: OrderedDict = OrderedDict()
 _TABLE_CACHE_MAX = 64
+
+# target-tier plans memoized on the exact pose batch (and device): the
+# entries hold the per-pose ladders and pose packs on the device, so a
+# hit also skips the uploads. "ineligible" caches the planner's
+# ValueError (the decision to route the batch to the rotated tier).
+_TARGET_PLAN_CACHE: OrderedDict = OrderedDict()
+_TARGET_PLAN_CACHE_MAX = 8
+# L2: target-tier plans keyed on BUCKETED window extents, so a novel
+# camera inside a previously planned pose neighborhood pays only the
+# sub-ms extent measurement plus its per-pose ladders and pose packs
+_TARGET_NEIGHBORHOOD_CACHE: OrderedDict = OrderedDict()
+_TARGET_NEIGHBORHOOD_CACHE_MAX = 32
+# transposed-route eligibility, keyed on bucketed transposed extents
+_TARGET_OK_CACHE: OrderedDict = OrderedDict()
+_TARGET_OK_CACHE_MAX = 64
+# axis-swapped projectors of the pitch route (textures transposed once)
+_TRANSPOSED_CACHE: OrderedDict = OrderedDict()
+_TRANSPOSED_CACHE_MAX = 8
+
+# x<->y axis swap: transposing every image conjugates all camera-space
+# quantities by this permutation. Applied by INDEXING, so it is exact.
+_SWAP_XY = (1, 0, 2)
+
+
+class _TierNotPorted(NotImplementedError):
+    """A layer routed to a tier the port does not have; `tier` names it."""
+
+    def __init__(self, tier: str, why: str):
+        super().__init__(
+            f"{why}: this needs the '{tier}' tier, which is not ported yet"
+        )
+        self.tier = tier
+
+
+def _lru_put(cache: OrderedDict, limit: int, key, value):
+    cache[key] = value
+    while len(cache) > limit:
+        cache.popitem(last=False)
 
 
 def _disp_fingerprint(buf: torch.Tensor) -> int:
@@ -170,13 +213,14 @@ def _march_sources(lay, plan, crop_y):
     return rgb_l, disp_l, mask_l
 
 
-def _attach_march_prep(layers, plans, crops):
+def _attach_march_prep(layers, modes, plans, crops):
     """Hoist the march's pose-independent source prep (the kernel's source
     stack + plane-range tables) out of the pose-chunk loop: computed ONCE
-    per call. CUDA path only (the CPU twin reads the raw textures)."""
+    per call, for 'march' layers. CUDA path only (the CPU twin reads the
+    raw textures)."""
     out = []
-    for lay, plan, crop_y in zip(layers, plans, crops):
-        if lay["disp"].device.type != "cuda":
+    for lay, mode, plan, crop_y in zip(layers, modes, plans, crops):
+        if mode != "march" or lay["disp"].device.type != "cuda":
             out.append(lay)
             continue
         out.append(dict(
@@ -198,29 +242,214 @@ def _balanced_chunk(batch, pose_chunk):
     return -(-batch // n_chunks)
 
 
+def _plan_target_entry(lay, f2_host, out_w, out_h, rot_list, pos_list, cfg,
+                       explicit_planes, device):
+    """The target tier's setup for one layer, or None when the planner
+    rejects the batch (not yaw-family, or outside lif_tpu's budgets).
+    The plan is looked up by the batch's BUCKETED extents, so a plan
+    serves a pose neighborhood; only the per-pose ladders and pose
+    packs are rebuilt."""
+    src = (lay["w"], lay["h"], out_w, out_h)
+    try:
+        ext = _sweep_target.target_extents(
+            *src, lay["focal_host"], f2_host, rot_list, pos_list,
+            lay["izmin_host"], lay["izmax_host"],
+        )
+        bext = _sweep_target.bucket_extents(ext)
+        nkey = src + (lay["focal_host"], f2_host, lay["izmin_host"],
+                      lay["izmax_host"], bext.key())
+        tplan = _TARGET_NEIGHBORHOOD_CACHE.get(nkey)
+        if tplan is None:
+            tplan = _sweep_target.plan_from_extents(*src, bext)[0]
+            _lru_put(_TARGET_NEIGHBORHOOD_CACHE,
+                     _TARGET_NEIGHBORHOOD_CACHE_MAX, nkey, tplan)
+        else:
+            _TARGET_NEIGHBORHOOD_CACHE.move_to_end(nkey)
+        grids, k_t = _sweep_target.target_plane_grids(
+            rot_list, pos_list, lay["focal_host"], f2_host, out_w, out_h,
+            lay["w"], lay["h"], lay["izmin_host"], lay["izmax_host"],
+            step_px=cfg.target_step_px, num_planes=explicit_planes,
+        )
+        poses = np.stack([
+            _sweep_target.target_pose_scalars(
+                r, c, lay["focal_host"], f2_host, out_w, out_h,
+                lay["w"], lay["h"],
+            )
+            for r, c in zip(rot_list, pos_list)
+        ])
+    except ValueError:
+        return None
+    return (
+        "target",
+        (tplan, k_t),
+        {
+            "pose_sc": torch.as_tensor(poses, device=device),
+            "grids": torch.as_tensor(grids, device=device),
+        },
+    )
+
+
+def _plan_march_tier(lay, f2_host, out_w, out_h, rot_list, pos_list,
+                     rotated, skewed, cfg, explicit_planes, device):
+    """The non-lateral tier cascade of lif_tpu: 'scaled' for unrotated
+    poses; else 'target' (the single-phase target-ray march of the yaw
+    family) with 'rotated' (the two-phase march) as the fallback. The
+    port has the target tier: the other branches raise _TierNotPorted
+    naming theirs. Returns (mode, setup, per-pose device extras).
+
+    The target plan (ladders, pose packs and their uploads) is memoized
+    on the exact pose batch, so replayed trajectories pay it once. As in
+    lif_tpu, skewed frustums skip the target tier."""
+    if not rotated:
+        raise _TierNotPorted(
+            "scaled", "unrotated poses with a y or z translation"
+        )
+    if not skewed:
+        key = (
+            lay["w"], lay["h"], out_w, out_h, lay["focal_host"], f2_host,
+            lay["izmin_host"], lay["izmax_host"], cfg.target_step_px,
+            explicit_planes, np.asarray(rot_list, np.float64).tobytes(),
+            np.asarray(pos_list, np.float64).tobytes(), str(device),
+        )
+        entry = _TARGET_PLAN_CACHE.get(key)
+        if entry is None:
+            entry = _plan_target_entry(
+                lay, f2_host, out_w, out_h, rot_list, pos_list, cfg,
+                explicit_planes, device,
+            ) or "ineligible"
+            _lru_put(_TARGET_PLAN_CACHE, _TARGET_PLAN_CACHE_MAX, key, entry)
+        else:
+            _TARGET_PLAN_CACHE.move_to_end(key)
+        if entry != "ineligible":
+            return entry
+    raise _TierNotPorted(
+        "rotated",
+        "a rotated pose batch outside the target tier (skewed, not "
+        "yaw-family, or beyond its plan budgets)",
+    )
+
+
+def _conj_swap_xy(rot) -> np.ndarray:
+    """S @ R @ S for the x<->y swap S, by index permutation (exact,
+    dtype-preserving)."""
+    r = np.asarray(rot)
+    return r[list(_SWAP_XY)][:, list(_SWAP_XY)].copy()
+
+
+def _transposed_target_ok(tex_layers, f2_host, cam0, rot_list, pos_list):
+    """True when every layer's TRANSPOSED pose batch fits the target tier:
+    pitch-family rotations (source x depends on the target row, failing
+    the yaw gate) become yaw-family under an x<->y transpose of source and
+    target (the elevation half of the demo's spherical orbit, reference
+    index.html:1271-1313).
+
+    The transposed output width is the target HEIGHT padded
+    symmetrically to lif_tpu's 128-column grid; the symmetric pad keeps
+    the principal point centered, so slicing it off is frustum-exact. Odd
+    pads and skewed cameras are ineligible."""
+    h_pad = -(-cam0.height // 128) * 128 - cam0.height
+    if h_pad % 2 or float(np.abs(cam0.skew).sum()) > 1e-12:
+        return False
+    rot_t = [_conj_swap_xy(r) for r in rot_list]
+    pos_t = [np.asarray(p, np.float64)[list(_SWAP_XY)] for p in pos_list]
+    for lay in tex_layers:
+        dims = (lay["h"], lay["w"], cam0.height + h_pad, cam0.width)
+        try:
+            ext = _sweep_target.target_extents(
+                *dims, lay["focal_host"], f2_host, rot_t, pos_t,
+                lay["izmin_host"], lay["izmax_host"],
+            )
+        except ValueError:
+            return False
+        bext = _sweep_target.bucket_extents(ext)
+        key = dims + (lay["focal_host"], f2_host, lay["izmin_host"],
+                      lay["izmax_host"], bext.key())
+        ok = _TARGET_OK_CACHE.get(key)
+        if ok is None:
+            try:
+                _sweep_target.plan_from_extents(*dims, bext)
+                ok = True
+            except ValueError:
+                ok = False
+            _lru_put(_TARGET_OK_CACHE, _TARGET_OK_CACHE_MAX, key, ok)
+        else:
+            _TARGET_OK_CACHE.move_to_end(key)
+        if not ok:
+            return False
+    return True
+
+
+def _transposed_projector(projector: Projector) -> Projector:
+    """Axis-swapped copy (x<->y) of a projector for the pitch route, its
+    textures transposed on the device once and cached. The key covers
+    the textures and every small field the copy bakes in (a projector
+    moved with dataclasses.replace must miss)."""
+    tkey, refs = _texture_key(projector)
+    key = (
+        tkey,
+        np.asarray(projector.position).tobytes(),
+        np.asarray(projector.rotation).tobytes(),
+        np.asarray(projector.skew).tobytes(),
+        np.asarray(projector.focal).tobytes(),
+        np.asarray(projector.invz_min).tobytes(),
+        np.asarray(projector.invz_max).tobytes(),
+        float(projector.baseline),
+    )
+    hit = _TRANSPOSED_CACHE.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], refs)):
+        _TRANSPOSED_CACHE.move_to_end(key)
+        return hit[1]
+    t = dataclasses.replace(
+        projector,
+        rgb=projector.rgb.transpose(1, 2).contiguous(),
+        disp=projector.disp.transpose(1, 2).contiguous(),
+        mask=projector.mask.transpose(1, 2).contiguous(),
+        layer_res=projector.layer_res[:, ::-1].copy(),
+        skew=projector.skew[::-1].copy(),
+        position=projector.position[list(_SWAP_XY)],
+        rotation=_conj_swap_xy(projector.rotation),
+        width=projector.height,
+        height=projector.width,
+    )
+    _lru_put(_TRANSPOSED_CACHE, _TRANSPOSED_CACHE_MAX, key, (refs, t))
+    return t
+
+
 def _layer_tier_batch(
     lay,
     mode,
+    setup,
     plan,
     k_l,
     crop_y,
     c1_b,
     *,
     refine,
+    t_refine,
     feathering,
     mask_mode,
     base_offset=(0.0, 0.0),
 ):
     """ONE LDI layer's pose-batched render through its routed tier — the
-    tier switch. The port has the 'march' tier (lateral snap
-    translation); c1_b is the (B, 3) host pose batch. Returns the (B, H,
-    W, 4) premultiplied RGBA over a zero background."""
+    tier switch. 'march': the lateral snap translation, c1_b the (B, 3)
+    host pose batch; 'target': the target-ray march with its setup
+    (plan, K) and the per-pose pose packs and ladders in `lay`. Returns
+    the (B, H, W, 4) premultiplied RGBA over a zero background."""
+    zero_bg = np.zeros(4, np.float32)
+    if mode == "target":
+        tplan, k_t = setup
+        return _sweep_target.render_target_fetch_batch(
+            lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
+            lay["izmax_host"], lay["pose_sc"], lay["grids"], zero_bg, tplan,
+            k_t, feathering=feathering, mask_mode=mask_mode, to_srgb=False,
+            refine=t_refine,
+        )
     if mode != "march":
         raise NotImplementedError(f"the '{mode}' tier is not ported yet")
     rgb_l, disp_l, mask_l = _march_sources(lay, plan, crop_y)
     return _sweep_march.render_translation_batch(
         rgb_l, disp_l, mask_l, lay["izmin_host"], lay["izmax_host"],
-        c1_b, lay["focal_host"], lay["plane_invz"], np.zeros(4, np.float32),
+        c1_b, lay["focal_host"], lay["plane_invz"], zero_bg,
         plan=plan, num_planes=k_l, refine=refine, feathering=feathering,
         mask_mode=mask_mode, to_srgb=False, offset=base_offset,
         crop_y=crop_y, prepared=lay.get("march_prep"),
@@ -239,23 +468,31 @@ def render_fast_batch(
     refine: int | None = None,
     config: RenderConfig | None = None,
     return_tiers: bool = False,
+    _transpose: bool = True,
 ):
     """Render MANY novel views; returns (B, H, W, 4) on the projector's
     device (GL-oriented, row 0 = bottom).
 
-    The port's slice of lif_tpu's production entry point: every pose must
-    be LATERAL (no relative rotation, translation along x only) and every
-    layer march-eligible (matched focal, even outpaint margins), with
-    plane_mode='snap' and no frustum skew. Each layer then renders the
-    whole batch through the snap-plane first-crossing march — on CUDA one
-    kernel launch per pose chunk — and the layers are over-composited
-    front to back. Anything else raises NotImplementedError naming the
-    tier it needs.
+    The port's slice of lif_tpu's production entry point, with lif_tpu's
+    tier routing:
+      * LATERAL batches (no relative rotation, translation along x only)
+        march every layer on the 'march' tier (matched focal, even
+        outpaint margins, plane_mode='snap', no frustum skew);
+      * rotated YAW-family batches take the 'target' tier per layer (its
+        planner decides; each layer plans with its own source dims);
+      * PITCH-family batches, which fail the target planner upright,
+        render transposed: source and cameras x<->y swapped, the height
+        padded to a 128-multiple, the pad sliced off and the axes swapped
+        back on the device.
+    On CUDA each layer launches its kernel once per pose chunk; the layers
+    are over-composited front to back. Anything else raises
+    NotImplementedError naming the tier it needs ('scaled', 'rotated',
+    ...).
 
-    return_tiers=True returns (images, tiers) with the per-layer tier
-    ('march'). Batches larger than config.pose_chunk render in balanced
-    chunks (a bound on the per-chunk intermediates, nothing more).
-    All cameras must share width/height/focal/skew; poses may vary.
+    return_tiers=True returns (images, tiers) with the per-layer tier.
+    Batches larger than config.pose_chunk render in balanced chunks (a
+    bound on the per-chunk intermediates, nothing more). All cameras must
+    share width/height/focal/skew; poses may vary.
     """
     cfg = config or DEFAULT_CONFIG
     background = cfg.background if background is None else background
@@ -280,11 +517,6 @@ def render_fast_batch(
         raise NotImplementedError(
             f"method={method!r}: the plane-sweep tier is not ported yet"
         )
-    if cfg.plane_mode != "snap":
-        raise NotImplementedError(
-            f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
-            "ported"
-        )
 
     pos_list, rot_list = zip(*(
         relative_view_pose(
@@ -295,82 +527,157 @@ def render_fast_batch(
     ))
     pos_b = np.stack(pos_list)  # (B, 3)
     rot_b = np.stack(rot_list)  # (B, 3, 3)
-    if not np.allclose(rot_b, np.eye(3), atol=1e-5):
-        raise NotImplementedError(
-            "rotated poses need the target/rotated tiers, which are not "
-            "ported yet"
-        )
-    if np.abs(pos_b[:, 1]).max() >= 1e-9 or np.abs(pos_b[:, 2]).max() >= 1e-9:
-        raise NotImplementedError(
-            "non-lateral (y/z) translations need the scaled tier, which is "
-            "not ported yet"
-        )
-    if np.abs(projector.skew - cam0.skew).sum() > 1e-12:
-        raise NotImplementedError(
-            "skewed frustums need the skewed lateral fold, which is not "
-            "ported yet"
-        )
+    rotated = not np.allclose(rot_b, np.eye(3), atol=1e-5)
+    lateral = (
+        not rotated
+        and np.abs(pos_b[:, 1]).max() < 1e-9
+        and np.abs(pos_b[:, 2]).max() < 1e-9
+    )
+    skewed = bool(np.abs(projector.skew - cam0.skew).sum() > 1e-12)
     if mask_mode is None:
         mask_mode = "multiply" if projector.num_layers > 1 else "none"
-
     tex_layers = _prepared_textures(projector)
     f2_host = float(cam0.focal_px)
-    # non-8-divisible widths: march a wpad-wider band with a constant
-    # wpad/2 x-offset, then slice the true width
-    wpad = _width_pad(cam0.width)
-    out_w_eff = cam0.width + wpad
-    dx_pad = wpad / 2.0
-    max_cx = float(np.abs(pos_b[:, 0]).max())
 
-    layers, plans, crops, nums = [], [], [], []
-    for li, lay in enumerate(tex_layers):
-        if not _march_eligible(lay, f2_host, out_w_eff, cam0.height,
-                               out_w_true=cam0.width):
+    if lateral:
+        if cfg.plane_mode != "snap":
             raise NotImplementedError(
-                f"layer {li} is not march-eligible (mismatched focal or "
-                "dims): it needs the scaled or sweep tier, which is not "
+                f"plane_mode={cfg.plane_mode!r}: only the snap march grid "
+                "is ported"
+            )
+        if skewed:
+            raise NotImplementedError(
+                "skewed frustums need the skewed lateral fold, which is not "
                 "ported yet"
             )
-        plans.append(_march_plan(
-            dict(lay, h=cam0.height), max_cx, out_w_eff, cam0.height,
-            phase_abs=dx_pad,
-        ))
-        crops.append((lay["h"] - cam0.height) // 2)
-        tab, k_l = _snap_tables(
-            lay, pos_b[:, 0], num_planes, 0.0, cfg.march_stride,
-            projector.device,
-        )
-        layers.append(dict(lay, plane_invz=tab))
-        nums.append(k_l)
+        # non-8-divisible widths: march a wpad-wider band with a constant
+        # wpad/2 x-offset, then slice the true width
+        wpad = _width_pad(cam0.width)
+        out_w_eff = cam0.width + wpad
+        dx_pad = wpad / 2.0
+        max_cx = float(np.abs(pos_b[:, 0]).max())
+        layers, plans, crops, nums = [], [], [], []
+        for li, lay in enumerate(tex_layers):
+            if not _march_eligible(lay, f2_host, out_w_eff, cam0.height,
+                                   out_w_true=cam0.width):
+                raise NotImplementedError(
+                    f"layer {li} is not march-eligible (mismatched focal or "
+                    "dims): it needs the scaled or sweep tier, which is not "
+                    "ported yet"
+                )
+            plans.append(_march_plan(
+                dict(lay, h=cam0.height), max_cx, out_w_eff, cam0.height,
+                phase_abs=dx_pad,
+            ))
+            crops.append((lay["h"] - cam0.height) // 2)
+            tab, k_l = _snap_tables(
+                lay, pos_b[:, 0], num_planes, 0.0, cfg.march_stride,
+                projector.device,
+            )
+            layers.append(dict(lay, plane_invz=tab))
+            nums.append(k_l)
+        modes = ["march"] * len(layers)
+        setups = [None] * len(layers)
+    else:
+        # the non-lateral cascade; target layers plan at the true width
+        # (lif_tpu drops the width pad whenever a layer leaves the band
+        # tiers, and its target planner rejects non-128-divisible widths)
+        dx_pad = 0.0
+        modes, setups, layers = [], [], []
+        for lay in tex_layers:
+            try:
+                mode, setup, extra = _plan_march_tier(
+                    lay, f2_host, cam0.width, cam0.height, rot_list,
+                    pos_list, rotated, skewed, cfg, num_planes,
+                    projector.device,
+                )
+            except _TierNotPorted as err:
+                mode, setup, extra = err.tier, err, {}
+            modes.append(mode)
+            setups.append(setup)
+            layers.append(dict(lay, **extra))
+        if (
+            _transpose
+            and rotated
+            and "rotated" in modes
+            and _transposed_target_ok(tex_layers, f2_host, cam0, rot_list,
+                                      pos_list)
+        ):
+            return _render_transposed(
+                projector, cameras, return_tiers, background=background,
+                feathering=feathering, to_srgb=to_srgb,
+                num_planes=num_planes, method=method, mask_mode=mask_mode,
+                refine=refine, config=config,
+            )
+        for setup in setups:
+            if isinstance(setup, _TierNotPorted):
+                raise setup
+        plans = [None] * len(layers)
+        crops = [0] * len(layers)
+        nums = [setup[1] for setup in setups]
     out = _fast_batch_core(
-        layers, pos_b, background, plans=plans, nums=nums, crops=crops,
-        refine=refine, feathering=feathering, mask_mode=mask_mode,
-        to_srgb=to_srgb, pad_dx=dx_pad, out_w_true=cam0.width,
-        pose_chunk=cfg.pose_chunk,
+        layers, modes, setups, pos_b, background, plans=plans, nums=nums,
+        crops=crops, refine=refine, t_refine=cfg.target_refine,
+        feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
+        pad_dx=dx_pad, out_w_true=cam0.width, pose_chunk=cfg.pose_chunk,
     )
-    return (out, ("march",) * len(layers)) if return_tiers else out
+    return (out, tuple(modes)) if return_tiers else out
+
+
+def _render_transposed(projector, cameras, return_tiers, **kwargs):
+    """The pitch route: render the x<->y transposed problem (target
+    height padded symmetrically to a 128-multiple), slice the pad off and
+    swap the axes back on the device. The recursive call cannot transpose
+    again: the doubly transposed batch is the one whose plan just
+    failed."""
+    cam0 = cameras[0]
+    h_pad = -(-cam0.height // 128) * 128 - cam0.height
+    half = h_pad // 2
+    cams_t = [
+        Camera.create(
+            cam0.height + h_pad, cam0.width, focal_px=float(cam0.focal_px),
+            position=np.asarray(cam.position, np.float64)[list(_SWAP_XY)],
+            rotation=_conj_swap_xy(cam.rotation),
+            skew=np.asarray(cam0.skew)[::-1],
+        )
+        for cam in cameras
+    ]
+    res = render_fast_batch(
+        _transposed_projector(projector), cams_t, return_tiers=return_tiers,
+        _transpose=False, **kwargs,
+    )
+    out_t, tiers = res if return_tiers else (res, None)
+    out = out_t[:, :, half : half + cam0.height, :].transpose(1, 2)
+    out = out.contiguous()
+    return (out, tiers) if return_tiers else out
+
+
+# layer keys that carry a leading pose axis (split by the pose chunks)
+_PP_KEYS = ("plane_invz", "grids", "pose_sc")
 
 
 def _fast_batch_core(
-    layers, c1_b, background, *, plans, nums, crops, refine, feathering,
-    mask_mode, to_srgb, pad_dx, out_w_true, pose_chunk,
+    layers, modes, setups, c1_b, background, *, plans, nums, crops, refine,
+    t_refine, feathering, mask_mode, to_srgb, pad_dx, out_w_true,
+    pose_chunk,
 ):
     """The body of render_fast_batch: hoists the march's source prep, then
     renders balanced pose chunks of at most `pose_chunk` poses (a bound
     on the per-chunk intermediates) and slices the width pad off."""
-    layers = _attach_march_prep(layers, plans, crops)
+    layers = _attach_march_prep(layers, modes, plans, crops)
     batch = len(c1_b)
     size = batch
     if pose_chunk and batch > pose_chunk:
         size = _balanced_chunk(batch, pose_chunk)
     outs = [
         _fast_chunk_body(
-            [dict(lay, plane_invz=lay["plane_invz"][s : s + size])
+            [dict(lay, **{k: lay[k][s : s + size]
+                          for k in _PP_KEYS if k in lay})
              for lay in layers],
-            c1_b[s : s + size], background,
+            modes, setups, c1_b[s : s + size], background,
             plans=plans, nums=nums, crops=crops, refine=refine,
-            feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
-            pad_dx=pad_dx,
+            t_refine=t_refine, feathering=feathering, mask_mode=mask_mode,
+            to_srgb=to_srgb, pad_dx=pad_dx,
         )
         for s in range(0, batch, size)
     ]
@@ -379,15 +686,18 @@ def _fast_batch_core(
 
 
 def _fast_chunk_body(
-    layers, c1_b, background, *, plans, nums, crops, refine, feathering,
-    mask_mode, to_srgb, pad_dx,
+    layers, modes, setups, c1_b, background, *, plans, nums, crops, refine,
+    t_refine, feathering, mask_mode, to_srgb, pad_dx,
 ):
-    """One pose chunk: per-layer march + front-to-back LDI compositing."""
+    """One pose chunk: per-layer tier render + front-to-back LDI
+    compositing."""
     result_rgb = result_a = None
-    for lay, plan, k_l, crop_y in zip(layers, plans, nums, crops):
+    for lay, mode, setup, plan, k_l, crop_y in zip(
+        layers, modes, setups, plans, nums, crops
+    ):
         layer = _layer_tier_batch(
-            lay, "march", plan, k_l, crop_y, c1_b, refine=refine,
-            feathering=feathering, mask_mode=mask_mode,
+            lay, mode, setup, plan, k_l, crop_y, c1_b, refine=refine,
+            t_refine=t_refine, feathering=feathering, mask_mode=mask_mode,
             base_offset=(pad_dx, 0.0),
         )  # (B, H, W, 4), premultiplied
         la = layer[..., 3]

@@ -18,7 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["bilinear_sample", "read_disp"]
+__all__ = [
+    "bilinear_sample",
+    "bilinear_sample_packed",
+    "pack_rgbm",
+    "read_disp",
+]
 
 
 def bilinear_sample(tex: torch.Tensor, u, v, res_w, res_h) -> torch.Tensor:
@@ -53,6 +58,60 @@ def bilinear_sample(tex: torch.Tensor, u, v, res_w, res_h) -> torch.Tensor:
     t01 = tex[iy0, ix1]
     t10 = tex[iy1, ix0]
     t11 = tex[iy1, ix1]
+    top = t00 + (t01 - t00) * fx
+    bot = t10 + (t11 - t10) * fx
+    return top + (bot - top) * fy
+
+
+def _edge_weights(x0, y0, fx, fy, wmax: int, hmax: int):
+    """Zero the lerp weight wherever clamping collapses both taps onto one
+    texel (left of texel 0's center, or at the logical right/top edge)."""
+    fx = torch.where((x0 >= 0) & (x0 < wmax), fx, 0.0)
+    fy = torch.where((y0 >= 0) & (y0 < hmax), fy, 0.0)
+    return fx, fy
+
+
+def pack_rgbm(rgb: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Pack (H, W, 3) rgb in [0,1] + (H, W) mask into one int32 channel:
+    10 bits per color (rounded half to even) + 1 mask bit. The largest
+    value, 1023 << 21 | ..., fits in int32."""
+    q = torch.clamp(torch.round(rgb.to(torch.float32) * 1023.0), 0, 1023)
+    q = q.to(torch.int32)
+    m = (mask > 0.5).to(torch.int32)
+    return (q[..., 0] << 21) | (q[..., 1] << 11) | (q[..., 2] << 1) | m
+
+
+def _unpack_rgbm(packed: torch.Tensor) -> torch.Tensor:
+    scale = torch.full((), 1023.0, dtype=torch.float32, device=packed.device)
+    r = ((packed >> 21) & 1023).to(torch.float32) / scale
+    g = ((packed >> 11) & 1023).to(torch.float32) / scale
+    b = ((packed >> 1) & 1023).to(torch.float32) / scale
+    m = (packed & 1).to(torch.float32)
+    return torch.stack([r, g, b, m], dim=-1)
+
+
+def bilinear_sample_packed(packed_tex, u, v, res_w, res_h) -> torch.Tensor:
+    """Bilinear sample of a pack_rgbm texture with clamp-to-edge: four
+    corner reads, unpack, blend. Returns (..., 4) = [r, g, b, mask]."""
+    sx = u * res_w - 0.5
+    sy = v * res_h - 0.5
+    fl_x = torch.floor(sx)
+    fl_y = torch.floor(sy)
+    x0 = fl_x.to(torch.int64)
+    y0 = fl_y.to(torch.int64)
+    wmax = int(res_w) - 1
+    hmax = int(res_h) - 1
+    fx, fy = _edge_weights(x0, y0, sx - fl_x, sy - fl_y, wmax, hmax)
+    fx = fx[..., None]
+    fy = fy[..., None]
+    ix0 = torch.clamp(x0, 0, wmax)
+    iy0 = torch.clamp(y0, 0, hmax)
+    ix1 = torch.clamp(x0 + 1, 0, wmax)
+    iy1 = torch.clamp(y0 + 1, 0, hmax)
+    t00 = _unpack_rgbm(packed_tex[iy0, ix0])
+    t01 = _unpack_rgbm(packed_tex[iy0, ix1])
+    t10 = _unpack_rgbm(packed_tex[iy1, ix0])
+    t11 = _unpack_rgbm(packed_tex[iy1, ix1])
     top = t00 + (t01 - t00) * fx
     bot = t10 + (t11 - t10) * fx
     return top + (bot - top) * fy

@@ -1,13 +1,14 @@
-"""The CUDA lateral-march kernel against its plain PyTorch version, on the
-card (marker `cuda`; every test skips where torch sees no CUDA device).
+"""The CUDA kernels against their plain PyTorch versions, on the card
+(marker `cuda`; every test skips where torch sees no CUDA device).
 
 This file imports neither jax nor lif_tpu, so it also runs on a GPU host
 without them: ``python -m pytest --noconftest -m cuda
-tests/test_torch_cuda.py``. The kernel must reproduce the plain march
-bit for bit in `found` and to 3e-5 in invz*/rgba* (the kernel-vs-twin
-gate of tests/test_sweep_march.py): its arithmetic is the twin's, step
-by step, so only the plane-range bounds could differ — and they are
-exact.
+tests/test_torch_cuda.py``. The lateral kernel must reproduce the plain
+march bit for bit in `found` and to 3e-5 in invz*/rgba* (the
+kernel-vs-twin gate of tests/test_sweep_march.py): its arithmetic is the
+twin's, step by step, so only the plane-range bounds could differ — and
+they are exact. The target-ray kernel is held to the kernel-vs-twin gate
+of tests/test_sweep_target.py.
 """
 
 import numpy as np
@@ -16,7 +17,9 @@ import torch
 
 import lif_tpu_torch
 from lif_tpu_torch.ops import sweep_march as tsm
+from lif_tpu_torch.ops import sweep_target as tst
 from lif_tpu_torch.ops.cuda import sweep_march as tcuda
+from lif_tpu_torch.ops.cuda import sweep_target as tcuda_t
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +100,109 @@ def test_fast_batch_on_cuda_matches_cpu(cuda):
     assert tcuda.sweep_lateral.launches == before + 4
     ref = lif_tpu_torch.render_fast_batch(proj, cams, config=cfg)
     assert (got.cpu() - ref).abs().max().item() < 1e-4
+
+
+def _roty(deg):
+    t = np.deg2rad(deg)
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
+
+
+def _rotx(deg):
+    t = np.deg2rad(deg)
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float64)
+
+
+@pytest.mark.parametrize("mode,refine,step_px", [
+    ("depth", 0, 1.0), ("depth", 2, 3.0), ("color", 0, 1.0),
+    ("color", 1, 2.0),
+])
+def test_target_kernel_matches_plain_march(cuda, mode, refine, step_px):
+    """The target-ray kernel against march_target_plain on the card, to
+    the kernel-vs-twin gate of tests/test_sweep_target.py (:149-153,
+    :180-186): found flips < 0.1%, median |dinvz*| < 1e-5 and < 0.1% of
+    pixels beyond 1e-3 (the kernel evaluates the twin's float sequence,
+    so it should be exact)."""
+    h, w = 112, 128
+    rgb, disp, mask = _scene(7, h, w)
+    f1, izmin, izmax = 0.78 * w, 2.0, 0.1
+    rots = [_roty(12.0), _roty(-8.0), _roty(0.5)]
+    cs = [np.array(c) for c in ([0.22, 0.0, -0.03], [-0.12, 0.05, 0.02],
+                                [0.0, 0.0, 0.0])]
+    plan, _, _ = tst.plan_target(w, h, w, h, f1, f1, rots, cs, izmin, izmax)
+    grids, k = tst.target_plane_grids(rots, cs, f1, f1, w, h, w, h, izmin,
+                                      izmax, step_px=step_px)
+    poses = np.stack([tst.target_pose_scalars(r, c, f1, f1, w, h, w, h)
+                      for r, c in zip(rots, cs)])
+    tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
+    rgbm = tst._rgbm_stack(tex[0], tex[2]) if mode == "color" else None
+    before = tcuda_t.sweep_target.launches
+    out = tcuda_t.march_target_cuda(
+        tex[1], izmin, izmax, torch.from_numpy(poses).to(cuda),
+        torch.from_numpy(grids).to(cuda), plan, refine=refine, rgbm=rgbm)
+    torch.cuda.synchronize()
+    assert tcuda_t.sweep_target.launches == before + 1
+    for i in range(3):
+        ref = tst.march_target_plain(tex[1], izmin, izmax, poses[i],
+                                     grids[i], w, h, refine=refine,
+                                     rgbm=rgbm)
+        f_k, f_p = out[0][i], ref[0]
+        assert (f_k != f_p).float().mean().item() < 1e-3
+        for got, want in zip(out[1:], ref[1:]):
+            err = ((got[i] - want).abs() * (f_k == f_p).reshape(
+                f_k.shape + (1,) * (want.ndim - 2))).cpu().numpy()
+            assert np.median(err) < 1e-5
+            assert (err > 1e-3).mean() < 1e-3
+    assert out[0].mean().item() > 0.5
+
+
+def test_target_kernel_rejects_bad_inputs(cuda):
+    """The wrapper refuses CPU tensors and ladders beyond 1024 planes."""
+    disp = torch.rand(16, 16, device=cuda)
+    pose = torch.zeros(1, 16, device=cuda)
+    vg = torch.zeros(1, 1100, device=cuda)
+    with pytest.raises(ValueError, match="1024"):
+        tcuda_t.sweep_target(disp, pose, vg, vg.clone(), disp.amax()[None],
+                             16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcuda_t.sweep_target(disp.cpu(), pose, vg[:, :8], vg[:, :8],
+                             disp.amax()[None], 16, 16)
+
+
+def test_orbit_fast_batch_on_cuda_matches_cpu(cuda):
+    """The orbit path on the card: a two-layer LDI yaw orbit (pose chunks
+    of 2: two layers x two chunks = 4 launches) and a pitch batch through
+    the transposed route, against the same calls on CPU tensors."""
+    h, w = 112, 128
+    rgb0, disp0, mask0 = _scene(4, h, w)
+    rgb1, disp1, _ = _scene(5, h + 16, w + 32)
+    proj = lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
+        baseline=1.0,
+        extra_layers=[dict(rgb=rgb1, disp=disp1, focal_px=0.78 * w,
+                           invz_min=0.5, invz_max=0.1)],
+    )
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(pose_chunk=2)
+    for poses, launches in (
+        ([(_roty(-6.0), [-0.1, 0.0, 0.01]), (_roty(2.0), [0.03, 0.0, 0.0]),
+          (_roty(8.0), [0.15, 0.0, -0.01])], 4),
+        ([(_rotx(6.0), [0.1, 0.0, 0.0]), (_rotx(-4.0), [0.0, 0.05, 0.0])], 2),
+    ):
+        cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                            position=c, rotation=r)
+                for r, c in poses]
+        before = tcuda_t.sweep_target.launches
+        got, tiers = lif_tpu_torch.render_fast_batch(
+            proj.to(cuda), cams, config=cfg, return_tiers=True)
+        torch.cuda.synchronize()
+        assert tiers == ("target", "target")
+        assert got.device.type == "cuda"
+        assert tcuda_t.sweep_target.launches == before + launches
+        ref = lif_tpu_torch.render_fast_batch(proj, cams, config=cfg)
+        err = (got.cpu() - ref).abs().amax(-1)
+        assert (err > 1e-3).float().mean().item() < 1e-3
+        assert err.median().item() < 1e-5
 
 
 def test_refine_raises_on_cuda(cuda):
