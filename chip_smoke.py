@@ -6,9 +6,9 @@ It needs torch with CUDA, nvcc (the CUDA toolkit) and numpy; it imports
 neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 
 1. device: a CUDA device, and its name and power limit from nvidia-smi;
-2. build: compile csrc/sweep_march.cu and csrc/sweep_target.cu with nvcc
-   (sm_90a) into lif_tpu_torch/_build/, one nvcc per source, started
-   together;
+2. build: compile csrc/sweep_march.cu, csrc/sweep_target.cu and
+   csrc/sweep_scaled.cu with nvcc (sm_90a) into lif_tpu_torch/_build/,
+   one nvcc per source, started together;
 3. lateral kernel vs plain: a seeded 1280x800 scene (smooth noise plus a
    hard near box, SFMoMA's constants: focal 0.78*W, baseline 0.045 m,
    inverse depth 0.0001..0.09), 8 lateral poses; the kernel's found /
@@ -33,7 +33,27 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 8. main path 3 (pitch): 8 pitch-orbit poses (phi over +-8 deg) through
    the transposed route, counts reset just before; tiers ('target',),
    the kernel launched, finite output;
-9. orbit timing: CUDA events, median of 5 runs after a warm-up.
+9. orbit timing: CUDA events, median of 5 runs after a warm-up;
+10. scaled kernel vs plain: the same scene, planned as render_fast_batch
+    plans the main paths (renderer.plan_tiers): the first 8 poses of the
+    dolly batch (K = 128) depth only at refine 2 (production) and refine 0,
+    and full color; the first 8 poses of the tilted orbit's phase A (its
+    1792x1024 intermediate, per-pose ladders, K = 320) depth only at
+    refine 2; found equal and max abs < 1e-4;
+11. main path 4 (dolly): render_fast_batch over 48 unrotated poses
+    (0.03 cos 2 pi t, 0.02 sin 2 pi t, z), z in linspace(-0.05, 0.05), with
+    every launch count reset just before it; tiers ('scaled',), the scaled
+    kernel launched, finite output, alpha coverage in (0.5, 1]; PSNR
+    against the 640-step march at poses 0, 24 and 47 at most 1 dB under
+    lif_tpu's value on the same scene and pose;
+12. main path 5 (tilted orbit): render_fast_batch over 16 poses
+    orbit_pose([0, 0, -1], 1, theta, 2 deg), theta in linspace(-8, 8) deg,
+    counts reset just before; tiers ('rotated',), the scaled kernel
+    launched in phase A, finite output, coverage in (0.5, 1]; PSNR at
+    poses 0, 8 and 15 at most 1 dB under lif_tpu's;
+13. scaled timing: CUDA events, median of 5 after a warm-up: frames/s of
+    both new paths, the kernel against its plain version (8 poses, depth
+    only, refine 2).
 
 The second-to-last line is the kernels' JSON record and the last line
 ``{"ok": true, "device": {...}}``.
@@ -69,6 +89,14 @@ LIF_TPU_PSNR = {0: 37.208, 30: 41.786, 60: 77.470}
 # bound (found flips and large errors under 0.1% of pixels, median
 # |dinvz*| on agreeing pixels under 1e-5)
 SHARE_MAX, MEDIAN_MAX = 1e-3, 1e-5
+N_DOLLY = 48  # dolly poses: one chunk of the default 48
+TILT_DEG, TILT_PHI, N_TILT = 8.0, 2.0, 16  # tilted orbit: yaw range, pitch
+SCALED_TOL = 1e-4  # scaled kernel vs plain, tests/test_sweep_scaled.py:167
+# lif_tpu's tier code on this scene, planned over the whole batch, against
+# its own 640-step march at the checked poses, dB; JAX on the CPU at full
+# size (the fidelity of a tier does not depend on the backend)
+LIF_TPU_DOLLY_PSNR = {0: 52.476, 24: 59.170, 47: 49.916}
+LIF_TPU_TILT_PSNR = {0: 33.711, 8: 47.477, 15: 33.917}
 
 
 class SmokeFailure(Exception):
@@ -101,6 +129,16 @@ def orbit_cams(lt, focal, thetas=(), phis=()):
     ]
 
 
+def dolly_cams(lt, focal):
+    t = np.linspace(0.0, 1.0, N_DOLLY)
+    z = np.linspace(-0.05, 0.05, N_DOLLY)
+    return [
+        lt.Camera.create(W, H, focal_px=focal, position=[
+            0.03 * np.cos(2 * np.pi * a), 0.02 * np.sin(2 * np.pi * a), b])
+        for a, b in zip(t, z)
+    ]
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -127,6 +165,7 @@ def run():
         from lif_tpu_torch.models import renderer
         from lif_tpu_torch.ops.cuda import build
         from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+        from lif_tpu_torch.ops.cuda import sweep_scaled as kscaled
         from lif_tpu_torch.ops.cuda import sweep_target as ktarget
         from lif_tpu_torch.ops.sweep_march import march_translation_plain
         from lif_tpu_torch.utils.profiling import device_timer
@@ -145,7 +184,7 @@ def run():
           f", CUDA {torch.version.cuda}", flush=True)
 
     # 2. build, one nvcc per source, all started together
-    sources = ("sweep_march", "sweep_target")
+    sources = ("sweep_march", "sweep_target", "sweep_scaled")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load_library, sources))
@@ -160,6 +199,7 @@ def run():
     def reset_counts():
         kmarch.sweep_lateral.launches = 0
         ktarget.sweep_target.launches = 0
+        kscaled.sweep_scaled.launches = 0
 
     rgb, disp = make_scene(0)
     proj = lif_tpu_torch.projector_from_arrays(
@@ -266,7 +306,8 @@ def run():
         "plain_ms": plain_ms / N_CHECK,
     }
     target = orbit_phases(proj, focal, lay, reset_counts, card)
-    return {"kernels": [lateral, target]}, card
+    scaled = scaled_phases(proj, focal, lay, reset_counts, card)
+    return {"kernels": [lateral, target, scaled]}, card
 
 
 def orbit_phases(proj, focal, lay, reset_counts, card):
@@ -407,6 +448,161 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
         "route": "cuda",
         "source": "lif_tpu_torch/csrc/sweep_target.cu",
         "replaces": "lif_tpu/ops/pallas/sweep_target.py:89",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms / N_CHECK,
+        "plain_ms": plain_ms / N_CHECK,
+    }
+
+
+def scaled_phases(proj, focal, lay, reset_counts, card):
+    """Phases 10-13: the scaled kernel against its plain version, the
+    48-pose dolly ('scaled') and the 16-pose tilted orbit ('rotated', the
+    kernel in phase A) through render_fast_batch, and their timing.
+    Returns the kernel's JSON record."""
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops import sweep_scaled as sscaled
+    from lif_tpu_torch.ops import sweep_target as starget
+    from lif_tpu_torch.ops.cuda import sweep_scaled as kscaled
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    izmin, izmax, f1 = lay["izmin_host"], lay["izmax_host"], lay["focal_host"]
+    disp = lay["disp"]
+    refine = lt.DEFAULT_CONFIG.rotated_refine  # both tiers' production value
+    cams = dolly_cams(lt, focal)
+    thetas = np.deg2rad(np.linspace(-TILT_DEG, TILT_DEG, N_TILT))
+    tcams = orbit_cams(lt, focal, thetas=list(thetas),
+                       phis=[np.deg2rad(TILT_PHI)] * N_TILT)
+
+    # 10. kernel vs plain at both main paths' shapes, planned as
+    # render_fast_batch plans them: the dolly's scaled tier (output = the
+    # source, one shared ladder) and the tilted orbit's phase A (a wider
+    # intermediate than the source, per-pose ladders, fr = 1)
+    dplan = renderer.plan_tiers(proj, cams)
+    mode, (plan, k, fr, dxu, dyu), extra = dplan.planned[0]
+    check(mode == "scaled", f"the dolly plans onto {mode!r}")
+    c1 = dplan.pos_b[:N_CHECK]
+    tabs = sscaled.scaled_table_stack(
+        plan, extra["grids"][:N_CHECK],
+        torch.as_tensor(c1, dtype=torch.float32, device=disp.device), f1, fr,
+        dxu, dyu)
+    tmode, tsetup, textra = renderer.plan_tiers(proj, tcams).planned[0]
+    check(tmode == "rotated", f"the tilted orbit plans onto {tmode!r}")
+    rplan, k_r, skip = tsetup[0], tsetup[3], tsetup[4]
+    check(not skip, "the tilted orbit skips phase A")
+    rtabs = sscaled.scaled_table_stack(
+        rplan, textra["grids"][:N_CHECK], textra["aligned"][:N_CHECK], f1,
+        1.0)
+    rgbm = starget._rgbm_stack(lay["rgb"], lay["mask"])
+    max_err = 0.0
+    for name, tb, pl, kk, ref_n, color in (
+        (f"dolly, depth-only refine {refine}", tabs, plan, k, refine, False),
+        ("dolly, depth-only refine 0", tabs, plan, k, 0, False),
+        (f"dolly, full color refine {refine}", tabs, plan, k, refine, True),
+        (f"tilted orbit phase A, depth-only refine {refine}", rtabs, rplan,
+         k_r, refine, False),
+    ):
+        out = kscaled.march_scaled_cuda(disp, izmin, izmax, tb, pl,
+                                        refine=ref_n,
+                                        rgbm=rgbm if color else None)
+        torch.cuda.synchronize()
+        mismatch, err = 0, 0.0
+        for i in range(N_CHECK):
+            ref = sscaled.march_scaled_plain(disp, izmin, izmax, tb[i], pl,
+                                             refine=ref_n,
+                                             rgbm=rgbm if color else None)
+            mismatch += int((out[0][i] != ref[0]).sum())
+            for got, want in zip(out[1:], ref[1:]):
+                err = max(err, float((got[i] - want).abs().max()))
+        print(f"scaled kernel vs plain, {name} ({N_CHECK} poses, "
+              f"{pl.out_w}x{pl.out_h} from {W}x{H}, K={kk}): found "
+              f"mismatches {mismatch}, max abs {err:.3g} (tolerance "
+              f"{SCALED_TOL:g}); found share {float(out[0].mean()):.4f}",
+              flush=True)
+        check(mismatch == 0, f"{name}: {mismatch} found pixels differ")
+        check(err < SCALED_TOL, f"{name}: the scaled kernel disagrees")
+        max_err = max(max_err, err)
+        del out
+
+    # 11. main path 4: the dolly, every launch count zeroed just before it
+    reset_counts()
+    out, tiers = lt.render_fast_batch(proj, cams, return_tiers=True)
+    torch.cuda.synchronize()
+    launches = kscaled.sweep_scaled.launches
+    coverage = float(out[..., 3].mean())
+    print(f"main path 4: render_fast_batch({N_DOLLY} dolly poses) -> "
+          f"{tuple(out.shape)}, tiers {tiers}, scaled_march launches "
+          f"{launches}, alpha coverage {coverage:.4f}", flush=True)
+    check(tiers == ("scaled",), f"dolly tiers {tiers}")
+    check(launches > 0, "the dolly did not launch the scaled kernel")
+    check(tuple(out.shape) == (N_DOLLY, H, W, 4), f"shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite dolly output")
+    check(0.5 < coverage <= 1.0, f"dolly alpha coverage {coverage}")
+    for i, ref_db in LIF_TPU_DOLLY_PSNR.items():
+        exact = lt.render_mono_view(proj, cams[i], mask_mode="none",
+                                    num_steps=640)
+        q = psnr(out[i], exact)
+        print(f"fidelity vs the 640-step march at dolly pose {i}: {q:.2f} "
+              f"dB, lif_tpu {ref_db:.2f} dB", flush=True)
+        check(q >= ref_db - 1.0, f"dolly pose {i}: {q:.2f} dB, lif_tpu "
+                                 f"{ref_db}")
+    del out
+
+    # 12. main path 5: the tilted orbit through the two-phase tier
+    reset_counts()
+    tout, ttiers = lt.render_fast_batch(proj, tcams, return_tiers=True)
+    torch.cuda.synchronize()
+    tlaunches = kscaled.sweep_scaled.launches
+    coverage = float(tout[..., 3].mean())
+    print(f"main path 5: render_fast_batch({N_TILT} tilted orbit poses, "
+          f"+-{TILT_DEG:g} deg at {TILT_PHI:g} deg pitch) -> "
+          f"{tuple(tout.shape)}, tiers {ttiers}, scaled_march launches "
+          f"{tlaunches}, alpha coverage {coverage:.4f}", flush=True)
+    check(ttiers == ("rotated",), f"tilted orbit tiers {ttiers}")
+    check(tlaunches > 0, "the tilted orbit did not launch the scaled kernel")
+    check(tuple(tout.shape) == (N_TILT, H, W, 4), "tilted orbit shape")
+    check(bool(torch.isfinite(tout).all()), "non-finite tilted orbit output")
+    check(0.5 < coverage <= 1.0, f"tilted orbit alpha coverage {coverage}")
+    for i, ref_db in LIF_TPU_TILT_PSNR.items():
+        exact = lt.render_mono_view(proj, tcams[i], mask_mode="none",
+                                    num_steps=640)
+        q = psnr(tout[i], exact)
+        print(f"fidelity vs the 640-step march at tilted orbit pose {i} "
+              f"(theta {np.rad2deg(thetas[i]):+.2f} deg): {q:.2f} dB, "
+              f"lif_tpu {ref_db:.2f} dB", flush=True)
+        check(q >= ref_db - 1.0, f"tilted pose {i}: {q:.2f} dB, lif_tpu "
+                                 f"{ref_db}")
+    del tout
+
+    # 13. timing on the card
+    dolly_ms = device_timer(lt.render_fast_batch, proj, cams, iters=1,
+                            repeats=5)
+    tilt_ms = device_timer(lt.render_fast_batch, proj, tcams, iters=1,
+                           repeats=5)
+    kernel_ms = device_timer(kscaled.march_scaled_cuda, disp, izmin, izmax,
+                             tabs, plan, refine=2, iters=10, repeats=5)
+    plain_ms = device_timer(lambda: [
+        sscaled.march_scaled_plain(disp, izmin, izmax, tabs[i], plan,
+                                   refine=2)
+        for i in range(N_CHECK)
+    ], iters=1, repeats=5)
+    print(f"render_fast_batch dolly: {dolly_ms:.3f} ms per {N_DOLLY} poses "
+          f"= {N_DOLLY / (dolly_ms / 1e3):.1f} frames/s at {W}x{H} [{card}]",
+          flush=True)
+    print(f"render_fast_batch tilted orbit: {tilt_ms:.3f} ms per {N_TILT} "
+          f"poses = {N_TILT / (tilt_ms / 1e3):.1f} frames/s at {W}x{H} "
+          f"[{card}]", flush=True)
+    print(f"scaled_march kernel: {kernel_ms / N_CHECK:.4f} ms/frame, plain "
+          f"march {plain_ms / N_CHECK:.3f} ms/frame ({N_CHECK}-pose batch, "
+          f"K={k}, depth only, refine 2) [{card}]", flush=True)
+    return {
+        "name": "scaled_march",
+        "route": "cuda",
+        "source": "lif_tpu_torch/csrc/sweep_scaled.cu",
+        "replaces": "lif_tpu/ops/pallas/sweep_scaled.py:60",
         "launches": launches,
         "max_abs_err": max_err,
         "ms": kernel_ms / N_CHECK,

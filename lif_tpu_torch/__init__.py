@@ -3,10 +3,13 @@
 A second package beside the JAX one (lif_tpu, the reference). It mirrors
 lif_tpu's layout and names; each TPU kernel of a ported path becomes a
 hand-written CUDA kernel (csrc/), compiled by nvcc at first use. Ported
-so far: the exact ray march, and two paths of render_fast_batch: the
-lateral snap-plane march and the orbit's target-ray march (yaw-family
-poses, and pitch-family poses through an x<->y transpose). It imports
-neither jax nor lif_tpu.
+so far: the exact ray march, and four tiers of render_fast_batch: the
+lateral snap-plane march ('march'), the scaled march for other unrotated
+poses ('scaled'), the orbit's target-ray march ('target': yaw-family
+poses, and pitch-family poses through an x<->y transpose) and the
+two-phase fallback for other rotated poses ('rotated'). As in lif_tpu,
+the top level exports the render entry points; the tiers' functions stay
+in lif_tpu_torch.ops. It imports neither jax nor lif_tpu.
 """
 
 __version__ = "0.1.0"

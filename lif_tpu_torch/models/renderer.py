@@ -2,26 +2,31 @@
 
 The counterpart of lif_tpu.models.renderer for the slice the port has so
 far: the exact ray march (render_mono_view, render(mode='raycast')) and
-the production fast path render_fast_batch on two tiers —
+the production fast path render_fast_batch on four tiers —
   * 'march': LATERAL pose batches, the snap-plane first-crossing march
     (on CUDA through csrc/sweep_march.cu);
+  * 'scaled': other UNROTATED batches (y/z translation, dolly, zoom) and
+    lateral layers the march cannot take, the scaled first-crossing march
+    plus one packed color fetch (on CUDA through csrc/sweep_scaled.cu);
   * 'target': rotated YAW-family pose batches (the orbit), the
     single-phase target-ray march (on CUDA through csrc/sweep_target.cu),
-    and PITCH-family batches through an x<->y transpose onto it.
-A pose, layer or option that needs a tier the port does not have yet
-('scaled', 'rotated', 'sweep', ...) raises NotImplementedError naming
-it; nothing falls back to an approximate tier.
+    and PITCH-family batches through an x<->y transpose onto it;
+  * 'rotated': the two-phase fallback for other rotated batches, phase A
+    on the scaled march (csrc/sweep_scaled.cu), phase B plain torch.
+A pose, layer or option that needs what the port does not have yet (the
+'sweep' fallback, the skewed lateral fold, ...) raises
+NotImplementedError naming it; nothing falls back to an approximate tier.
 
-Host-side planning (relative poses, plane grids, pad plans, the target
-tier's extents and pose packs) runs in numpy; the textures and every
-per-pixel operation stay on the projector's device.
+Host-side planning (relative poses, plane grids, pad plans, the tiers'
+extents and pose packs) runs in numpy; the textures and every per-pixel
+operation stay on the projector's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -31,12 +36,15 @@ from ..core.camera import Camera
 from ..core.pose import relative_view_pose
 from ..ops import composite as _composite
 from ..ops import raycast as _raycast
+from ..ops import rotated_march as _rotated_march
 from ..ops import sweep_march as _sweep_march
+from ..ops import sweep_scaled as _sweep_scaled
 from ..ops import sweep_target as _sweep_target
 from ..ops.cuda.sweep_march import prepare_translation_src
 from .projector import Projector
 
-__all__ = ["render", "render_fast_batch", "render_mono_view"]
+__all__ = ["TierPlan", "plan_tiers", "render", "render_fast_batch",
+           "render_mono_view"]
 
 # Two caches for the fast path, both LRU. The TEXTURE cache holds the
 # pose-independent per-layer views and host scalars once per projector;
@@ -289,32 +297,64 @@ def _plan_target_entry(lay, f2_host, out_w, out_h, rot_list, pos_list, cfg,
     )
 
 
-def _plan_march_tier(lay, f2_host, out_w, out_h, rot_list, pos_list,
-                     rotated, skewed, cfg, explicit_planes, device):
-    """The non-lateral tier cascade of lif_tpu: 'scaled' for unrotated
-    poses; else 'target' (the single-phase target-ray march of the yaw
-    family) with 'rotated' (the two-phase march) as the fallback. The
-    port has the target tier: the other branches raise _TierNotPorted
-    naming theirs. Returns (mode, setup, per-pose device extras).
+def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b,
+                     rot_list, pos_list, rotated, cfg, explicit_planes,
+                     device, dx_user=0.0, sk1=None, sk2=None):
+    """The non-lateral tier cascade of lif_tpu (one definition, as its
+    _plan_march_tier): 'scaled' (the aligned xyz/zoom march) for
+    unrotated poses; else 'target' (the single-phase target-ray march of
+    the yaw family) with 'rotated' (the two-phase march) as the fallback.
+    Returns (mode, setup, per-pose device extras). Raises ValueError when
+    no tier covers the pose batch (lif_tpu then falls back to the sweep).
+
+    `out_w` is the (possibly width-padded) band width the scaled tier
+    renders, with the pad's constant shift in `dx_user`; `out_w_true` the
+    true output width the target and rotated tiers plan at.
+
+    Frustum skew (sk1 source / sk2 camera, tangent units): unrotated poses
+    fold it as the constant pixel shift -f1*(sk1 - sk2) into the scaled
+    tier's dx/dy_user; rotated poses carry S(sk1)/S(sk2) into the
+    two-phase tier's FSKR sandwiches. As in lif_tpu, skewed frustums (and
+    padded widths) skip the target tier.
 
     The target plan (ladders, pose packs and their uploads) is memoized
-    on the exact pose batch, so replayed trajectories pay it once. As in
-    lif_tpu, skewed frustums skip the target tier."""
+    on the exact pose batch, so replayed trajectories pay it once."""
+    sk1 = np.zeros(2) if sk1 is None else np.asarray(sk1, np.float64)
+    sk2 = np.zeros(2) if sk2 is None else np.asarray(sk2, np.float64)
+    d = -lay["focal_host"] * (sk1 - sk2)
+    skewed = bool(np.abs(d).sum() > 1e-12)
     if not rotated:
-        raise _TierNotPorted(
-            "scaled", "unrotated poses with a y or z translation"
+        fr = lay["focal_host"] / f2_host
+        plan = _sweep_scaled.scaled_plan(
+            lay["w"], lay["h"], out_w, out_h, lay["focal_host"], fr,
+            float(np.abs(pos_b[:, 0]).max()), float(np.abs(pos_b[:, 1]).max()),
+            float(min(pos_b[:, 2].min(), 0.0)),
+            float(max(pos_b[:, 2].max(), 0.0)),
+            lay["izmin_host"], lay["izmax_host"],
+            dx_user=dx_user + float(d[0]), dy_user=float(d[1]),
         )
-    if not skewed:
+        grids, k_l = _sweep_scaled.parallax_step_grids_batch(
+            lay["focal_host"], pos_b, fr, out_w, out_h, lay["izmin_host"],
+            lay["izmax_host"], step_px=cfg.rotated_step_px,
+            num_planes=explicit_planes,
+        )
+        return (
+            "scaled",
+            (plan, k_l, fr, dx_user + float(d[0]), float(d[1])),
+            {"grids": torch.as_tensor(grids, device=device)},
+        )
+    if dx_user == 0.0 and not skewed:
         key = (
-            lay["w"], lay["h"], out_w, out_h, lay["focal_host"], f2_host,
-            lay["izmin_host"], lay["izmax_host"], cfg.target_step_px,
-            explicit_planes, np.asarray(rot_list, np.float64).tobytes(),
+            lay["w"], lay["h"], out_w_true, out_h, lay["focal_host"],
+            f2_host, lay["izmin_host"], lay["izmax_host"],
+            cfg.target_step_px, explicit_planes,
+            np.asarray(rot_list, np.float64).tobytes(),
             np.asarray(pos_list, np.float64).tobytes(), str(device),
         )
         entry = _TARGET_PLAN_CACHE.get(key)
         if entry is None:
             entry = _plan_target_entry(
-                lay, f2_host, out_w, out_h, rot_list, pos_list, cfg,
+                lay, f2_host, out_w_true, out_h, rot_list, pos_list, cfg,
                 explicit_planes, device,
             ) or "ineligible"
             _lru_put(_TARGET_PLAN_CACHE, _TARGET_PLAN_CACHE_MAX, key, entry)
@@ -322,10 +362,23 @@ def _plan_march_tier(lay, f2_host, out_w, out_h, rot_list, pos_list,
             _TARGET_PLAN_CACHE.move_to_end(key)
         if entry != "ineligible":
             return entry
-    raise _TierNotPorted(
+    sk1_t = (float(sk1[0]), float(sk1[1]))
+    sk2_t = (float(sk2[0]), float(sk2[1]))
+    plan, wi, hi, aligned, grids, k_l, skip = _rotated_march.plan_rotated(
+        lay["w"], lay["h"], out_w_true, out_h, lay["focal_host"], f2_host,
+        rot_list, pos_list, lay["izmin_host"], lay["izmax_host"],
+        step_px=cfg.rotated_step_px, num_planes=explicit_planes,
+        sk1=sk1_t, sk2=sk2_t,
+    )
+    grids = np.zeros((len(pos_list), 1), np.float32) if skip else grids
+    return (
         "rotated",
-        "a rotated pose batch outside the target tier (skewed, not "
-        "yaw-family, or beyond its plan budgets)",
+        (plan, wi, hi, max(k_l, 1), skip, sk1_t, sk2_t),
+        {
+            "aligned": torch.as_tensor(aligned, dtype=torch.float32,
+                                       device=device),
+            "grids": torch.as_tensor(grids, device=device),
+        },
     )
 
 
@@ -423,19 +476,47 @@ def _layer_tier_batch(
     k_l,
     crop_y,
     c1_b,
+    rot_b,
+    f2,
+    out_w,
+    out_h,
     *,
     refine,
+    rot_refine,
     t_refine,
     feathering,
     mask_mode,
     base_offset=(0.0, 0.0),
 ):
     """ONE LDI layer's pose-batched render through its routed tier — the
-    tier switch. 'march': the lateral snap translation, c1_b the (B, 3)
-    host pose batch; 'target': the target-ray march with its setup
-    (plan, K) and the per-pose pose packs and ladders in `lay`. Returns
-    the (B, H, W, 4) premultiplied RGBA over a zero background."""
+    tier switch. c1_b (B, 3) and rot_b (B, 3, 3) are the host pose batch.
+    'march': the lateral snap translation; 'scaled': the aligned march
+    with its setup (plan, K, fr, dx, dy) and per-pose ladders in `lay`;
+    'target': the target-ray march with its setup (plan, K) and the
+    per-pose pose packs and ladders in `lay`; 'rotated': the two-phase
+    march with its setup (plan, wi, hi, K, skip_phase_a, sk1, sk2) and the
+    aligned positions and ladders in `lay`, rendered at the true width
+    out_w. Returns the (B, H, W, 4) premultiplied RGBA over a zero
+    background."""
     zero_bg = np.zeros(4, np.float32)
+    if mode == "scaled":
+        splan, k_s, fr, dxu, dyu = setup
+        return _sweep_scaled.render_scaled_fetch_batch(
+            lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
+            lay["izmax_host"], c1_b, lay["focal_host"], fr, lay["grids"],
+            zero_bg, splan, k_s, feathering=feathering, mask_mode=mask_mode,
+            to_srgb=False, refine=rot_refine, dx_user=dxu, dy_user=dyu,
+        )
+    if mode == "rotated":
+        rplan, wi, hi, k_r, skip, sk1_t, sk2_t = setup
+        return _rotated_march.render_rotated_march_batch(
+            lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
+            lay["izmax_host"], lay["focal_host"], c1_b, rot_b,
+            lay["aligned"], f2, lay["grids"], zero_bg, rplan, k_r, out_w,
+            out_h, wi, hi, feathering=feathering, mask_mode=mask_mode,
+            to_srgb=False, refine=rot_refine, skip_phase_a=skip, sk1=sk1_t,
+            sk2=sk2_t,
+        )
     if mode == "target":
         tplan, k_t = setup
         return _sweep_target.render_target_fetch_batch(
@@ -473,32 +554,126 @@ def render_fast_batch(
     """Render MANY novel views; returns (B, H, W, 4) on the projector's
     device (GL-oriented, row 0 = bottom).
 
-    The port's slice of lif_tpu's production entry point, with lif_tpu's
-    tier routing:
-      * LATERAL batches (no relative rotation, translation along x only)
-        march every layer on the 'march' tier (matched focal, even
-        outpaint margins, plane_mode='snap', no frustum skew);
-      * rotated YAW-family batches take the 'target' tier per layer (its
-        planner decides; each layer plans with its own source dims);
-      * PITCH-family batches, which fail the target planner upright,
-        render transposed: source and cameras x<->y swapped, the height
-        padded to a 128-multiple, the pad sliced off and the axes swapped
-        back on the device.
-    On CUDA each layer launches its kernel once per pose chunk; the layers
-    are over-composited front to back. Anything else raises
-    NotImplementedError naming the tier it needs ('scaled', 'rotated',
-    ...).
+    The port of lif_tpu's production entry point, with lif_tpu's per-layer
+    tier routing over the four tiers the port has:
+      * 'march': LATERAL batches (no relative rotation, translation along
+        x only) on march-eligible layers (matched focal, even outpaint
+        margins, plane_mode='snap', no frustum skew);
+      * 'scaled': every other unrotated batch (y/z translation, dolly,
+        zoom) and lateral layers that are not march-eligible;
+      * 'target': rotated YAW-family batches (each layer plans with its
+        own source dims); PITCH-family batches, which fail the target
+        planner upright, render transposed: source and cameras x<->y
+        swapped, the height padded to a 128-multiple, the pad sliced off
+        and the axes swapped back on the device;
+      * 'rotated': the two-phase fallback for rotated batches outside the
+        target tier (yaw + pitch together, roll, skewed frustums).
+    Non-8-divisible widths render a padded band on 'march'/'scaled' and
+    slice the true width; the pad is dropped when a layer takes another
+    tier. On CUDA each layer launches its kernel once per pose chunk; the
+    layers are over-composited front to back. A batch no march tier
+    covers (lif_tpu's 'sweep' fallback), a skewed lateral batch and the
+    sweep method raise NotImplementedError naming what they need.
 
     return_tiers=True returns (images, tiers) with the per-layer tier.
     Batches larger than config.pose_chunk render in balanced chunks (a
     bound on the per-chunk intermediates, nothing more). All cameras must
-    share width/height/focal/skew; poses may vary.
+    share width/height/focal/skew; poses may vary. plan_tiers gives the
+    planning alone.
     """
     cfg = config or DEFAULT_CONFIG
     background = cfg.background if background is None else background
     feathering = cfg.feathering if feathering is None else feathering
     to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
     refine = cfg.march_refine if refine is None else refine
+    if method not in ("auto", "march"):
+        raise NotImplementedError(
+            f"method={method!r}: the plane-sweep tier is not ported yet"
+        )
+    tp = plan_tiers(projector, cameras, cfg, num_planes)
+    cam0 = cameras[0]
+    pos_b, rot_b, planned = tp.pos_b, tp.rot_b, tp.planned
+    out_w_eff, dx_pad = tp.out_w_eff, tp.dx_pad
+    if mask_mode is None:
+        mask_mode = "multiply" if projector.num_layers > 1 else "none"
+    modes = [p[0] for p in planned]
+    if (
+        _transpose
+        and tp.rotated
+        and any(m in ("rotated", "sweep") for m in modes)
+        and _transposed_target_ok(tp.tex_layers, tp.f2_host, cam0,
+                                  tp.rot_list, tp.pos_list)
+    ):
+        return _render_transposed(
+            projector, cameras, return_tiers, background=background,
+            feathering=feathering, to_srgb=to_srgb, num_planes=num_planes,
+            method=method, mask_mode=mask_mode, refine=refine, config=config,
+        )
+    if "sweep" in modes and (method == "march" or tp.skewed):
+        raise ValueError(
+            "method='march' or a skewed frustum needs poses the march tiers "
+            "cover (lateral, aligned xyz/zoom, or bounded rotation with "
+            "matched-focal layers)"
+        )
+    for _, setup, _ in planned:
+        if isinstance(setup, _TierNotPorted):
+            raise setup
+
+    max_cx = float(np.abs(pos_b[:, 0]).max())
+    layers, setups, plans, crops, nums = [], [], [], [], []
+    for lay, (mode, setup, extra) in zip(tp.tex_layers, planned):
+        plan, crop_y, k_l = None, 0, None
+        if mode == "march":
+            plan = _march_plan(dict(lay, h=cam0.height), max_cx, out_w_eff,
+                               cam0.height, phase_abs=dx_pad)
+            crop_y = (lay["h"] - cam0.height) // 2
+            tab, k_l = _snap_tables(lay, pos_b[:, 0], num_planes, 0.0,
+                                    cfg.march_stride, projector.device)
+            extra = {"plane_invz": tab}
+        layers.append(dict(lay, **extra))
+        setups.append(setup)
+        plans.append(plan)
+        crops.append(crop_y)
+        nums.append(k_l)
+    out = _fast_batch_core(
+        layers, modes, setups, pos_b, rot_b, background, plans=plans,
+        nums=nums, crops=crops, refine=refine, rot_refine=cfg.rotated_refine,
+        t_refine=cfg.target_refine, feathering=feathering,
+        mask_mode=mask_mode, to_srgb=to_srgb, pad_dx=dx_pad, f2=tp.f2_host,
+        out_h=cam0.height, out_w_true=cam0.width, pose_chunk=cfg.pose_chunk,
+    )
+    return (out, tuple(modes)) if return_tiers else out
+
+
+class TierPlan(NamedTuple):
+    """How render_fast_batch plans a pose batch, before the pitch route's
+    transpose: the per-layer (mode, setup, per-pose device extras) of the
+    tier cascade, with the inputs it was planned from."""
+
+    tex_layers: list  # _prepared_textures, one dict per LDI layer
+    planned: list  # per layer (mode, setup, extras); 'sweep': the error
+    pos_b: np.ndarray  # (B, 3) relative projector positions
+    rot_b: np.ndarray  # (B, 3, 3) relative rotations
+    pos_list: tuple
+    rot_list: tuple
+    rotated: bool
+    skewed: bool
+    f2_host: float  # camera focal, px
+    out_w_eff: int  # band width of 'march'/'scaled' (the width pad)
+    dx_pad: float  # the pad's constant x-offset
+
+
+def plan_tiers(projector: Projector, cameras: Sequence[Camera],
+               config: RenderConfig | None = None,
+               num_planes: int | None = None) -> TierPlan:
+    """Plan a pose batch as render_fast_batch does (relative poses, the
+    per-layer tier cascade, the width pad) without rendering it. The
+    'scaled' setup is (plan, K, fr, dx_user, dy_user) with the ladders in
+    extras['grids']; the 'rotated' setup is (plan, wi, hi, K,
+    skip_phase_a, sk1, sk2) with extras['aligned'] and extras['grids'];
+    the 'target' setup is (plan, K); 'march' plans later, per call. Raises
+    what render_fast_batch raises for cameras it cannot batch."""
+    cfg = config or DEFAULT_CONFIG
     if len(cameras) == 0:
         raise ValueError("render_fast_batch needs at least one camera")
     cam0 = cameras[0]
@@ -513,10 +688,6 @@ def render_fast_batch(
                 "render_fast_batch cameras must share intrinsics "
                 "(width/height/focal/skew)"
             )
-    if method not in ("auto", "march"):
-        raise NotImplementedError(
-            f"method={method!r}: the plane-sweep tier is not ported yet"
-        )
 
     pos_list, rot_list = zip(*(
         relative_view_pose(
@@ -533,95 +704,55 @@ def render_fast_batch(
         and np.abs(pos_b[:, 1]).max() < 1e-9
         and np.abs(pos_b[:, 2]).max() < 1e-9
     )
-    skewed = bool(np.abs(projector.skew - cam0.skew).sum() > 1e-12)
-    if mask_mode is None:
-        mask_mode = "multiply" if projector.num_layers > 1 else "none"
+    sk1 = np.asarray(projector.skew, np.float64)
+    sk2 = np.asarray(cam0.skew, np.float64)
+    skewed = bool(np.abs(sk1 - sk2).sum() > 1e-12)
     tex_layers = _prepared_textures(projector)
     f2_host = float(cam0.focal_px)
+    if lateral and cfg.plane_mode != "snap":
+        raise NotImplementedError(
+            f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
+            "ported"
+        )
+    if lateral and skewed:
+        raise NotImplementedError(
+            "skewed frustums need the skewed lateral fold, which is not "
+            "ported yet"
+        )
 
-    if lateral:
-        if cfg.plane_mode != "snap":
-            raise NotImplementedError(
-                f"plane_mode={cfg.plane_mode!r}: only the snap march grid "
-                "is ported"
+    def layer_mode(lay, out_w_eff, dx_pad):
+        """Per-layer tier: 'march' (lateral snap), else the non-lateral
+        cascade; a batch no march tier covers is lif_tpu's 'sweep'."""
+        if lateral and _march_eligible(lay, f2_host, out_w_eff, cam0.height,
+                                       out_w_true=cam0.width):
+            return "march", None, {}
+        try:
+            return _plan_march_tier(
+                lay, f2_host, out_w_eff, cam0.width, cam0.height, pos_b,
+                rot_list, pos_list, rotated, cfg, num_planes,
+                projector.device, dx_user=dx_pad, sk1=sk1, sk2=sk2,
             )
-        if skewed:
-            raise NotImplementedError(
-                "skewed frustums need the skewed lateral fold, which is not "
-                "ported yet"
-            )
-        # non-8-divisible widths: march a wpad-wider band with a constant
-        # wpad/2 x-offset, then slice the true width
-        wpad = _width_pad(cam0.width)
-        out_w_eff = cam0.width + wpad
-        dx_pad = wpad / 2.0
-        max_cx = float(np.abs(pos_b[:, 0]).max())
-        layers, plans, crops, nums = [], [], [], []
-        for li, lay in enumerate(tex_layers):
-            if not _march_eligible(lay, f2_host, out_w_eff, cam0.height,
-                                   out_w_true=cam0.width):
-                raise NotImplementedError(
-                    f"layer {li} is not march-eligible (mismatched focal or "
-                    "dims): it needs the scaled or sweep tier, which is not "
-                    "ported yet"
-                )
-            plans.append(_march_plan(
-                dict(lay, h=cam0.height), max_cx, out_w_eff, cam0.height,
-                phase_abs=dx_pad,
-            ))
-            crops.append((lay["h"] - cam0.height) // 2)
-            tab, k_l = _snap_tables(
-                lay, pos_b[:, 0], num_planes, 0.0, cfg.march_stride,
-                projector.device,
-            )
-            layers.append(dict(lay, plane_invz=tab))
-            nums.append(k_l)
-        modes = ["march"] * len(layers)
-        setups = [None] * len(layers)
-    else:
-        # the non-lateral cascade; target layers plan at the true width
-        # (lif_tpu drops the width pad whenever a layer leaves the band
-        # tiers, and its target planner rejects non-128-divisible widths)
-        dx_pad = 0.0
-        modes, setups, layers = [], [], []
-        for lay in tex_layers:
-            try:
-                mode, setup, extra = _plan_march_tier(
-                    lay, f2_host, cam0.width, cam0.height, rot_list,
-                    pos_list, rotated, skewed, cfg, num_planes,
-                    projector.device,
-                )
-            except _TierNotPorted as err:
-                mode, setup, extra = err.tier, err, {}
-            modes.append(mode)
-            setups.append(setup)
-            layers.append(dict(lay, **extra))
-        if (
-            _transpose
-            and rotated
-            and "rotated" in modes
-            and _transposed_target_ok(tex_layers, f2_host, cam0, rot_list,
-                                      pos_list)
-        ):
-            return _render_transposed(
-                projector, cameras, return_tiers, background=background,
-                feathering=feathering, to_srgb=to_srgb,
-                num_planes=num_planes, method=method, mask_mode=mask_mode,
-                refine=refine, config=config,
-            )
-        for setup in setups:
-            if isinstance(setup, _TierNotPorted):
-                raise setup
-        plans = [None] * len(layers)
-        crops = [0] * len(layers)
-        nums = [setup[1] for setup in setups]
-    out = _fast_batch_core(
-        layers, modes, setups, pos_b, background, plans=plans, nums=nums,
-        crops=crops, refine=refine, t_refine=cfg.target_refine,
-        feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
-        pad_dx=dx_pad, out_w_true=cam0.width, pose_chunk=cfg.pose_chunk,
-    )
-    return (out, tuple(modes)) if return_tiers else out
+        except ValueError as err:
+            return "sweep", _TierNotPorted(
+                "sweep", f"no march tier covers this pose batch ({err})"
+            ), {}
+
+    # non-8-divisible widths: the band tiers render a wpad-wider band with
+    # a constant wpad/2 x-offset, then slice the true width. Any other
+    # tier renders around the true image center, so the pad is dropped
+    # and only the band-tier layers re-plan.
+    wpad = _width_pad(cam0.width)
+    out_w_eff, dx_pad = cam0.width + wpad, wpad / 2.0
+    planned = [layer_mode(lay, out_w_eff, dx_pad) for lay in tex_layers]
+    if wpad and not all(p[0] in ("march", "scaled") for p in planned):
+        out_w_eff, dx_pad = cam0.width, 0.0
+        planned = [
+            layer_mode(lay, out_w_eff, dx_pad)
+            if p[0] in ("march", "scaled") else p
+            for lay, p in zip(tex_layers, planned)
+        ]
+    return TierPlan(tex_layers, planned, pos_b, rot_b, pos_list, rot_list,
+                    rotated, skewed, f2_host, out_w_eff, dx_pad)
 
 
 def _render_transposed(projector, cameras, return_tiers, **kwargs):
@@ -653,63 +784,52 @@ def _render_transposed(projector, cameras, return_tiers, **kwargs):
 
 
 # layer keys that carry a leading pose axis (split by the pose chunks)
-_PP_KEYS = ("plane_invz", "grids", "pose_sc")
+_PP_KEYS = ("plane_invz", "grids", "aligned", "pose_sc")
 
 
 def _fast_batch_core(
-    layers, modes, setups, c1_b, background, *, plans, nums, crops, refine,
-    t_refine, feathering, mask_mode, to_srgb, pad_dx, out_w_true,
-    pose_chunk,
+    layers, modes, setups, c1_b, rot_b, background, *, plans, nums, crops,
+    refine, rot_refine, t_refine, feathering, mask_mode, to_srgb, pad_dx, f2,
+    out_h, out_w_true, pose_chunk,
 ):
     """The body of render_fast_batch: hoists the march's source prep, then
     renders balanced pose chunks of at most `pose_chunk` poses (a bound
     on the per-chunk intermediates) and slices the width pad off."""
     layers = _attach_march_prep(layers, modes, plans, crops)
+    tier_kw = dict(
+        refine=refine, rot_refine=rot_refine, t_refine=t_refine,
+        feathering=feathering, mask_mode=mask_mode,
+        base_offset=(pad_dx, 0.0),
+    )
     batch = len(c1_b)
     size = batch
     if pose_chunk and batch > pose_chunk:
         size = _balanced_chunk(batch, pose_chunk)
-    outs = [
-        _fast_chunk_body(
-            [dict(lay, **{k: lay[k][s : s + size]
-                          for k in _PP_KEYS if k in lay})
-             for lay in layers],
-            modes, setups, c1_b[s : s + size], background,
-            plans=plans, nums=nums, crops=crops, refine=refine,
-            t_refine=t_refine, feathering=feathering, mask_mode=mask_mode,
-            to_srgb=to_srgb, pad_dx=pad_dx,
-        )
-        for s in range(0, batch, size)
-    ]
+    outs = []
+    for s in range(0, batch, size):
+        # front-to-back LDI over-compositing of the chunk's layers
+        result_rgb = result_a = None
+        for lay, mode, setup, plan, k_l, crop_y in zip(
+            layers, modes, setups, plans, nums, crops
+        ):
+            lay = dict(lay, **{k: lay[k][s : s + size]
+                               for k in _PP_KEYS if k in lay})
+            layer = _layer_tier_batch(
+                lay, mode, setup, plan, k_l, crop_y, c1_b[s : s + size],
+                rot_b[s : s + size], f2, out_w_true, out_h, **tier_kw,
+            )  # (B, H, W, 4), premultiplied
+            la = layer[..., 3]
+            if result_rgb is None:
+                result_rgb, result_a = layer[..., :3], la
+            else:
+                result_rgb = (result_rgb
+                              + (1.0 - result_a[..., None]) * layer[..., :3])
+                result_a = result_a + (1.0 - result_a) * la
+        outs.append(_composite.finish_over_background(
+            result_rgb, result_a, background, to_srgb
+        ))
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out[:, :, :out_w_true, :] if out.shape[2] != out_w_true else out
-
-
-def _fast_chunk_body(
-    layers, modes, setups, c1_b, background, *, plans, nums, crops, refine,
-    t_refine, feathering, mask_mode, to_srgb, pad_dx,
-):
-    """One pose chunk: per-layer tier render + front-to-back LDI
-    compositing."""
-    result_rgb = result_a = None
-    for lay, mode, setup, plan, k_l, crop_y in zip(
-        layers, modes, setups, plans, nums, crops
-    ):
-        layer = _layer_tier_batch(
-            lay, mode, setup, plan, k_l, crop_y, c1_b, refine=refine,
-            t_refine=t_refine, feathering=feathering, mask_mode=mask_mode,
-            base_offset=(pad_dx, 0.0),
-        )  # (B, H, W, 4), premultiplied
-        la = layer[..., 3]
-        if result_rgb is None:
-            result_rgb = layer[..., :3]
-            result_a = la
-        else:
-            result_rgb = result_rgb + (1.0 - result_a[..., None]) * layer[..., :3]
-            result_a = result_a + (1.0 - result_a) * la
-    return _composite.finish_over_background(
-        result_rgb, result_a, background, to_srgb
-    )
 
 
 def render_mono_view(

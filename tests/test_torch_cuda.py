@@ -17,8 +17,10 @@ import torch
 
 import lif_tpu_torch
 from lif_tpu_torch.ops import sweep_march as tsm
+from lif_tpu_torch.ops import sweep_scaled as tss
 from lif_tpu_torch.ops import sweep_target as tst
 from lif_tpu_torch.ops.cuda import sweep_march as tcuda
+from lif_tpu_torch.ops.cuda import sweep_scaled as tcuda_s
 from lif_tpu_torch.ops.cuda import sweep_target as tcuda_t
 
 pytestmark = pytest.mark.cuda
@@ -199,6 +201,143 @@ def test_orbit_fast_batch_on_cuda_matches_cpu(cuda):
         assert tiers == ("target", "target")
         assert got.device.type == "cuda"
         assert tcuda_t.sweep_target.launches == before + launches
+        ref = lif_tpu_torch.render_fast_batch(proj, cams, config=cfg)
+        err = (got.cpu() - ref).abs().amax(-1)
+        assert (err > 1e-3).float().mean().item() < 1e-3
+        assert err.median().item() < 1e-5
+
+
+def _scaled_inputs(seed, c1s, h=96, w=128, fr=1.0, plan_c1=None, lo=0.0,
+                   hi=1.0, step_px=1.0):
+    """A seeded scene (disparity scaled into [lo, hi]), its scaled plan
+    over the pose bounds of `plan_c1` (default: the poses) and per-pose
+    ladders."""
+    rgb, disp, mask = _scene(seed, h, w)
+    disp = (lo + (hi - lo) * disp).astype(np.float32)
+    f1, izmin, izmax = 0.78 * w, 2.0, 0.1
+    c1s = np.asarray(c1s, np.float64)
+    pc = c1s if plan_c1 is None else np.asarray(plan_c1, np.float64)
+    plan = tss.scaled_plan(
+        w, h, w, h, f1, fr, float(np.abs(pc[:, 0]).max()),
+        float(np.abs(pc[:, 1]).max()), float(min(pc[:, 2].min(), 0.0)),
+        float(max(pc[:, 2].max(), 0.0)), izmin, izmax)
+    grids, k = tss.parallax_step_grids_batch(f1, c1s, fr, w, h, izmin, izmax,
+                                             step_px=step_px)
+    return rgb, disp, mask, f1, izmin, izmax, plan, grids, k
+
+
+_SCALED_C1 = [[0.03, 0.0, 0.04], [0.04, 0.02, 0.0], [0.02, 0.01, 0.03]]
+
+
+def _scaled_vs_plain(cuda, inputs, c1s, refine, color, fr=1.0):
+    rgb, disp, mask, f1, izmin, izmax, plan, grids, k = inputs
+    tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
+    tabs = tss.scaled_table_stack(plan, torch.from_numpy(grids).to(cuda),
+                                  torch.as_tensor(np.asarray(c1s, np.float32),
+                                                  device=cuda), f1, fr)
+    rgbm = tst._rgbm_stack(tex[0], tex[2]) if color else None
+    before = tcuda_s.sweep_scaled.launches
+    out = tcuda_s.march_scaled_cuda(tex[1], izmin, izmax, tabs, plan,
+                                    refine=refine, rgbm=rgbm)
+    torch.cuda.synchronize()
+    assert tcuda_s.sweep_scaled.launches == before + 1
+    err = 0.0
+    for i in range(len(c1s)):
+        ref = tss.march_scaled_plain(tex[1], izmin, izmax, tabs[i], plan,
+                                     refine=refine, rgbm=rgbm)
+        assert torch.equal(out[0][i], ref[0])
+        for got, want in zip(out[1:], ref[1:]):
+            err = max(err, (got[i] - want).abs().max().item())
+    assert err < 1e-4
+    return out
+
+
+@pytest.mark.parametrize("refine,color", [(0, False), (1, False), (2, False),
+                                          (0, True), (2, True)])
+def test_scaled_kernel_matches_plain_march(cuda, refine, color):
+    """The scaled kernel against march_scaled_plain on the card: found
+    equal and max abs < 1e-4 (the kernel evaluates the twin's float
+    sequence, so it should be exact), depth only at refine 0/1/2 and
+    full color."""
+    inputs = _scaled_inputs(11, _SCALED_C1)
+    out = _scaled_vs_plain(cuda, inputs, _SCALED_C1, refine, color)
+    assert out[0].mean().item() > 0.5
+
+
+def test_scaled_kernel_start_skip_deep_in_the_ladder(cuda):
+    """Disparity in [0.05, 0.35]: the first plane a texel can reach lies
+    deep in the ladder, so the kernel starts there; the bracket must still
+    equal the twin's (which walks from plane 0)."""
+    inputs = _scaled_inputs(12, _SCALED_C1, lo=0.05, hi=0.35)
+    _, _, _, _, izmin, izmax, _, grids, _ = inputs
+    first = int(np.argmax(grids[0] <= izmax + 0.35 * (izmin - izmax)))
+    assert first > grids.shape[1] // 2
+    for refine in (0, 2):
+        _scaled_vs_plain(cuda, inputs, _SCALED_C1, refine, True)
+
+
+def test_scaled_kernel_saturated_clip_and_odd_block(cuda):
+    """A plan made for small poses, used at larger ones, saturates the
+    displacement clip at the plan's pad borders; widths 120 and 72 are not
+    multiples of the 32-column block; zoom fr = 1.08."""
+    c1s = [[0.2, 0.1, 0.05], [-0.15, -0.08, -0.04]]
+    inputs = _scaled_inputs(13, c1s, plan_c1=[[0.01, 0.005, 0.0]])
+    _scaled_vs_plain(cuda, inputs, c1s, 2, True)
+    for w in (120, 72):
+        inputs = _scaled_inputs(14, _SCALED_C1, w=w, h=56, fr=1.08)
+        _scaled_vs_plain(cuda, inputs, _SCALED_C1, 2, True, fr=1.08)
+
+
+def test_scaled_kernel_batch_equals_per_pose(cuda):
+    """Each pose of a batched launch equals the same pose launched alone."""
+    rgb, disp, mask, f1, izmin, izmax, plan, grids, k = _scaled_inputs(
+        15, _SCALED_C1)
+    d = torch.from_numpy(disp).to(cuda)
+    tabs = tss.scaled_table_stack(plan, torch.from_numpy(grids).to(cuda),
+                                  torch.tensor(_SCALED_C1, device=cuda),
+                                  f1, 1.0)
+    whole = tcuda_s.march_scaled_cuda(d, izmin, izmax, tabs, plan, refine=2)
+    for i in range(len(_SCALED_C1)):
+        one = tcuda_s.march_scaled_cuda(d, izmin, izmax, tabs[i : i + 1],
+                                        plan, refine=2)
+        assert torch.equal(one[0][0], whole[0][i])
+        assert torch.equal(one[1][0], whole[1][i])
+
+
+@pytest.mark.parametrize("w", [128, 127])
+def test_scaled_and_rotated_fast_batch_on_cuda_matches_cpu(cuda, w):
+    """The scaled tier (a dolly) and the rotated tier (yaw + pitch) of a
+    two-layer LDI on the card, pose chunks of 2 (two layers x two chunks
+    = 4 launches of the scaled kernel), at width 128 and at 127 (the pad
+    through dx_user on 'scaled', dropped on 'rotated'), against the same
+    calls on CPU tensors."""
+    h = 112
+    rgb0, disp0, mask0 = _scene(6, h, w)
+    rgb1, disp1, _ = _scene(8, h + 16, w + 32)
+    proj = lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
+        baseline=1.0,
+        extra_layers=[dict(rgb=rgb1, disp=disp1, focal_px=0.78 * w,
+                           invz_min=0.5, invz_max=0.1)],
+    )
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(pose_chunk=2)
+    for poses, tier in (
+        ([(np.eye(3), [0.03, 0.01, 0.02]), (np.eye(3), [-0.02, 0.02, -0.03]),
+          (np.eye(3), [0.0, -0.01, 0.04])], "scaled"),
+        ([(_rotx(3.0) @ _roty(4.0), [0.05, 0.01, 0.0]),
+          (_rotx(-2.0) @ _roty(-3.0), [-0.04, 0.0, 0.01]),
+          (_rotx(1.0) @ _roty(2.0), [0.0, 0.02, 0.0])], "rotated"),
+    ):
+        cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                            position=c, rotation=r)
+                for r, c in poses]
+        before = tcuda_s.sweep_scaled.launches
+        got, tiers = lif_tpu_torch.render_fast_batch(
+            proj.to(cuda), cams, config=cfg, return_tiers=True)
+        torch.cuda.synchronize()
+        assert tiers == (tier, tier)
+        assert got.device.type == "cuda" and got.shape == (3, h, w, 4)
+        assert tcuda_s.sweep_scaled.launches == before + 4
         ref = lif_tpu_torch.render_fast_batch(proj, cams, config=cfg)
         err = (got.cpu() - ref).abs().amax(-1)
         assert (err > 1e-3).float().mean().item() < 1e-3

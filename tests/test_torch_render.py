@@ -143,49 +143,84 @@ def test_raycast_mode_matches_lif_tpu(rng):
     assert _psnr(got.numpy(), ref) > 60.0
 
 
+def _roty_rad(a):
+    return np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                     [-np.sin(a), 0, np.cos(a)]])
+
+
+def _case_camera(pkg, case, beyond=False):
+    """The 64x32 camera of a test case; beyond=True moves a rotation,
+    translation or focal case past every march tier's budget (a batch
+    lif_tpu sends to its sweep fallback)."""
+    pos, rot, focal, skew = [0.03, 0.0, 0.0], None, 0.78 * 64, (0.0, 0.0)
+    if case == "rotated":
+        rot = (_roty_rad(np.deg2rad(25.0)) @ np.array(
+            [[1, 0, 0], [0, np.cos(0.436), -np.sin(0.436)],
+             [0, np.sin(0.436), np.cos(0.436)]]) if beyond
+               else _roty_rad(0.05))
+        pos = [0.0, 0.0, 0.0] if beyond else pos
+    elif case == "y_translation":
+        pos = [0.0, 10.0 if beyond else 0.03, 0.0]
+    elif case == "z_translation":
+        pos = [0.03, 0.0, 0.5 if beyond else 0.1]
+    elif case == "skewed":
+        skew = (0.02, 0.0)
+    elif case == "focal_mismatch":
+        focal = (0.2 if beyond else 0.9) * 64
+    return pkg.Camera.create(64, 32, focal_px=focal, position=pos,
+                             rotation=rot, skew=skew)
+
+
+_FORMERLY_UNCOVERED = {"rotated": "rotated", "y_translation": "scaled",
+                       "z_translation": "scaled", "focal_mismatch": "scaled"}
+
+
 @pytest.mark.parametrize("case", [
     "rotated", "y_translation", "z_translation", "skewed", "focal_mismatch",
     "uniform_planes", "sweep_method", "stereo_mode",
 ])
 def test_uncovered_poses_raise_not_implemented(rng, case):
     """Anything no ported tier covers raises NotImplementedError naming
-    the tier; it never returns a silent wrong image."""
-    _, tp = _projectors(rng, h=32, w=64)
+    what it needs; it never returns a silent wrong image. A rotation, a
+    y/z translation or a mismatched focal past every march tier's budget
+    is lif_tpu's 'sweep' fallback, which the port does not have."""
+    jp, tp = _projectors(rng, h=32, w=64)
     kw = {}
-    pos = [0.03, 0.0, 0.0]
-    rot = None
-    cam_kw = {}
-    if case == "rotated":
-        rot = np.array([[np.cos(0.05), 0, np.sin(0.05)], [0, 1, 0],
-                        [-np.sin(0.05), 0, np.cos(0.05)]])
-    elif case == "y_translation":
-        pos = [0.0, 0.03, 0.0]
-    elif case == "z_translation":
-        pos = [0.03, 0.0, 0.1]
-    elif case == "skewed":
-        cam_kw = dict(skew=(0.02, 0.0))
-    elif case == "focal_mismatch":
-        cam_kw = dict(focal_px=0.9 * 64)
-    elif case == "uniform_planes":
+    if case == "uniform_planes":
         kw = dict(config=lif_tpu_torch.DEFAULT_CONFIG.replace(
             plane_mode="uniform"))
     elif case == "sweep_method":
         kw = dict(method="sweep")
-    cam = lif_tpu_torch.Camera.create(
-        64, 32, focal_px=cam_kw.pop("focal_px", 0.78 * 64), position=pos,
-        rotation=rot, **cam_kw,
-    )
+    beyond = case in _FORMERLY_UNCOVERED
+    if beyond:
+        _, jt = lif_tpu.render_fast_batch(
+            jp, [_case_camera(lif_tpu, case, beyond)], return_tiers=True)
+        assert tuple(jt) == ("sweep",)
     match = {
-        "rotated": "rotated", "y_translation": "scaled",
-        "z_translation": "scaled", "skewed": "skew",
-        "focal_mismatch": "march-eligible", "uniform_planes": "snap",
-        "sweep_method": "sweep", "stereo_mode": "stereo",
-    }[case]
+        "skewed": "skew", "uniform_planes": "snap", "sweep_method": "sweep",
+        "stereo_mode": "stereo",
+    }.get(case, "sweep")
+    cam = _case_camera(lif_tpu_torch, case, beyond)
     with pytest.raises(NotImplementedError, match=match):
         if case == "stereo_mode":
             lif_tpu_torch.render([tp, tp], cam, mode="stereo")
         else:
             lif_tpu_torch.render_fast_batch(tp, [cam], **kw)
+
+
+@pytest.mark.parametrize("case", sorted(_FORMERLY_UNCOVERED))
+def test_formerly_uncovered_poses_match_lif_tpu(rng, case):
+    """The poses that raised before the scaled and rotated tiers were
+    ported (a rotation at a width the target tier rejects, y/z
+    translation, a mismatched focal) render on the tier lif_tpu picks,
+    with lif_tpu's image."""
+    jp, tp = _projectors(rng, h=32, w=64)
+    ref, jt = lif_tpu.render_fast_batch(jp, [_case_camera(lif_tpu, case)],
+                                        return_tiers=True)
+    got, tt = lif_tpu_torch.render_fast_batch(
+        tp, [_case_camera(lif_tpu_torch, case)], return_tiers=True)
+    assert tuple(jt) == tt == (_FORMERLY_UNCOVERED[case],)
+    assert _psnr(got.numpy(), np.asarray(ref)) >= 60.0
 
 
 def test_texture_cache_tracks_in_place_writes(rng):

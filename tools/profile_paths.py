@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Where the time goes on one CUDA card, for the drives of chip_smoke.py.
+
+Run from the repository root: ``python3 tools/profile_paths.py [drive ...]``
+with drives from lateral, orbit, dolly and tilt (default: all four). Each
+drive renders chip_smoke.py's pose batch through render_fast_batch on
+chip_smoke.py's seeded 1280x800 scene and prints:
+
+- the call's device time (CUDA events around the call, median of 5 after
+  2 warm-up calls) and its host wall time;
+- stage times: CUDA events around each stage's function, median over the
+  same 5 calls (the scaled and target marches with their kernel, the
+  packed color fetch, and the rotated tier's corner fetch and bracket
+  march); the rest of the call is the epilogue, planning and glue;
+- torch.profiler over 3 calls: the kernels' device time per call, the
+  device's idle share (1 - kernel time / call time) and the kernels that
+  take the most device time.
+
+Needs torch with CUDA, nvcc and numpy; imports neither jax nor lif_tpu.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DRIVES = ("lateral", "orbit", "dolly", "tilt")
+
+
+def _events():
+    import torch
+
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def instrument(stages: dict):
+    """Wrap each stage's function (in every module that calls it) so that
+    CUDA events bracket it; the event pairs collect in `stages`."""
+    from lif_tpu_torch.ops import rotated_march, sweep_scaled, sweep_target
+
+    def timed(label, fn):
+        def wrap(*args, **kwargs):
+            start, end = _events()
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            stages.setdefault(label, []).append((start, end))
+            return out
+        return wrap
+
+    for mod, name, label in (
+        (sweep_scaled, "_march_batch", "scaled march (kernel)"),
+        (sweep_target, "_march_batch", "target march (kernel)"),
+        (sweep_scaled, "bilinear_sample_packed", "packed color fetch"),
+        (sweep_target, "bilinear_sample_packed", "packed color fetch"),
+        (rotated_march, "bilinear_sample_packed", "packed color fetch"),
+        (rotated_march, "_corner_quad", "corner fetch"),
+        (rotated_march, "_bracket_march", "bracket march"),
+    ):
+        setattr(mod, name, timed(label, getattr(mod, name)))
+
+
+def drive_cameras(cs, lt, focal, drive):
+    if drive == "lateral":
+        return [lt.Camera.create(cs.W, cs.H, focal_px=focal, position=[
+            0.135 + 0.02 * i / cs.N_MAIN, 0.0, 0.0]) for i in range(cs.N_MAIN)]
+    if drive == "orbit":
+        return cs.orbit_cams(lt, focal, thetas=list(np.deg2rad(
+            np.linspace(-cs.ORBIT_DEG, cs.ORBIT_DEG, cs.N_ORBIT))))
+    if drive == "dolly":
+        return cs.dolly_cams(lt, focal)
+    return cs.orbit_cams(
+        lt, focal,
+        thetas=list(np.deg2rad(np.linspace(-cs.TILT_DEG, cs.TILT_DEG,
+                                           cs.N_TILT))),
+        phis=[np.deg2rad(cs.TILT_PHI)] * cs.N_TILT)
+
+
+def kernel_rows(prof, calls: int):
+    """(name, device ms per call) of every CUDA kernel the profiler saw,
+    largest first."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, us / 1e3 / calls))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_drive(lt, proj, cams, drive, card, stages):
+    import torch
+
+    method = "march" if drive == "lateral" else "auto"
+    _, tiers = lt.render_fast_batch(proj, cams, method=method,
+                                    return_tiers=True)
+    lt.render_fast_batch(proj, cams, method=method)
+    torch.cuda.synchronize()
+    stages.clear()
+    calls, walls = [], []
+    for _ in range(5):
+        start, end = _events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        lt.render_fast_batch(proj, cams, method=method)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        calls.append(start.elapsed_time(end))
+    call_ms = statistics.median(calls)
+    print(f"\n== {drive}: {len(cams)} poses, tiers {tiers}; "
+          f"{call_ms:.3f} ms per call (CUDA events, median of 5) = "
+          f"{len(cams) / (call_ms / 1e3):.1f} frames/s; host wall "
+          f"{statistics.median(walls):.3f} ms [{card}]", flush=True)
+    staged = 0.0
+    for label, pairs in stages.items():
+        per_call = len(pairs) // 5
+        ms = [sum(a.elapsed_time(b) for a, b in pairs[i:i + per_call])
+              for i in range(0, len(pairs), per_call)]
+        med = statistics.median(ms)
+        staged += med
+        print(f"  {label}: {med:.3f} ms per call "
+              f"({100 * med / call_ms:.1f}%)")
+    if stages:
+        print(f"  the rest (planning, epilogue, glue): "
+              f"{call_ms - staged:.3f} ms per call")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            lt.render_fast_batch(proj, cams, method=method)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof, 3)
+    busy = sum(ms for _, ms in rows)
+    print(f"  torch.profiler over 3 calls: kernels {busy:.3f} ms per call, "
+          f"device idle {100 * max(0.0, 1.0 - busy / call_ms):.1f}% of the "
+          f"call")
+    for name, ms in rows[:8]:
+        print(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  {name[:90]}")
+
+
+def main(argv) -> int:
+    drives = argv or list(DRIVES)
+    bad = [d for d in drives if d not in DRIVES]
+    if bad:
+        print(f"unknown drive(s) {bad}; choose from {DRIVES}", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_paths: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.ops.cuda import build
+
+    card = cs.card_line()
+    print(card, flush=True)
+    sources = ("sweep_march", "sweep_target", "sweep_scaled")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.load_library, sources))
+    rgb, disp = cs.make_scene(0)
+    proj = lt.projector_from_arrays(
+        rgb, disp, focal_px=0.78 * cs.W, invz_min=cs.INVZ_NEAR,
+        invz_max=cs.INVZ_FAR, baseline=cs.BASELINE,
+    ).to(torch.device("cuda", 0))
+    focal = float(proj.focal[0])
+    stages: dict = {}
+    instrument(stages)
+    for drive in drives:
+        profile_drive(lt, proj, drive_cameras(cs, lt, focal, drive), drive,
+                      card, stages)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
