@@ -7,9 +7,11 @@ so far: the exact ray march, and four tiers of render_fast_batch: the
 lateral snap-plane march ('march'), the scaled march for other unrotated
 poses ('scaled'), the orbit's target-ray march ('target': yaw-family
 poses, and pitch-family poses through an x<->y transpose) and the
-two-phase fallback for other rotated poses ('rotated'). As in lif_tpu,
-the top level exports the render entry points; the tiers' functions stay
-in lif_tpu_torch.ops. It imports neither jax nor lif_tpu.
+two-phase fallback for other rotated poses ('rotated'); and the mesh
+modes, render(mode='billboard' | 'mesh') and, for lateral pose batches,
+render_billboard_fast_batch (the billboard splat as a ladder gather).
+As in lif_tpu, the top level exports the render entry points; the tiers'
+functions stay in lif_tpu_torch.ops. It imports neither jax nor lif_tpu.
 """
 
 __version__ = "0.1.0"
@@ -24,6 +26,7 @@ from .models.projector import (  # noqa: F401
 )
 from .models.renderer import (  # noqa: F401
     render,
+    render_billboard_fast_batch,
     render_fast_batch,
     render_mono_view,
 )

@@ -31,6 +31,9 @@
 // work is a serial loop of dependent cache loads per thread; the bounded
 // plane range and the early exit at the first crossing are what cut it.
 // The per-plane cm3/occ2 skip tests are left to a later change.
+// FP32 ops: per plane 8, per pixel 0, per found 52.
+// (Per visited plane the lerp, the decode and the crossing test; at
+// the crossing the secant and nine lerps.)
 //
 // Arithmetic: every float operation of the crossing test, the secant and
 // the lerps is an explicitly rounded intrinsic (and the library is built

@@ -39,6 +39,10 @@
 // against 8 bytes per pixel written in depth-only mode (24 in color).
 // Occupancy is what hides the load latency: no shared-memory tiling of the
 // source, since a pose's per-plane footprint moves with the scale.
+// FP32 ops: per plane 31, per pixel 2, per found 107.
+// (Per visited plane the two clipped taps, the bilinear weights and sum,
+// the decode and the test; per pixel the centred offsets; at the crossing
+// the refine-2 secant steps.)
 //
 // Arithmetic: every float operation is an explicitly rounded intrinsic,
 // in the twin's order (and the library is built with --fmad=false);

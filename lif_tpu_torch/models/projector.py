@@ -3,8 +3,9 @@
 The counterpart of lif_tpu.models.projector, as a frozen dataclass in
 place of a flax struct: stacked, padded layer textures plus the pinhole
 model and world pose. The textures (rgb/disp/mask) are torch tensors on
-the render device (Projector.to moves them); the small metadata arrays
-stay host numpy, because the renderer plans on the host.
+the render device, the card unless the caller asks for another
+(Projector.to moves them); the small metadata arrays stay host numpy,
+because the renderer plans on the host.
 `HoloProjectorOptions` semantics are preserved: intrinsics {fx, fy, cx,
 cy} in pixels, invDepthRange {min, max, baseline}, width/height.
 """
@@ -62,6 +63,15 @@ class Projector:
     def device(self) -> torch.device:
         return self.disp.device
 
+    @property
+    def intrinsics(self) -> dict:
+        """Pixel intrinsics of the base view (fx = fy; centered principal
+        point unless skewed — reference LifLoader.ts:112-130)."""
+        fx = float(self.focal[0])
+        cx = self.width / 2.0 - float(self.skew[0]) * fx
+        cy = self.height / 2.0 - float(self.skew[1]) * fx
+        return {"fx": fx, "fy": fx, "cx": cx, "cy": cy}
+
     def to(self, device) -> "Projector":
         """A copy whose textures live on `device`; upload once before
         steady-state rendering."""
@@ -86,13 +96,16 @@ def projector_from_arrays(
     position=(0.0, 0.0, 0.0),
     rotation=None,
     extra_layers: list[dict] | None = None,
+    device=None,
 ) -> Projector:
     """Build a Projector from in-memory arrays (single or multi layer).
 
     ``rgb`` (H, W, 3) linear GL-oriented, ``disp`` (H, W) in [0,1].
     ``extra_layers``: optional list of dicts with keys rgb/disp/mask/
     focal_px/invz_min/invz_max for LDI layers beyond the first.
-    The textures land on the CPU; call Projector.to(device).
+    The textures are built on `device`: None means the card ("cuda"),
+    and torch raises where there is none; pass device="cpu" for the
+    plain-PyTorch twins.
     """
     layers = [
         dict(
@@ -111,10 +124,17 @@ def projector_from_arrays(
         position=position,
         rotation=rotation,
         baseline=baseline,
+        device=_device(device),
     )
 
 
-def _stack_layers(layers, *, skew, position, rotation, baseline) -> Projector:
+def _device(device) -> torch.device:
+    """The render device: the card unless the caller names another."""
+    return torch.device("cuda" if device is None else device)
+
+
+def _stack_layers(layers, *, skew, position, rotation, baseline,
+                  device) -> Projector:
     n = min(len(layers), MAX_LAYERS)
     layers = layers[:n]
     h_max = max(l["rgb"].shape[0] for l in layers)
@@ -142,9 +162,9 @@ def _stack_layers(layers, *, skew, position, rotation, baseline) -> Projector:
 
     base_h, base_w = layers[0]["rgb"].shape[:2]
     return Projector(
-        rgb=torch.from_numpy(rgb),
-        disp=torch.from_numpy(disp),
-        mask=torch.from_numpy(mask),
+        rgb=torch.from_numpy(rgb).to(device),
+        disp=torch.from_numpy(disp).to(device),
+        mask=torch.from_numpy(mask).to(device),
         layer_res=layer_res,
         invz_min=invz_min,
         invz_max=invz_max,
@@ -161,11 +181,13 @@ def _stack_layers(layers, *, skew, position, rotation, baseline) -> Projector:
     )
 
 
-def projector_from_reference(obj, device="cpu") -> Projector:
+def projector_from_reference(obj, device=None) -> Projector:
     """The port's Projector holding the same scene as `obj` — a
     lif_tpu.Projector, or any object with its fields as arrays. This is
     how a scene built or loaded by the JAX package is carried across, so
-    that both packages render identical inputs."""
+    that both packages render identical inputs. `device` as in
+    projector_from_arrays (None: the card)."""
+    device = _device(device)
 
     def host(name):
         return np.array(getattr(obj, name), dtype=np.float32)

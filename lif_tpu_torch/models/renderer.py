@@ -13,6 +13,11 @@ the production fast path render_fast_batch on four tiers —
     and PITCH-family batches through an x<->y transpose onto it;
   * 'rotated': the two-phase fallback for other rotated batches, phase A
     on the scaled march (csrc/sweep_scaled.cu), phase B plain torch.
+The mesh modes: render(mode='billboard') is the billboard scatter
+(ops/splat.py) and render(mode='mesh') the connected-mesh rasterizer
+(ops/mesh.py), both plain torch on any device; render_billboard_fast_batch
+renders a lateral pose batch in billboard mode through the ladder gather
+(on CUDA through csrc/splat_march.cu, one launch per batch).
 A pose, layer or option that needs what the port does not have yet (the
 'sweep' fallback, the skewed lateral fold, ...) raises
 NotImplementedError naming it; nothing falls back to an approximate tier.
@@ -35,15 +40,19 @@ from ..config import DEFAULT_CONFIG, RenderConfig
 from ..core.camera import Camera
 from ..core.pose import relative_view_pose
 from ..ops import composite as _composite
+from ..ops import mesh as _mesh
 from ..ops import raycast as _raycast
 from ..ops import rotated_march as _rotated_march
+from ..ops import splat as _splat
+from ..ops import splat_march as _splat_march
 from ..ops import sweep_march as _sweep_march
 from ..ops import sweep_scaled as _sweep_scaled
 from ..ops import sweep_target as _sweep_target
 from ..ops.cuda.sweep_march import prepare_translation_src
 from .projector import Projector
 
-__all__ = ["TierPlan", "plan_tiers", "render", "render_fast_batch",
+__all__ = ["BillboardPlan", "TierPlan", "plan_billboard", "plan_tiers",
+           "render", "render_billboard_fast_batch", "render_fast_batch",
            "render_mono_view"]
 
 # Two caches for the fast path, both LRU. The TEXTURE cache holds the
@@ -889,9 +898,124 @@ def render_mono_view(
 
 def render(projectors, camera: Camera, mode: str = "raycast", **kwargs):
     """Render-mode dispatch (the HoloRenderer.onBeforeRender analog,
-    reference HoloRenderer.ts:139-204). The port has the 'raycast' mode:
-    the per-pixel inverse-depth march of the first projector."""
+    reference HoloRenderer.ts:139-204), on the first projector:
+      * 'raycast': the per-pixel inverse-depth march;
+      * 'mesh': connected-triangle rasterization of the (W+1)x(H+1)
+        corner grid (ops.mesh; the reference's default mesh mode,
+        holoVertex.glsl meshMode=1 + HoloRenderer.ts:809-858);
+      * 'billboard': the per-pixel square-footprint splat (ops.splat; the
+        reference's billboard mode, holoVertex.glsl meshMode=0).
+    The stereo and fast modes are not ported yet."""
     plist = list(projectors) if isinstance(projectors, (list, tuple)) else [projectors]
     if mode == "raycast":
         return render_mono_view(plist[0], camera, **kwargs)
-    raise NotImplementedError(f"render mode {mode!r} is not ported yet")
+    if mode == "mesh":
+        return _mesh.render_mesh_connected_view(plist[0], camera, **kwargs)
+    if mode == "billboard":
+        return _splat.render_mesh_view(plist[0], camera, **kwargs)
+    if mode in ("fast", "stereo", "stereo_fast"):
+        raise NotImplementedError(f"render mode {mode!r} is not ported yet")
+    raise ValueError(f"unknown render mode: {mode}")
+
+
+class BillboardPlan(NamedTuple):
+    """How render_billboard_fast_batch plans a lateral pose batch."""
+
+    layer: dict  # _prepared_textures' layer 0
+    c1x: np.ndarray  # (B,) relative x positions of the projector
+    plan: _sweep_march.TranslationPlan  # the ladders' windows
+    ixs: np.ndarray  # (B, K) int32 window starts
+    mms: np.ndarray  # (B, K) float32 integer shifts
+    num_planes: int  # K
+    cx0: float  # principal point x, px
+    cy0: float  # principal point y (GL, bottom origin), px
+
+
+def plan_billboard(projector: Projector, cameras: Sequence[Camera],
+                   point_size: float = 1.0) -> BillboardPlan:
+    """Plan a billboard pose batch as render_billboard_fast_batch does,
+    without rendering it; raises ValueError for what it cannot take."""
+    cam0 = cameras[0]
+    lay = _prepared_textures(projector)[0]
+    intr = projector.intrinsics
+    cy_gl = projector.height - float(intr["cy"])
+    if (
+        lay["w"] != cam0.width or lay["h"] != cam0.height
+        or abs(lay["focal_host"] - float(cam0.focal_px)) > 1e-6
+        or abs(float(intr["cx"]) - lay["w"] / 2.0) > 1e-6
+        or abs(cy_gl - lay["h"] / 2.0) > 1e-6
+        or lay["w"] % 8 != 0
+    ):
+        raise ValueError(
+            "render_billboard_fast_batch needs matched focal/dims, "
+            "centered principal point, and an 8-divisible width; use "
+            "render(mode='billboard') per frame otherwise"
+        )
+    pos_list = []
+    for cam in cameras:
+        pos_np, rot_np = relative_view_pose(
+            projector.position, projector.rotation, cam.position,
+            cam.rotation,
+        )
+        if not np.allclose(rot_np, np.eye(3), atol=1e-5) or (
+            abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
+        ):
+            raise ValueError(
+                "render_billboard_fast_batch needs lateral poses; use "
+                "render(mode='billboard') per frame otherwise"
+            )
+        pos_list.append(pos_np)
+    pos_b = np.stack(pos_list)
+    f1 = lay["focal_host"]
+    su_half = _splat_march.su_half_bound(point_size, lay["w"], lay["h"], f1)
+    if su_half >= 1.0:
+        raise ValueError(
+            f"render_billboard_fast_batch needs su < 2, but point_size "
+            f"{point_size} reaches su/2 = {su_half:.4f} at the image corner; "
+            "use render(mode='billboard') per frame"
+        )
+    max_shift = abs(f1) * float(np.abs(pos_b[:, 0]).max()) * max(
+        abs(lay["izmin_host"]), abs(lay["izmax_host"])
+    ) + 4.0
+    plan = _sweep_march.translation_plan(
+        lay["w"], lay["h"], lay["w"], lay["h"], max_shift, 0.0
+    )
+    ixs, mms, k = _splat_march.billboard_shift_tables(
+        f1, pos_b[:, 0].tolist(), lay["izmin_host"], lay["izmax_host"], plan,
+    )
+    return BillboardPlan(lay, pos_b[:, 0], plan, ixs, mms, k,
+                         float(intr["cx"]), cy_gl)
+
+
+def render_billboard_fast_batch(
+    projector: Projector,
+    cameras: Sequence[Camera],
+    background=(0.0, 0.0, 0.0, 0.0),
+    point_size: float = 1.0,
+    to_srgb: bool = True,
+    show_depth: bool = False,
+):
+    """Billboard (splat) mode over a whole lateral pose batch: the ladder
+    gather of ops.splat_march, the exact dual of render(mode='billboard')
+    on these poses. On a CUDA projector it is ONE kernel launch for the
+    batch; on a CPU projector the plain twin (not lif_tpu's per-frame XLA
+    scatter: the port's CPU branch computes what the kernel computes).
+    Returns (B, H, W, 4) on the projector's device.
+
+    Eligibility, lif_tpu's gates and messages: layer-0 dims equal to the
+    camera's, matched focal, centered principal point, an 8-divisible
+    width, lateral poses (no relative rotation, translation along x only).
+    Other poses render one frame at a time through
+    render(mode='billboard'). Beyond lif_tpu, a footprint that can reach
+    su >= 2 (0.5 * point_size * the widest corner's su >= 1), where the
+    dual is no longer exact, raises ValueError instead of rendering wrong
+    images. plan_billboard gives the planning alone. reference:
+    holoVertex.glsl:130-149, 243-273 (billboard quads + z-buffer)."""
+    bp = plan_billboard(projector, cameras, point_size)
+    lay = bp.layer
+    return _splat_march.render_billboard_batch(
+        lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
+        lay["izmax_host"], bp.c1x, lay["focal_host"], bp.ixs, bp.mms,
+        background, bp.plan, bp.num_planes, cx0=bp.cx0, cy0=bp.cy0,
+        point_size=point_size, to_srgb=to_srgb, show_depth=show_depth,
+    )

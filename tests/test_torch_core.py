@@ -82,8 +82,8 @@ def test_projector_arrays_and_reference_carry(rng):
                                  invz_max=0.3)])
     args = (l0["rgb"], l0["disp"], l0["mask"])
     a = lif_tpu.projector_from_arrays(*args, **kw)
-    b = lif_tpu_torch.projector_from_arrays(*args, **kw)
-    c = lif_tpu_torch.projector_from_reference(a)
+    b = lif_tpu_torch.projector_from_arrays(*args, **kw, device="cpu")
+    c = lif_tpu_torch.projector_from_reference(a, device="cpu")
     for p in (b, c):
         for f in ("rgb", "disp", "mask", "layer_res", "invz_min", "invz_max",
                   "focal", "skew", "position", "rotation", "baseline"):

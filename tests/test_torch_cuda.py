@@ -8,7 +8,11 @@ march bit for bit in `found` and to 3e-5 in invz*/rgba* (the
 kernel-vs-twin gate of tests/test_sweep_march.py): its arithmetic is the
 twin's, step by step, so only the plane-range bounds could differ — and
 they are exact. The target-ray kernel is held to the kernel-vs-twin gate
-of tests/test_sweep_target.py.
+of tests/test_sweep_target.py. The billboard kernel and the plain-torch
+mesh modes are held to the billboard's bound
+(tests/test_splat_march.py:106-115): hit disagreement, and colour
+mismatches > 1e-6 where both hit, each under 1e-3 of the pixels (the
+kernel evaluates its twin's float sequence, so it should be exact).
 """
 
 import numpy as np
@@ -16,9 +20,11 @@ import pytest
 import torch
 
 import lif_tpu_torch
+from lif_tpu_torch.ops import splat_march as tbb
 from lif_tpu_torch.ops import sweep_march as tsm
 from lif_tpu_torch.ops import sweep_scaled as tss
 from lif_tpu_torch.ops import sweep_target as tst
+from lif_tpu_torch.ops.cuda import splat_march as tcuda_b
 from lif_tpu_torch.ops.cuda import sweep_march as tcuda
 from lif_tpu_torch.ops.cuda import sweep_scaled as tcuda_s
 from lif_tpu_torch.ops.cuda import sweep_target as tcuda_t
@@ -87,7 +93,7 @@ def test_fast_batch_on_cuda_matches_cpu(cuda):
     rgb1, disp1, _ = _scene(2, h + 16, w + 32)
     proj = lif_tpu_torch.projector_from_arrays(
         rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
-        baseline=1.0,
+        baseline=1.0, device="cpu",
         extra_layers=[dict(rgb=rgb1, disp=disp1, focal_px=0.78 * w,
                            invz_min=0.5, invz_max=0.1)],
     )
@@ -181,7 +187,7 @@ def test_orbit_fast_batch_on_cuda_matches_cpu(cuda):
     rgb1, disp1, _ = _scene(5, h + 16, w + 32)
     proj = lif_tpu_torch.projector_from_arrays(
         rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
-        baseline=1.0,
+        baseline=1.0, device="cpu",
         extra_layers=[dict(rgb=rgb1, disp=disp1, focal_px=0.78 * w,
                            invz_min=0.5, invz_max=0.1)],
     )
@@ -316,7 +322,7 @@ def test_scaled_and_rotated_fast_batch_on_cuda_matches_cpu(cuda, w):
     rgb1, disp1, _ = _scene(8, h + 16, w + 32)
     proj = lif_tpu_torch.projector_from_arrays(
         rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
-        baseline=1.0,
+        baseline=1.0, device="cpu",
         extra_layers=[dict(rgb=rgb1, disp=disp1, focal_px=0.78 * w,
                            invz_min=0.5, invz_max=0.1)],
     )
@@ -349,9 +355,124 @@ def test_refine_raises_on_cuda(cuda):
     rgb, disp, _ = _scene(3, 32, 64)
     proj = lif_tpu_torch.projector_from_arrays(
         rgb, disp, focal_px=0.78 * 64, invz_min=2.0, invz_max=0.1,
-        baseline=1.0,
-    ).to(cuda)
+        baseline=1.0, device=cuda,
+    )
     cam = lif_tpu_torch.Camera.create(64, 32, focal_px=0.78 * 64,
                                       position=[0.03, 0.0, 0.0])
     with pytest.raises(NotImplementedError, match="refine"):
         lif_tpu_torch.render_fast_batch(proj, [cam], refine=2)
+
+
+def _bb_disagreement(ref, got, channels=3):
+    """(hit disagreement, colour mismatch) shares of the pixels of (..., 4)
+    images or of (found, colour) pairs."""
+    hit_r, hit_g = ref[..., 3] > 0.5, got[..., 3] > 0.5
+    both = hit_r & hit_g
+    err = (got[..., :channels] - ref[..., :channels]).abs().amax(-1)
+    return ((hit_r != hit_g).float().mean().item(),
+            ((err > 1e-6) & both).float().mean().item())
+
+
+@pytest.mark.parametrize("w,h", [(96, 64), (200, 120)])
+def test_billboard_kernel_matches_plain(cuda, w, h):
+    """The billboard kernel against billboard_march_plain on the card, at
+    both signs of cx and cx = 0 in one launch: found, tex and rgba equal
+    (both follow the same float sequence); the epilogue with show_depth
+    likewise."""
+    rgb, disp, mask = _scene(w + 3 * h, h, w)
+    f1, izmin, izmax = 0.78 * w, 2.0, 0.1
+    cxs = [0.25, -0.18, 0.0]
+    plan = tsm.translation_plan(w, h, w, h, f1 * 0.25 * izmin + 4.0, 0.0)
+    ixs, mms, k = tbb.billboard_shift_tables(f1, cxs, izmin, izmax, plan)
+    tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
+    args = tbb.billboard_inputs(*tex, izmin, izmax, cxs, f1, ixs, mms, plan,
+                                k, w / 2.0, h / 2.0, 1.0)
+    before = tcuda_b.sweep_billboard.launches
+    found, t_k, rgba = tcuda_b.sweep_billboard(*args)
+    torch.cuda.synchronize()
+    assert tcuda_b.sweep_billboard.launches == before + 1
+    for i in range(len(cxs)):
+        f_p, t_p, c_p = tbb.billboard_march_plain(
+            args[0], args[1], args[2][i], args[3][i], args[4][i], *args[5:])
+        got = torch.cat([c_p[..., :3], f_p[..., None]], -1)
+        want = torch.cat([rgba[i][..., :3], found[i][..., None]], -1)
+        flips, mism = _bb_disagreement(want, got)
+        assert flips == 0.0 and mism == 0.0, (i, flips, mism)
+        both = (f_p > 0) & (found[i] > 0)
+        assert ((t_p - t_k[i]).abs() * both).max().item() == 0.0
+        for show_depth in (False, True):
+            a, b = (tbb.finish_billboard(fo[None], te[None], co[None],
+                                         np.zeros(4), False, show_depth)[0]
+                    for fo, te, co in ((found[i], t_k[i], rgba[i]),
+                                       (f_p, t_p, c_p)))
+            flips, mism = _bb_disagreement(a, b)
+            assert flips == 0.0 and mism == 0.0, (i, show_depth, flips, mism)
+    assert found.mean().item() > 0.5
+
+
+def test_billboard_kernel_rejects_bad_inputs(cuda):
+    """The wrapper refuses CPU tensors, int64 ladders and K > 1024."""
+    disp = torch.rand(16, 16, device=cuda)
+    rgbm = torch.rand(16, 16, 4, device=cuda)
+    ab = torch.zeros(1, 3, device=cuda)
+    ix = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    m = torch.zeros(1, 8, device=cuda)
+    geo = (0, 8.0, 8.0, 0.1, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcuda_b.sweep_billboard(disp.cpu(), rgbm, ix, m, ab, *geo)
+    with pytest.raises(ValueError, match="int32"):
+        tcuda_b.sweep_billboard(disp, rgbm, ix.long(), m, ab, *geo)
+    big = torch.zeros(1, 1100, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1024"):
+        tcuda_b.sweep_billboard(disp, rgbm, big, big.float(), ab, *geo)
+
+
+def test_billboard_fast_batch_on_cuda_matches_cpu(cuda):
+    """render_billboard_fast_batch on the card (one launch for 3 poses)
+    equals the same call on CPU tensors (the plain twin), in sRGB over a
+    background and with show_depth."""
+    h, w = 96, 128
+    rgb, disp, mask = _scene(21, h, w)
+    proj = lif_tpu_torch.projector_from_arrays(
+        rgb, disp, mask, focal_px=0.78 * w, invz_min=2.0, invz_max=0.1,
+        baseline=1.0, device="cpu")
+    cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                        position=[x, 0.0, 0.0])
+            for x in (0.1, -0.2, 0.03)]
+    bg = (0.1, 0.2, 0.3, 0.5)
+    for show_depth in (False, True):
+        before = tcuda_b.sweep_billboard.launches
+        got = lif_tpu_torch.render_billboard_fast_batch(
+            proj.to(cuda), cams, background=bg, show_depth=show_depth)
+        torch.cuda.synchronize()
+        assert tcuda_b.sweep_billboard.launches == before + 1
+        ref = lif_tpu_torch.render_billboard_fast_batch(
+            proj, cams, background=bg, show_depth=show_depth)
+        flips, mism = _bb_disagreement(ref, got.cpu())
+        assert flips < 1e-3 and mism < 1e-3, (show_depth, flips, mism)
+
+
+def test_splat_and_mesh_on_cuda_match_cpu(cuda):
+    """forward_splat (render(mode='billboard')) and render_connected_mesh
+    (render(mode='mesh')) on the card against the same calls on CPU
+    tensors, at a lateral and a rotated pose: hit disagreement under 1e-3
+    of the pixels (scatter-min and atomics are exact in any order; the
+    divisions are true divisions on both), colour within 1e-4 elsewhere."""
+    h, w = 96, 128
+    rgb, disp, mask = _scene(22, h, w)
+    proj = lif_tpu_torch.projector_from_arrays(
+        rgb, disp, mask, focal_px=0.78 * w, invz_min=2.0, invz_max=0.1,
+        baseline=1.0, device="cpu")
+    gpu = proj.to(cuda)
+    for r, c in ((np.eye(3), [0.1, 0.0, 0.0]), (_roty(6.0), [0.05, 0.02, 0.0])):
+        cam = lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                          position=c, rotation=r)
+        for mode in ("billboard", "mesh"):
+            ref = lif_tpu_torch.render(proj, cam, mode=mode)
+            got = lif_tpu_torch.render(gpu, cam, mode=mode)
+            assert got.device.type == "cuda"
+            got = got.cpu()
+            hit_r, hit_g = ref[..., 3] > 0.5, got[..., 3] > 0.5
+            assert (hit_r != hit_g).float().mean().item() < 1e-3, mode
+            err = (got - ref).abs().amax(-1)[hit_r & hit_g]
+            assert (err > 1e-4).float().mean().item() < 1e-3, mode

@@ -44,7 +44,7 @@ def _projectors(rng, h=96, w=128, **kw):
         rgb, disp, focal_px=0.78 * w, invz_min=IZMIN, invz_max=IZMAX,
         baseline=1.0, **kw,
     )
-    return jp, lif_tpu_torch.projector_from_reference(jp)
+    return jp, lif_tpu_torch.projector_from_reference(jp, device="cpu")
 
 
 def _cams(pkg, w, h, poses):
@@ -189,7 +189,7 @@ def test_two_layer_ldi_orbit(rng):
         extra_layers=[dict(rgb=back["rgb"], disp=back["disp"],
                            focal_px=0.78 * w, invz_min=0.5, invz_max=0.1)],
     )
-    tp = lif_tpu_torch.projector_from_reference(jp)
+    tp = lif_tpu_torch.projector_from_reference(jp, device="cpu")
     ref, jt, got, tt = _both(jp, tp, w, h, _YAW3[::2], to_srgb=False)
     assert jt == tt == ("target", "target")
     _assert_close(got, ref)

@@ -37,7 +37,7 @@ def _projectors(rng, h=64, w=128, **kw):
         rgb, disp, focal_px=0.78 * w, invz_min=2.0, invz_max=0.1,
         baseline=1.0, **kw,
     )
-    return jp, lif_tpu_torch.projector_from_reference(jp)
+    return jp, lif_tpu_torch.projector_from_reference(jp, device="cpu")
 
 
 def _cams(pkg, w, h, xs, f=None, **kw):
@@ -124,7 +124,7 @@ def test_ldi_outpainted_layers_match(rng):
         extra_layers=[dict(rgb=back["rgb"], disp=back["disp"],
                            focal_px=0.78 * w, invz_min=0.5, invz_max=0.1)],
     )
-    tp = lif_tpu_torch.projector_from_reference(jp)
+    tp = lif_tpu_torch.projector_from_reference(jp, device="cpu")
     xs = [0.03, 0.06]
     ref = np.asarray(lif_tpu.render_fast_batch(
         jp, _cams(lif_tpu, w, h, xs), method="march", to_srgb=False))

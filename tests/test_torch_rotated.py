@@ -273,7 +273,7 @@ def test_two_layer_ldi(rng, tier):
         extra_layers=[dict(rgb=back["rgb"], disp=back["disp"],
                            focal_px=0.78 * w, invz_min=0.5, invz_max=0.1)],
     )
-    tp = lif_tpu_torch.projector_from_reference(jp)
+    tp = lif_tpu_torch.projector_from_reference(jp, device="cpu")
     poses = (_dolly(3) if tier == "scaled"
              else [(_rotx(3.0) @ _roty(4.0), [0.05, 0.01, 0.0])])
     ref, jt, got, tt = _both(jp, tp, w, h, poses, to_srgb=False)

@@ -267,7 +267,7 @@ def test_heavily_outpainted_source(rng):
     jp = lif_tpu.projector_from_arrays(
         rgb, disp, focal_px=0.78 * ow, invz_min=2.0, invz_max=0.1,
         baseline=1.0)
-    tp = lif_tpu_torch.projector_from_reference(jp)
+    tp = lif_tpu_torch.projector_from_reference(jp, device="cpu")
     ref, jt = lif_tpu.render_fast_batch(jp, [lif_tpu.Camera.create(
         ow, oh, focal_px=0.78 * ow, position=[0.02, 0.01, 0.0])],
         mask_mode="none", return_tiers=True)

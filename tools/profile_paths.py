@@ -2,16 +2,19 @@
 """Where the time goes on one CUDA card, for the drives of chip_smoke.py.
 
 Run from the repository root: ``python3 tools/profile_paths.py [drive ...]``
-with drives from lateral, orbit, dolly and tilt (default: all four). Each
-drive renders chip_smoke.py's pose batch through render_fast_batch on
-chip_smoke.py's seeded 1280x800 scene and prints:
+with drives from lateral, orbit, dolly, tilt and billboard (default: all
+five). Each drive renders chip_smoke.py's pose batch through
+render_fast_batch (billboard: render_billboard_fast_batch over the
+lateral drive's 96 poses) on chip_smoke.py's seeded 1280x800 scene and
+prints:
 
 - the call's device time (CUDA events around the call, median of 5 after
   2 warm-up calls) and its host wall time;
 - stage times: CUDA events around each stage's function, median over the
   same 5 calls (the scaled and target marches with their kernel, the
-  packed color fetch, and the rotated tier's corner fetch and bracket
-  march); the rest of the call is the epilogue, planning and glue;
+  packed color fetch, the rotated tier's corner fetch and bracket march,
+  and the billboard's input stack, kernel and epilogue); the rest of the
+  call is the epilogue, planning and glue;
 - torch.profiler over 3 calls: the kernels' device time per call, the
   device's idle share (1 - kernel time / call time) and the kernels that
   take the most device time.
@@ -30,7 +33,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DRIVES = ("lateral", "orbit", "dolly", "tilt")
+DRIVES = ("lateral", "orbit", "dolly", "tilt", "billboard")
 
 
 def _events():
@@ -43,7 +46,8 @@ def _events():
 def instrument(stages: dict):
     """Wrap each stage's function (in every module that calls it) so that
     CUDA events bracket it; the event pairs collect in `stages`."""
-    from lif_tpu_torch.ops import rotated_march, sweep_scaled, sweep_target
+    from lif_tpu_torch.ops import (rotated_march, splat_march, sweep_scaled,
+                                   sweep_target)
 
     def timed(label, fn):
         def wrap(*args, **kwargs):
@@ -63,12 +67,15 @@ def instrument(stages: dict):
         (rotated_march, "bilinear_sample_packed", "packed color fetch"),
         (rotated_march, "_corner_quad", "corner fetch"),
         (rotated_march, "_bracket_march", "bracket march"),
+        (splat_march, "billboard_inputs", "billboard input stack"),
+        (splat_march, "billboard_march_batch", "billboard march (kernel)"),
+        (splat_march, "finish_billboard", "billboard epilogue"),
     ):
         setattr(mod, name, timed(label, getattr(mod, name)))
 
 
 def drive_cameras(cs, lt, focal, drive):
-    if drive == "lateral":
+    if drive in ("lateral", "billboard"):
         return [lt.Camera.create(cs.W, cs.H, focal_px=focal, position=[
             0.135 + 0.02 * i / cs.N_MAIN, 0.0, 0.0]) for i in range(cs.N_MAIN)]
     if drive == "orbit":
@@ -99,13 +106,25 @@ def kernel_rows(prof, calls: int):
     return sorted(rows, key=lambda r: -r[1])
 
 
+def drive_call(lt, drive):
+    """The entry point a drive calls, as fn(proj, cams)."""
+    if drive == "billboard":
+        return lt.render_billboard_fast_batch
+    method = "march" if drive == "lateral" else "auto"
+    return lambda proj, cams: lt.render_fast_batch(proj, cams, method=method)
+
+
 def profile_drive(lt, proj, cams, drive, card, stages):
     import torch
 
-    method = "march" if drive == "lateral" else "auto"
-    _, tiers = lt.render_fast_batch(proj, cams, method=method,
-                                    return_tiers=True)
-    lt.render_fast_batch(proj, cams, method=method)
+    render = drive_call(lt, drive)
+    if drive == "billboard":
+        tiers = ("billboard",)
+    else:
+        _, tiers = lt.render_fast_batch(
+            proj, cams, method="march" if drive == "lateral" else "auto",
+            return_tiers=True)
+    render(proj, cams)
     torch.cuda.synchronize()
     stages.clear()
     calls, walls = [], []
@@ -114,7 +133,7 @@ def profile_drive(lt, proj, cams, drive, card, stages):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        lt.render_fast_batch(proj, cams, method=method)
+        render(proj, cams)
         end.record()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -140,7 +159,7 @@ def profile_drive(lt, proj, cams, drive, card, stages):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(3):
-            lt.render_fast_batch(proj, cams, method=method)
+            render(proj, cams)
         torch.cuda.synchronize()
     rows = kernel_rows(prof, 3)
     busy = sum(ms for _, ms in rows)
@@ -169,14 +188,15 @@ def main(argv) -> int:
 
     card = cs.card_line()
     print(card, flush=True)
-    sources = ("sweep_march", "sweep_target", "sweep_scaled")
+    sources = ("sweep_march", "sweep_target", "sweep_scaled", "splat_march")
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load_library, sources))
     rgb, disp = cs.make_scene(0)
     proj = lt.projector_from_arrays(
         rgb, disp, focal_px=0.78 * cs.W, invz_min=cs.INVZ_NEAR,
         invz_max=cs.INVZ_FAR, baseline=cs.BASELINE,
-    ).to(torch.device("cuda", 0))
+        device=torch.device("cuda", 0),
+    )
     focal = float(proj.focal[0])
     stages: dict = {}
     instrument(stages)
