@@ -23,7 +23,9 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 6. target kernel vs plain: the same scene, 8 orbit poses
    orbit_pose([0, 0, -1], 1, theta), theta over +-15 deg; depth-only at
    refine 0, depth-only on a 2-px ladder with refine 1, and full color,
-   each to the kernel-vs-twin gate of tests/test_sweep_target.py;
+   each exact (no found flip, max abs 0) against march_target_plain and
+   against march_target_skip_plain, the plain mirror of the kernel's skip
+   walk;
 7. main path 2 (orbit): render_fast_batch over 120 orbit poses (theta in
    linspace(-15, 15, 120) deg, three pose chunks) with every launch
    count reset just before it; tiers ('target',), the kernel launched,
@@ -33,7 +35,8 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 8. main path 3 (pitch): 8 pitch-orbit poses (phi over +-8 deg) through
    the transposed route, counts reset just before; tiers ('target',),
    the kernel launched, finite output;
-9. orbit timing: CUDA events, median of 5 runs after a warm-up;
+9. orbit timing: CUDA events, median of 5 runs after a warm-up, the
+   kernel beside its previous design's time;
 10. scaled kernel vs plain: the same scene, planned as render_fast_batch
     plans the main paths (renderer.plan_tiers): the first 8 poses of the
     dolly batch (K = 128) depth only at refine 2 (production) and refine 0,
@@ -53,12 +56,14 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     poses 0, 8 and 15 at most 1 dB under lif_tpu's;
 13. scaled timing: CUDA events, median of 5 after a warm-up: frames/s of
     both new paths, the kernel against its plain version (8 poses, depth
-    only, refine 2);
+    only, refine 2), and the kernel at the tilted orbit's phase-A shapes
+    beside that configuration's bound;
 14. billboard kernel vs plain and the oracle: the same scene, the 8
     lateral poses of phase 3 planned by renderer.plan_billboard (K = 312,
     point_size 1); the kernel's hit / texel / colour against
-    billboard_march_plain (equal: no hit flip, no mismatch, max abs 0)
-    and its colour and show_depth images against forward_splat
+    billboard_scatter_plain and billboard_march_plain (equal: no hit flip,
+    no mismatch, max abs 0) and its colour and show_depth images against
+    forward_splat
     (render(mode='billboard')) on the card, pose by pose: at most 64 hit
     flips and 64 colour mismatches (tests/test_splat_march.py:106-115
     allows 1e-3 of the pixels, 1024);
@@ -73,8 +78,9 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     PSNR against the 640-step march at most 1 dB under lif_tpu's, both on
     the same scene and pose (tools/reference_psnr.py);
 17. billboard timing: CUDA events, median of 5 after a warm-up: main path
-    6 frames/s, the kernel against its plain version (8 poses), and
-    render(mode='billboard') / render(mode='mesh') per frame.
+    6 frames/s, the kernel (beside its previous design's time) against
+    both plain versions (8 poses), and render(mode='billboard') /
+    render(mode='mesh') per frame.
 
 Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1). The
 second-to-last line is the kernels' JSON record (with each kernel's bound:
@@ -112,10 +118,11 @@ PITCH_DEG = 8.0  # pitch-orbit half-angle
 # the CPU at full size (the fidelity of the tier does not depend on the
 # backend)
 LIF_TPU_PSNR = {0: 37.208, 30: 41.786, 60: 77.470}
-# the target kernel vs its plain version: tests/test_sweep_target.py's
-# bound (found flips and large errors under 0.1% of pixels, median
-# |dinvz*| on agreeing pixels under 1e-5)
-SHARE_MAX, MEDIAN_MAX = 1e-3, 1e-5
+# the redesigned kernels' previous designs (one thread per target pixel
+# walking its ladder), ms/frame at the same check batches: this script on
+# the card named
+EARLIER_MS = {"target_march": 0.2907, "billboard_march": 0.6173}
+EARLIER_CARD = "NVIDIA H100 80GB HBM3, 700 W"
 N_DOLLY = 48  # dolly poses: one chunk of the default 48
 TILT_DEG, TILT_PHI, N_TILT = 8.0, 2.0, 16  # tilted orbit: yaw range, pitch
 SCALED_TOL = 1e-4  # scaled kernel vs plain, tests/test_sweep_scaled.py:167
@@ -486,29 +493,31 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
                 tensor_bytes(disp, poses, grids, grids, *out),
                 planes_walked(out[0], out[1], grids, v_top), out[0].numel(),
                 int(out[0].sum()), N_CHECK)
-        flips, share, median, err = 0, 0.0, 0.0, 0.0
+        # against the plain march and the plain mirror of the kernel's
+        # skip walk: (found mismatches, max abs) each
+        worst = {"plain": (0, 0.0), "skip mirror": (0, 0.0)}
         for i in range(N_CHECK):
-            ref = starget.march_target_plain(
-                disp, izmin, izmax, poses[i], grids[i], W, H, refine=refine,
-                rgbm=rgbm if color else None)
-            agree = out[0][i] == ref[0]
-            flips += int((~agree).sum())
-            for got, want in zip(out[1:], ref[1:]):
-                e = (got[i] - want).abs()
-                e = e * agree.reshape(agree.shape + (1,) * (e.ndim - 2))
-                share = max(share, float((e > 1e-3).float().mean()))
-                median = max(median, float(e.median()))
-                err = max(err, float(e.max()))
-        n_px = N_CHECK * W * H
+            kw = dict(refine=refine, rgbm=rgbm if color else None)
+            for label, plain in (("plain", starget.march_target_plain),
+                                 ("skip mirror",
+                                  starget.march_target_skip_plain)):
+                ref = plain(disp, izmin, izmax, poses[i], grids[i], W, H,
+                            **kw)
+                flips = int((out[0][i] != ref[0]).sum())
+                err = max(float((got[i] - want).abs().max())
+                          for got, want in zip(out[1:], ref[1:]))
+                worst[label] = (worst[label][0] + flips,
+                                max(worst[label][1], err))
         print(f"target kernel vs plain, {name} ({N_CHECK} poses, {W}x{H}, "
-              f"K={k}, refine {refine}): found mismatches {flips} of {n_px}, "
-              f"max abs {err:.3g}, largest share > 1e-3 {share:.3g}, largest "
-              f"median {median:.3g}; found share {float(out[0].mean()):.4f}",
-              flush=True)
-        check(flips < SHARE_MAX * n_px, f"{name}: {flips} found flips")
-        check(share < SHARE_MAX and median < MEDIAN_MAX,
-              f"{name}: the target kernel disagrees with its plain version")
-        max_err = max(max_err, err)
+              f"K={k}, refine {refine}): found mismatches "
+              f"{worst['plain'][0]} of {N_CHECK * W * H}, max abs "
+              f"{worst['plain'][1]:.3g}; vs its skip mirror: found "
+              f"mismatches {worst['skip mirror'][0]}, max abs "
+              f"{worst['skip mirror'][1]:.3g}; found share "
+              f"{float(out[0].mean()):.4f}", flush=True)
+        check(worst["plain"] == (0, 0.0) and worst["skip mirror"] == (0, 0.0),
+              f"{name}: the target kernel is not exact")
+        max_err = max(max_err, worst["plain"][1])
 
     # 7. main path 2: the orbit, every launch count zeroed just before it
     thetas = np.deg2rad(np.linspace(-ORBIT_DEG, ORBIT_DEG, N_ORBIT))
@@ -572,8 +581,10 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
     print(f"render_fast_batch orbit: {batch_ms:.3f} ms per {N_ORBIT} poses "
           f"= {N_ORBIT / (batch_ms / 1e3):.1f} frames/s at {W}x{H} [{card}]",
           flush=True)
-    print(f"target_march kernel: {kernel_ms / N_CHECK:.4f} ms/frame, plain "
-          f"march {plain_ms / N_CHECK:.3f} ms/frame ({N_CHECK}-pose batch, "
+    print(f"target_march kernel: {kernel_ms / N_CHECK:.4f} ms/frame (previous "
+          f"design: {EARLIER_MS['target_march']} on {EARLIER_CARD}), plain "
+          f"march "
+          f"{plain_ms / N_CHECK:.3f} ms/frame ({N_CHECK}-pose batch, "
           f"K={grids_.shape[1]}, depth only) [{card}]", flush=True)
     return kernel_record(
         "target_march", "lif_tpu_torch/csrc/sweep_target.cu",
@@ -623,7 +634,7 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
         rplan, textra["grids"][:N_CHECK], textra["aligned"][:N_CHECK], f1,
         1.0)
     rgbm = starget._rgbm_stack(lay["rgb"], lay["mask"])
-    max_err, scaled_bound = 0.0, None
+    max_err, scaled_bound, phase_a_bound = 0.0, None, None
     for name, tb, pl, kk, ref_n, color in (
         (f"dolly, depth-only refine {refine}", tabs, plan, k, refine, False),
         ("dolly, depth-only refine 0", tabs, plan, k, 0, False),
@@ -635,13 +646,18 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
                                         refine=ref_n,
                                         rgbm=rgbm if color else None)
         torch.cuda.synchronize()
-        if scaled_bound is None:  # the production configuration, timed
-            v_top = izmax + (izmin - izmax) * float(disp.max())
-            scaled_bound = bound_record(
-                "scaled_march", "lif_tpu_torch/csrc/sweep_scaled.cu",
+        v_top = izmax + (izmin - izmax) * float(disp.max())
+        if scaled_bound is None or tb is rtabs:  # the timed configurations
+            bound = bound_record(
+                "scaled_march" if tb is tabs else "scaled_march phase A",
+                "lif_tpu_torch/csrc/sweep_scaled.cu",
                 tensor_bytes(disp, tb, *out),
                 planes_walked(out[0], out[1], tb[:, 4], v_top),
                 out[0].numel(), int(out[0].sum()), N_CHECK)
+            if tb is tabs:
+                scaled_bound = bound
+            else:
+                phase_a_bound = bound
         mismatch, err = 0, 0.0
         for i in range(N_CHECK):
             ref = sscaled.march_scaled_plain(disp, izmin, izmax, tb[i], pl,
@@ -731,6 +747,14 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
     print(f"scaled_march kernel: {kernel_ms / N_CHECK:.4f} ms/frame, plain "
           f"march {plain_ms / N_CHECK:.3f} ms/frame ({N_CHECK}-pose batch, "
           f"K={k}, depth only, refine 2) [{card}]", flush=True)
+    phase_a_ms = device_timer(kscaled.march_scaled_cuda, disp, izmin, izmax,
+                              rtabs, rplan, refine=refine, iters=10,
+                              repeats=5)
+    print(f"scaled_march kernel in the tilted orbit's phase A: "
+          f"{phase_a_ms / N_CHECK:.4f} ms/frame ({N_CHECK}-pose batch, "
+          f"{rplan.out_w}x{rplan.out_h}, K={k_r}, depth only, refine "
+          f"{refine}), bound {phase_a_bound[0]:.5f} ms/frame (by "
+          f"{phase_a_bound[1]}) [{card}]", flush=True)
     return kernel_record(
         "scaled_march", "lif_tpu_torch/csrc/sweep_scaled.cu",
         "lif_tpu/ops/pallas/sweep_scaled.py:60", launches, max_err,
@@ -775,21 +799,22 @@ def billboard_phases(proj, focal, lay, cams, reset_counts, launch_counts,
     torch.cuda.synchronize()
     k = bp.num_planes
     zero_bg = np.zeros(4, np.float32)
-    twin_worst = oracle_worst = (0, 0)
-    twin_total, oracle_total, err = [0, 0], [0, 0], 0.0
+    oracle_worst = (0, 0)
+    oracle_total, err = [0, 0], 0.0
+    # against the scatter's plain version and the dual's: hit flips and
+    # texel/colour mismatches, summed over the poses
+    plains = {"scatter plain": sbb.billboard_scatter_plain,
+              "dual twin": sbb.billboard_march_plain}
+    twin_total = {label: [0, 0] for label in plains}
     for i in range(N_CHECK):
-        f_p, t_p, c_p = sbb.billboard_march_plain(
-            args[0], args[1], args[2][i], args[3][i], args[4][i], *args[5:])
-        both = (f_p > 0) & (found[i] > 0)
-        err = max(err, float(((c_p - rgba[i]).abs().amax(-1) * both).max()),
-                  float(((t_p - tex[i]).abs() * both).max()))
-        got = torch.cat([rgba[i][..., :3], tex[i][..., None],
-                         found[i][..., None]], -1)
-        want = torch.cat([c_p[..., :3], t_p[..., None], f_p[..., None]], -1)
-        flips = int(((f_p > 0) != (found[i] > 0)).sum())
-        mism = int((((got - want)[..., :4].abs().amax(-1) > 1e-6)
-                    & both).sum())
-        twin = (flips, mism)
+        for label, plain in plains.items():
+            f_p, t_p, c_p = plain(args[0], args[1], args[2][i], args[3][i],
+                                  args[4][i], *args[5:])
+            err = max(err, float((c_p - rgba[i]).abs().max()),
+                      float((t_p - tex[i]).abs().max()))
+            twin_total[label][0] += int((f_p != found[i]).sum())
+            twin_total[label][1] += int(((t_p != tex[i])
+                                         | (c_p != rgba[i]).any(-1)).sum())
         oracle = (0, 0)
         for show_depth in (False, True):
             img = sbb.finish_billboard(found[i:i + 1], tex[i:i + 1],
@@ -799,25 +824,23 @@ def billboard_phases(proj, focal, lay, cams, reset_counts, launch_counts,
                                          show_depth=show_depth)
             oracle = tuple(max(a, b) for a, b in
                            zip(oracle, disagreement(ref, img)))
-        for tot, pair in ((twin_total, twin), (oracle_total, oracle)):
-            tot[0] += pair[0]
-            tot[1] += pair[1]
-        twin_worst = tuple(max(a, b) for a, b in zip(twin_worst, twin))
+        oracle_total[0] += oracle[0]
+        oracle_total[1] += oracle[1]
         oracle_worst = tuple(max(a, b) for a, b in zip(oracle_worst, oracle))
-    print(f"billboard kernel vs plain ({N_CHECK} poses, {W}x{H}, K={k}, "
-          f"su/2 <= {float(args[4][0, 2]):.4f}): hit flips "
-          f"{twin_total[0]}, colour/texel mismatches {twin_total[1]} of "
-          f"{N_CHECK * n_px} (worst pose {twin_worst}), max abs {err:.3g}; "
-          f"vs forward_splat (colour and show_depth): hit flips "
-          f"{oracle_total[0]}, colour mismatches {oracle_total[1]} (worst "
-          f"pose {oracle_worst}; gate {BB_ORACLE_MAX} a pose); hit share "
-          f"{float(found.mean()):.4f}", flush=True)
-    check(twin_total == [0, 0] and err == 0.0,
-          "the billboard kernel disagrees with its plain version")
+    vs_plain = "; ".join(
+        f"vs the {label}: hit flips {t[0]}, texel/colour mismatches {t[1]}"
+        for label, t in twin_total.items())
+    print(f"billboard kernel ({N_CHECK} poses, {W}x{H} = {N_CHECK * n_px} "
+          f"pixels, K={k}, su/2 <= {float(args[4][0, 2]):.4f}) {vs_plain}, "
+          f"max abs {err:.3g}; vs forward_splat (colour and show_depth): hit "
+          f"flips {oracle_total[0]}, colour mismatches {oracle_total[1]} "
+          f"(worst pose {oracle_worst}; gate {BB_ORACLE_MAX} a pose); hit "
+          f"share {float(found.mean()):.4f}", flush=True)
+    check(all(t == [0, 0] for t in twin_total.values()) and err == 0.0,
+          "the billboard kernel disagrees with its plain versions")
     check(max(oracle_worst) <= BB_ORACLE_MAX,
           "the billboard kernel disagrees with forward_splat")
-    # the function's bound: a z-buffered splat, O(1) work per source pixel;
-    # the ladder walk is this kernel's algorithm, not the function's work
+    # the function's bound: a z-buffered splat, O(1) work per source pixel
     bound = bound_record("billboard_march",
                          "lif_tpu_torch/csrc/splat_march.cu",
                          tensor_bytes(*args[:5], found, tex, rgba), 0,
@@ -879,11 +902,10 @@ def billboard_phases(proj, focal, lay, cams, reset_counts, launch_counts,
     batch_ms = device_timer(lt.render_billboard_fast_batch, proj, cams,
                             iters=1, repeats=5)
     kernel_ms = device_timer(kbb.sweep_billboard, *args, iters=10, repeats=5)
-    plain_ms = device_timer(lambda: [
-        sbb.billboard_march_plain(args[0], args[1], args[2][i], args[3][i],
-                                  args[4][i], *args[5:])
+    plain_ms = {label: device_timer(lambda: [
+        plain(args[0], args[1], args[2][i], args[3][i], args[4][i], *args[5:])
         for i in range(N_CHECK)
-    ], iters=1, repeats=3)
+    ], iters=1, repeats=3) / N_CHECK for label, plain in plains.items()}
     splat_ms = device_timer(lt.render, proj, cams[0], mode="billboard",
                             iters=3, repeats=5)
     mesh_ms = device_timer(lt.render, proj, cams[0], mode="mesh", iters=1,
@@ -891,16 +913,18 @@ def billboard_phases(proj, focal, lay, cams, reset_counts, launch_counts,
     print(f"render_billboard_fast_batch: {batch_ms:.3f} ms per {len(cams)} "
           f"poses = {len(cams) / (batch_ms / 1e3):.1f} frames/s at {W}x{H} "
           f"[{card}]", flush=True)
-    print(f"billboard_march kernel: {kernel_ms / N_CHECK:.4f} ms/frame, "
-          f"plain {plain_ms / N_CHECK:.3f} ms/frame ({N_CHECK}-pose batch, "
-          f"K={k}) [{card}]", flush=True)
+    print(f"billboard_march kernel: {kernel_ms / N_CHECK:.4f} ms/frame "
+          f"(previous design: {EARLIER_MS['billboard_march']} on "
+          f"{EARLIER_CARD}), "
+          + ", ".join(f"{label} {ms:.3f}" for label, ms in plain_ms.items())
+          + f" ms/frame ({N_CHECK}-pose batch, K={k}) [{card}]", flush=True)
     print(f"render(mode='billboard') (forward_splat, the oracle's cost): "
           f"{splat_ms:.3f} ms/frame; render(mode='mesh'): {mesh_ms:.3f} "
           f"ms/frame [{card}]", flush=True)
     return kernel_record(
         "billboard_march", "lif_tpu_torch/csrc/splat_march.cu",
         "lif_tpu/ops/pallas/splat_march.py:99", launches, err,
-        kernel_ms / N_CHECK, plain_ms / N_CHECK, bound)
+        kernel_ms / N_CHECK, plain_ms["scatter plain"], bound)
 
 
 def main() -> int:

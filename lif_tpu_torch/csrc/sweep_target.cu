@@ -14,20 +14,45 @@
 // plain twin lif_tpu_torch.ops.sweep_target.march_target_plain.
 //
 // Design. One thread marches one (pose, row, column) pixel; a block is
-// 32 columns x 8 rows of one pose, so a warp reads 32 neighbouring
-// positions of one source row band per plane. The pose's ladder and
-// thresholds (K <= 1024) are staged in shared memory. The TPU layout (the
-// transposed stack, 16-band groups, hat-candidate classes, DMA windows,
-// lane rolls, the cm3/occ2 skip tables, flattened SMEM tables) is not
-// carried over: the source stays row-major and the disparity (4 MB at
-// 1280x800) stays resident in L2 across the pose batch. The one skip
-// kept is exact: ladder planes whose threshold exceeds every texel (the
-// bucketed ladder's padding above izmin) cannot host a crossing, so a
-// block starts at the plane before the first one that can.
+// 32 columns x 8 rows of one pose and each warp an 8 x 4 tile of it (its
+// pixels cross at closer planes than a 32-pixel row's do, so its skips
+// leave it fewer planes to walk). The pose's ladder and thresholds
+// (K <= 1024) are staged in shared memory, and the source stays
+// row-major. The walk, not memory, bounds this kernel: without skips a
+// pixel of the orbit visits 134 planes, reading four taps at each
+// (tools/profile_kernels.py). Planes are skipped
+// exactly, with the bounds of ops/sweep_target.py::skip_tables (built
+// once per launch in plain torch, as lif_tpu builds its cm3 outside its
+// kernel): b0[y][x] bounds every bilinear read with tap origin (x, y) (the
+// max of its taps plus max|tap| * 2^-16 + 1e-30: a read is a convex
+// combination of its taps up to a few roundings), b8 and b32 the maxima
+// of b0 over 8x8 and 32x32 origin cells. Three skips, none of which can
+// change an output:
+//  - the ladder's padding: a block starts one plane before the first
+//    plane whose threshold any texel can reach;
+//  - per warp, runs of kRun planes: a lane's positions over a run lie
+//    between those at the run's smallest and largest v (affine in v,
+//    monotone rounding), so the warp reduces the box of its searching
+//    lanes' tap origins (REDUX), its lanes read the b8 cells (or b32
+//    cells) that cover it, 8 wide and 4 tall, one each, and where their
+//    max is not above the run's lowest threshold the whole run is
+//    skipped, uniformly;
+//  - per lane, in a run that is not skipped: each lane moves its own
+//    cursor over the planes whose b0 entry is not above the threshold;
+//    at a plane whose b0 entry is (a candidate) it stops, and the lanes
+//    that stopped read their four taps together, so a warp pays for a tap
+//    read about once per candidate round rather than once per plane where
+//    any lane needs one.
+// A lane leaves at its crossing and no longer widens its warp's box. If
+// the plane before the crossing was skipped, its difference is read
+// afresh for the secant bracket (lif_tpu's bracket refresh), so found,
+// invz* and rgba* are march_target_plain's bit for bit; the plain mirror
+// of this walk is ops/sweep_target.py::march_target_skip_plain.
 //
-// Bound on the H100: a serial loop of dependent cache loads per thread,
-// four 4-byte bilinear taps per plane until the crossing, against a
-// 8-byte (depth) or 24-byte (color) output write per pixel.
+// Bound on the H100: the operations of the first-crossing march above the
+// crossing (the plain walk's yardstick, kept so that times before and
+// after this design compare), four bilinear taps and a test per plane,
+// against an 8-byte (depth) or 24-byte (color) output write per pixel.
 // FP32 ops: per plane 31, per pixel 32, per found 8.
 // (Per visited plane the affine position, the bilinear tap weights and
 // sum, and the test; per pixel the four affine fields; at the crossing
@@ -40,14 +65,28 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cmath>
+
 namespace {
 
 constexpr int kMaxPlanes = 1024;
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
+constexpr int kTileX = 8, kTileY = 4;  // a warp's pixels (SKIP_TILE)
+constexpr int kRun = 24;  // planes a warp skips at once (SKIP_RUN)
+constexpr int kMaxRuns = kMaxPlanes / kRun + 1;
+constexpr int kCoverX = 8, kCoverY = 4;  // a box's cells, over the lanes
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
+}
+
+// _bil's tap origin along an axis of n texels (NaN -> 0)
+__device__ __forceinline__ int origin(float p, int n) {
+  return static_cast<int>(
+      fminf(fmaxf(floorf(p), 0.0f), static_cast<float>(n - 2)));
 }
 
 // lif_tpu's _bil: tap origin clamped to [0, w-2] x [0, h-2], fractions to
@@ -79,21 +118,38 @@ __device__ __forceinline__ float mix_rn(float lo, float hi, float t) {
   return __fadd_rn(lo, __fmul_rn(t, __fsub_rn(hi, lo)));
 }
 
+// this lane's cell of the box's cover by cells of side 1 << shift (3: 8,
+// 5: 32), laid out 8 wide and 4 tall over the warp's lanes: its bound, or
+// -inf outside the cover; *fits is false where the cover is larger
+__device__ __forceinline__ float cell_bound(const float* __restrict__ tab,
+                                            int tw, int shift, int x0, int x1,
+                                            int y0, int y1, int lane,
+                                            bool* fits) {
+  const int cx0 = x0 >> shift, cy0 = y0 >> shift;
+  const int cx1 = x1 >> shift, cy1 = y1 >> shift;
+  *fits = cx1 - cx0 < kCoverX && cy1 - cy0 < kCoverY;
+  const int cx = cx0 + (lane & (kCoverX - 1)), cy = cy0 + lane / kCoverX;
+  if (!*fits || cx > cx1 || cy > cy1) return -INFINITY;
+  return __ldg(tab + static_cast<size_t>(cy) * tw + cx);
+}
+
 template <bool kColor>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 target_march_kernel(
-    const float* __restrict__ disp,  // (src_h, src_w)
-    const float* __restrict__ rgbm,  // (4, src_h, src_w), color mode only
-    const float* __restrict__ pose,  // (B, 16): p_ts row-major, c_vec
-    const float* __restrict__ vg,    // (B, K) plane invz, descending
-    const float* __restrict__ tk,    // (B, K) texel thresholds
-    const float* __restrict__ dmax,  // (1,) max disparity texel
-    float* __restrict__ found,       // (B, out_h, out_w)
-    float* __restrict__ invz_star,   // (B, out_h, out_w)
-    float4* __restrict__ rgba_star,  // (B, out_h, out_w), color mode only
+    const float* __restrict__ disp,    // (src_h, src_w)
+    const float* __restrict__ rgbm,    // (4, src_h, src_w), color mode only
+    const float* __restrict__ pose,    // (B, 16): p_ts row-major, c_vec
+    const float* __restrict__ vg,      // (B, K) plane invz, descending
+    const float* __restrict__ tk,      // (B, K) texel thresholds
+    const float* __restrict__ dmax,    // (1,) max disparity texel
+    const float* __restrict__ tables,  // b0, b8, b32 (skip_tables), flat
+    float* __restrict__ found,         // (B, out_h, out_w)
+    float* __restrict__ invz_star,     // (B, out_h, out_w)
+    float4* __restrict__ rgba_star,    // (B, out_h, out_w), color mode only
     int K, int src_h, int src_w, int out_h, int out_w, int refine) {
   __shared__ float s_v[kMaxPlanes];
   __shared__ float s_t[kMaxPlanes];
+  __shared__ float s_vlo[kMaxRuns], s_vhi[kMaxRuns], s_tmin[kMaxRuns];
   __shared__ int s_k0;
   const int p = blockIdx.z;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -113,10 +169,30 @@ target_march_kernel(
   }
   __syncthreads();
   const int k_start = max(s_k0 - 1, 0);
+  // per run of kRun planes from k_start: its v range and lowest threshold
+  // (NaN planes cannot cross and are left out)
+  const int n_runs = (K - k_start + kRun - 1) / kRun;
+  for (int r = tid; r < n_runs; r += nthreads) {
+    float vlo = INFINITY, vhi = -INFINITY, tmin = INFINITY;
+    const int k0 = k_start + r * kRun, k1 = min(k0 + kRun, K);
+    for (int k = k0; k < k1; ++k) {
+      vlo = fminf(vlo, s_v[k]);
+      vhi = fmaxf(vhi, s_v[k]);
+      tmin = fminf(tmin, s_t[k]);
+    }
+    s_vlo[r] = vlo;
+    s_vhi[r] = vhi;
+    s_tmin[r] = tmin;
+  }
+  __syncthreads();
 
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= out_h || j >= out_w) return;
+  // warp threadIdx.y of the block's 32 x 8 pixels is an 8 x 4 tile
+  const int lane = threadIdx.x;
+  const int j = blockIdx.x * kBlockX + (threadIdx.y % 4) * kTileX +
+                lane % kTileX;
+  const int i = blockIdx.y * kBlockY + (threadIdx.y / 4) * kTileY +
+                lane / kTileX;
+  const bool valid = j < out_w && i < out_h;
 
   // per-pixel fields, in the order of the twin's _fields
   const float* ps = pose + static_cast<size_t>(p) * 16;
@@ -145,20 +221,84 @@ target_march_kernel(
     return bil(disp, src_h, src_w, __fadd_rn(ax, __fmul_rn(v, dx)),
                __fadd_rn(ay, __fmul_rn(v, dy)));
   };
+  const bool sane =
+      isfinite(ax) && isfinite(dx) && isfinite(ay) && isfinite(dy);
+  const int tw0 = src_w - 1;
+  const int tw8 = (tw0 + 7) >> 3, th8 = (src_h - 1 + 7) >> 3;
+  const int tw32 = (tw8 + 3) >> 2;
+  const float* b0 = tables;
+  const float* b8 = b0 + static_cast<size_t>(src_h - 1) * tw0;
+  const float* b32 = b8 + static_cast<size_t>(th8) * tw8;
 
   // pass 1: the first crossing and its bracket
-  int ks = -1;
+  bool active = valid;
+  int ks = -1, pk = -1;  // pd holds the difference at plane pk
   float pd = 0.0f, pdc = 0.0f, dc = 0.0f;
-  for (int k = k_start; k < K; ++k) {
-    const float d = __fsub_rn(tex_at(s_v[k]), s_t[k]);
-    if (d > 0.0f) {
-      ks = k;
-      pdc = pd;
-      dc = d;
-      break;
+  for (int r = 0, k = k_start; r < n_runs; ++r, k += kRun) {
+    if (!__any_sync(kAll, active)) break;
+    // the warp's box of tap origins over the run
+    int x0 = INT_MAX, x1 = -1, y0 = INT_MAX, y1 = -1;
+    if (active) {
+      const float xa = __fadd_rn(ax, __fmul_rn(s_vlo[r], dx));
+      const float xb = __fadd_rn(ax, __fmul_rn(s_vhi[r], dx));
+      const float ya = __fadd_rn(ay, __fmul_rn(s_vlo[r], dy));
+      const float yb = __fadd_rn(ay, __fmul_rn(s_vhi[r], dy));
+      if (!sane || isnan(xa) || isnan(xb) || isnan(ya) || isnan(yb)) {
+        x0 = 0, x1 = src_w - 2, y0 = 0, y1 = src_h - 2;
+      } else {
+        const int oxa = origin(xa, src_w), oxb = origin(xb, src_w);
+        const int oya = origin(ya, src_h), oyb = origin(yb, src_h);
+        x0 = min(oxa, oxb), x1 = max(oxa, oxb);
+        y0 = min(oya, oyb), y1 = max(oya, oyb);
+      }
     }
-    pd = d;
+    x0 = __reduce_min_sync(kAll, x0);
+    x1 = __reduce_max_sync(kAll, x1);
+    y0 = __reduce_min_sync(kAll, y0);
+    y1 = __reduce_max_sync(kAll, y1);
+    bool fits;
+    float b = cell_bound(b8, tw8, 3, x0, x1, y0, y1, lane, &fits);
+    if (!fits) {
+      b = cell_bound(b32, tw32, 5, x0, x1, y0, y1, lane, &fits);
+      if (!fits) b = INFINITY;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      b = fmaxf(b, __shfl_xor_sync(kAll, b, off));
+    }
+    if (!(b > s_tmin[r])) continue;  // no lane can cross in this run
+    // walk the run: each lane moves its own cursor over the planes whose
+    // b0 bound stays at or under the threshold, then the lanes that stopped
+    // at a candidate read its four taps together
+    const int k_end = min(k + kRun, K);
+    int c = k;
+    while (true) {
+      while (active && c < k_end) {
+        const float px = __fadd_rn(ax, __fmul_rn(s_v[c], dx));
+        const float py = __fadd_rn(ay, __fmul_rn(s_v[c], dy));
+        if (__ldg(b0 + static_cast<size_t>(origin(py, src_h)) * tw0 +
+                  origin(px, src_w)) > s_t[c]) {
+          break;
+        }
+        ++c;
+      }
+      const bool cand = active && c < k_end;
+      if (!__any_sync(kAll, cand)) break;
+      if (!cand) continue;
+      const float d = __fsub_rn(tex_at(s_v[c]), s_t[c]);
+      if (d > 0.0f) {
+        ks = c;
+        dc = d;
+        // the bracket refresh: the plane before was skipped
+        pdc = pk == c - 1 ? pd : __fsub_rn(tex_at(s_v[c - 1]), s_t[c - 1]);
+        active = false;
+      } else {
+        pd = d;
+        pk = c++;
+      }
+    }
   }
+  if (!valid) return;
   float t = ks == 0 ? 1.0f : secant(pdc, dc);
   const int km1 = max(ks - 1, 0), kc = max(ks, 0);
   const float v0 = s_v[km1], v1 = s_v[kc];
@@ -215,12 +355,13 @@ target_march_kernel(
 
 // Launch on `stream`; returns cudaGetLastError() right after the launch,
 // or cudaErrorInvalidValue for a ladder longer than kMaxPlanes. rgbm and
-// rgba_star are both null (depth only) or both set (full color).
+// rgba_star are both null (depth only) or both set (full color); tables
+// holds skip_tables(disp) flattened and concatenated.
 extern "C" int lif_target_march(
     const void* disp, const void* rgbm, const void* pose, const void* vg,
-    const void* tk, const void* dmax, void* found, void* invz_star,
-    void* rgba_star, int B, int K, int src_h, int src_w, int out_h,
-    int out_w, int refine, void* stream) {
+    const void* tk, const void* dmax, const void* tables, void* found,
+    void* invz_star, void* rgba_star, int B, int K, int src_h, int src_w,
+    int out_h, int out_w, int refine, void* stream) {
   if (K < 1 || K > kMaxPlanes || src_w < 2 || src_h < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -233,16 +374,17 @@ extern "C" int lif_target_march(
         static_cast<const float*>(disp), static_cast<const float*>(rgbm),
         static_cast<const float*>(pose), static_cast<const float*>(vg),
         static_cast<const float*>(tk), static_cast<const float*>(dmax),
-        static_cast<float*>(found), static_cast<float*>(invz_star),
-        static_cast<float4*>(rgba_star), K, src_h, src_w, out_h, out_w,
-        refine);
+        static_cast<const float*>(tables), static_cast<float*>(found),
+        static_cast<float*>(invz_star), static_cast<float4*>(rgba_star), K,
+        src_h, src_w, out_h, out_w, refine);
   } else {
     target_march_kernel<false><<<grid, block, 0, s>>>(
         static_cast<const float*>(disp), nullptr,
         static_cast<const float*>(pose), static_cast<const float*>(vg),
         static_cast<const float*>(tk), static_cast<const float*>(dmax),
-        static_cast<float*>(found), static_cast<float*>(invz_star), nullptr,
-        K, src_h, src_w, out_h, out_w, refine);
+        static_cast<const float*>(tables), static_cast<float*>(found),
+        static_cast<float*>(invz_star), nullptr, K, src_h, src_w, out_h,
+        out_w, refine);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,15 +2,17 @@
 csrc/splat_march.cu.
 
 The counterpart of lif_tpu.ops.pallas.splat_march, which holds the TPU
-kernel this one replaces. What the kernel computes is the same — each
-target pixel walks its pose's integer-parallax ladder near -> far, the
-first covered plane wins, the chain of strictly nearer (or lower-id)
-upgrades follows, and the winner's point texel is the colour — but not the
-TPU's layout: one thread per (pose, row, column) over the row-major
-unpadded source, with no skip tables and no transposed window.
+kernel this one replaces. The function is the same — for every target
+pixel the nearest covering point texel of its row (the lower source
+column among equal texels), its disparity texel and its colour — but not
+the algorithm: lif_tpu walks each target pixel's integer-parallax ladder
+(the gather dual), the kernel scatters each source pixel into a row
+z-buffer in shared memory with an atomic min, one block per row and a
+few poses. The two agree while su_half < 1, which sweep_billboard checks.
 
-The kernel's plain version is ops.splat_march.billboard_march_plain; a
-CUDA tensor never reaches it from here.
+The kernel's plain version is ops.splat_march.billboard_scatter_plain (and
+the dual's, billboard_march_plain, computes the same); a CUDA tensor never
+reaches either from here.
 """
 
 from __future__ import annotations
@@ -21,13 +23,15 @@ import torch
 
 from .build import load_library
 
-__all__ = ["MAX_PLANES", "sweep_billboard"]
+__all__ = ["MAX_PLANES", "MAX_WIDTH", "check_su_half", "sweep_billboard"]
 
-MAX_PLANES = 1024  # the kernel's shared-memory ladder (kMaxPlanes)
+MAX_PLANES = 1024  # the ladders billboard_shift_tables builds stay under it
+# the widest row whose u64 z-buffer fits one block's shared memory (227 KB)
+MAX_WIDTH = 232448 // 8
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 8  # disp, rgbm, ixs, mms, abp, found, tex, rgba
-    + [ctypes.c_int] * 5  # B, K, H, W, pad_lo_x
+    [ctypes.c_void_p] * 7  # disp, rgbm, mms, abp, found, tex, rgba
+    + [ctypes.c_int] * 4  # B, K, H, W
     + [ctypes.c_float] * 4  # cx0, cy0, inv_f, half_ps
     + [ctypes.c_void_p]  # stream
 )
@@ -53,6 +57,18 @@ def _check(t, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_su_half(abp):
+    """Raise ValueError unless every pose's su_half_max (abp[:, 2]) is
+    under 1: beyond it a footprint can reach two rungs of one row, and
+    neither the scatter nor the dual is the z-buffered splat any more."""
+    su = torch.as_tensor(abp)[:, 2]
+    if not bool((su < 1.0).all()):
+        raise ValueError(
+            f"the billboard splat needs su/2 < 1, got su/2 up to "
+            f"{float(su.max()):.4f}: use a smaller point size"
+        )
+
+
 def sweep_billboard(disp, rgbm, ixs, mms, abp, pad_lo_x: int, cx0: float,
                     cy0: float, inv_f: float, half_ps: float):
     """Launch the billboard kernel for a lateral pose batch.
@@ -61,9 +77,13 @@ def sweep_billboard(disp, rgbm, ixs, mms, abp, pad_lo_x: int, cx0: float,
     mask]; ixs: (B, K) int32 window starts and mms: (B, K) float32 shifts
     from billboard_shift_tables; abp: (B, 3) float32 [A, Bc, su_half_max]
     from billboard_pose_scalars; the host floats as
-    billboard_march_plain takes them. Returns found (B, H, W), tex
-    (B, H, W) and rgba (B, H, W, 4), float32. `sweep_billboard.launches`
-    counts the launches."""
+    billboard_march_plain takes them (the arguments of both plain
+    versions; the scatter reads the ladder's shifts only, since ixs =
+    pad_lo_x - mms). Raises ValueError where su_half_max reaches 1, for W
+    over MAX_WIDTH and for K over MAX_PLANES. Returns
+    found (B, H, W), tex (B, H, W) and rgba (B, H, W, 4), float32.
+    `sweep_billboard.launches` counts the launches."""
+    check_su_half(abp)
     h, w = disp.shape
     b, k = ixs.shape
     _check(disp, "disp", torch.float32, (h, w))
@@ -73,6 +93,9 @@ def sweep_billboard(disp, rgbm, ixs, mms, abp, pad_lo_x: int, cx0: float,
     _check(abp, "abp", torch.float32, (b, 3))
     if not 1 <= k <= MAX_PLANES:
         raise ValueError(f"{k} planes: the kernel takes 1..{MAX_PLANES}")
+    if w > MAX_WIDTH:
+        raise ValueError(f"width {w}: the row z-buffer holds at most "
+                         f"{MAX_WIDTH} columns")
     dev = disp.device
     found = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     tex = torch.empty_like(found)
@@ -81,10 +104,9 @@ def sweep_billboard(disp, rgbm, ixs, mms, abp, pad_lo_x: int, cx0: float,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            disp.data_ptr(), rgbm.data_ptr(), ixs.data_ptr(), mms.data_ptr(),
-            abp.data_ptr(), found.data_ptr(), tex.data_ptr(), rgba.data_ptr(),
-            b, k, h, w, int(pad_lo_x), float(cx0), float(cy0), float(inv_f),
-            float(half_ps), stream,
+            disp.data_ptr(), rgbm.data_ptr(), mms.data_ptr(), abp.data_ptr(),
+            found.data_ptr(), tex.data_ptr(), rgba.data_ptr(), b, k, h, w,
+            float(cx0), float(cy0), float(inv_f), float(half_ps), stream,
         )
     if err != 0:
         raise RuntimeError(f"lif_billboard_march launch failed: CUDA error "

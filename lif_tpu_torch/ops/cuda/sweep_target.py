@@ -8,10 +8,14 @@ invz with per-pixel homography fields), the first crossing with its
 secant bracket, the optional in-bracket refine sub-sweep, and in
 full-color mode the bracket color lerp — but not the TPU's layout: one
 thread marches one (pose, row, column) pixel over the row-major source,
-and the window tables, hat-candidate classes and skip tables are gone.
+and the window tables and hat-candidate classes are gone. lif_tpu's
+skip idea stays, redrawn for warps: the max tables of
+ops.sweep_target.skip_tables (built here per launch, in plain torch)
+let a warp skip runs of planes and a lane skip single planes, exactly.
 
-The kernel's plain version is ops.sweep_target.march_target_plain; a
-CUDA tensor never reaches it from here.
+The kernel's plain version is ops.sweep_target.march_target_plain (and
+the mirror of its skip walk ops.sweep_target.march_target_skip_plain); a
+CUDA tensor never reaches either from here.
 """
 
 from __future__ import annotations
@@ -20,18 +24,26 @@ import ctypes
 
 import torch
 
-from ..sweep_target import TargetPlan, plane_thresholds
+from ..sweep_target import TargetPlan, plane_thresholds, skip_tables
 from .build import load_library
 
-__all__ = ["MAX_PLANES", "march_target_cuda", "sweep_target"]
+__all__ = ["MAX_PLANES", "march_target_cuda", "skip_table_buffer",
+           "sweep_target"]
 
 MAX_PLANES = 1024  # the kernel's shared-memory ladder (kMaxPlanes)
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 9  # disp, rgbm, pose, vg, tk, dmax, found, invz, rgba
+    [ctypes.c_void_p] * 10  # disp, rgbm, pose, vg, tk, dmax, tables, found,
+    # invz, rgba
     + [ctypes.c_int] * 7  # B, K, src_h, src_w, out_h, out_w, refine
     + [ctypes.c_void_p]  # stream
 )
+
+
+def skip_table_buffer(disp):
+    """skip_tables(disp) flattened into one float32 buffer (b0, b8, b32),
+    the layout the kernel reads."""
+    return torch.cat([t.reshape(-1) for t in skip_tables(disp)])
 
 
 def _lib():
@@ -56,7 +68,8 @@ def _check(t, name, shape):
 
 def sweep_target(disp, pose_b, vg, tk, dmax, out_w: int, out_h: int,
                  refine: int = 0, rgbm=None):
-    """Launch the target-ray march kernel for a pose batch.
+    """Launch the target-ray march kernel for a pose batch (after building
+    its skip tables from disp).
 
     disp: (Hs, Ws) float32 disparity; pose_b: (B, 16) target_pose_scalars
     rows; vg/tk: (B, K) plane invz (descending) and their texel
@@ -78,6 +91,7 @@ def sweep_target(disp, pose_b, vg, tk, dmax, out_w: int, out_h: int,
         raise ValueError(f"{k} planes: the kernel takes 1..{MAX_PLANES}")
     if min(src_w, src_h) < 2 or refine < 0:
         raise ValueError(f"source {src_w}x{src_h}, refine {refine}")
+    tables = skip_table_buffer(disp)
     dev = disp.device
     found = torch.empty((b, out_h, out_w), dtype=torch.float32, device=dev)
     invz = torch.empty_like(found)
@@ -91,7 +105,7 @@ def sweep_target(disp, pose_b, vg, tk, dmax, out_w: int, out_h: int,
         err = fn(
             disp.data_ptr(), None if rgbm is None else rgbm.data_ptr(),
             pose_b.data_ptr(), vg.data_ptr(), tk.data_ptr(), dmax.data_ptr(),
-            found.data_ptr(), invz.data_ptr(),
+            tables.data_ptr(), found.data_ptr(), invz.data_ptr(),
             None if rgba is None else rgba.data_ptr(),
             b, k, src_h, src_w, out_h, out_w, int(refine), stream,
         )

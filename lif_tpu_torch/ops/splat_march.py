@@ -14,10 +14,13 @@ z-test and id resolve. The colour is the winner's point texel.
 
 Here: the ladder (billboard_shift_tables, lif_tpu's numpy copied, plus an
 assert that no real shift is clipped), the per-pose scalars in float32 as
-lif_tpu bakes them, the plain twin billboard_march_plain (one full-frame
-step per plane), the epilogue, and the dispatch render_billboard_batch: a
+lif_tpu bakes them, two plain versions of the same function — the dual
+twin billboard_march_plain (one full-frame step per plane: the algorithm
+of lif_tpu's TPU kernel, the oracle the CPU tests hold against it) and
+billboard_scatter_plain (the z-buffer scatter of the CUDA kernel,
+O(H·W) a pose) — the epilogue, and the dispatch render_billboard_batch: a
 CUDA tensor launches the hand-written kernel csrc/splat_march.cu once for
-the batch, a CPU tensor takes the twin pose by pose.
+the batch, a CPU tensor takes billboard_scatter_plain pose by pose.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.color import linear_to_srgb
-from .cuda.splat_march import sweep_billboard
+from .cuda.splat_march import check_su_half, sweep_billboard
 from .sweep_march import TranslationPlan
 
 __all__ = [
@@ -34,6 +37,7 @@ __all__ = [
     "billboard_march_batch",
     "billboard_march_plain",
     "billboard_pose_scalars",
+    "billboard_scatter_plain",
     "billboard_shift_tables",
     "finish_billboard",
     "render_billboard_batch",
@@ -117,8 +121,8 @@ def _host(x) -> np.ndarray:
 def billboard_march_plain(disp, rgbm, ixs, mms, abp, pad_lo_x: int,
                           cx0: float, cy0: float, inv_f: float,
                           half_ps: float):
-    """The kernel's plain version for ONE pose: a Python loop over the K
-    ladder planes of full-frame ops.
+    """The gather dual for ONE pose, the algorithm of lif_tpu's TPU kernel:
+    a Python loop over the K ladder planes of full-frame ops.
 
     disp: (H, W) float32; rgbm: (H, W, 4) [r, g, b, mask]; ixs (K,) int
     window starts and mms (K,) float shifts from billboard_shift_tables;
@@ -162,6 +166,77 @@ def billboard_march_plain(disp, rgbm, ixs, mms, abp, pad_lo_x: int,
     rows = torch.arange(h, device=dev)[:, None]
     rgba = torch.where(found[..., None], rgbm[rows, src], 0.0)
     return found.to(torch.float32), btex, rgba
+
+
+_NO_KEY = (1 << 63) - 1  # the empty z-buffer entry: larger than any key
+
+
+def _depth_key(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int64 z-buffer keys of candidates with disparity texel t (float32)
+    from source column s: a smaller key is nearer (larger t), then the
+    lower source column. The float's order-preserving 32-bit map, inverted,
+    sits above the column (the kernel's u64 key, shifted one bit lower so
+    that it stays non-negative). -0.0 is +0.0 first: the dual finds them
+    equal."""
+    t = torch.where(t == 0.0, 0.0, t)
+    bits = t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    order = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF,
+                        bits | 0x80000000)
+    return ((0xFFFFFFFF - order) << 31) | s
+
+
+def billboard_scatter_plain(disp, rgbm, ixs, mms, abp, pad_lo_x: int,
+                            cx0: float, cy0: float, inv_f: float,
+                            half_ps: float):
+    """The scatter kernel's plain version for ONE pose (the arguments of
+    billboard_march_plain; the ladder enters only through its shift range
+    [min mms, max mms], since ixs = pad_lo_x - mms): O(H·W) work.
+
+    Each source pixel (i, s) tests the at most three integer shifts m
+    around its parallax delta = A·t + Bc that lie in the ladder's range,
+    with the dual's cover test (m - delta)^2 <= su_half^2 in the same float
+    sequence, and each covered target (i, s + m) keeps the smallest
+    _depth_key: the nearest candidate, the lower source column among
+    equal texels. While su_half < 1 this is the dual's first covered
+    plane and its chain of upgrades: two covering shifts two or more apart
+    have deltas more than 2 - 2·su_half apart in ladder order, so the
+    farther one is strictly farther. Returns found, tex, rgba as
+    billboard_march_plain does."""
+    dev = disp.device
+    h, w = disp.shape
+    m_host = _host(mms).astype(np.float32)
+    m_lo, m_hi = int(m_host.min()), int(m_host.max())
+    a, bc = torch.as_tensor(_host(abp)[:2].astype(np.float32), device=dev)
+    t = disp.to(torch.float32)
+    s = torch.arange(w, device=dev)
+    xv = ((s.to(torch.float32) + 0.5) - cx0) * inv_f
+    yv = ((torch.arange(h, device=dev, dtype=torch.float32) + 0.5) - cy0
+          ) * inv_f
+    su_half = torch.clamp(
+        half_ps * torch.sqrt((xv * xv)[None, :] + (yv * yv)[:, None] + 1.0),
+        min=0.5)
+    delta = a * t + bc
+    r = torch.round(delta)
+    near = (r >= m_lo - 1) & (r <= m_hi + 1)  # False for NaN
+    r = torch.where(near, r, 0.0).to(torch.int64)
+    key = _depth_key(t, s.expand(h, w))
+    rows = torch.arange(h, device=dev)[:, None] * w
+    zbuf = torch.full((h * w,), _NO_KEY, dtype=torch.int64, device=dev)
+    for c in (-1, 0, 1):
+        m = r + c
+        o = s + m
+        d = m.to(torch.float32) - delta
+        hit = (near & (m >= m_lo) & (m <= m_hi) & (o >= 0) & (o < w)
+               & (d * d <= su_half * su_half))
+        zbuf.scatter_reduce_(0, (rows + o.clamp(0, w - 1))[hit], key[hit],
+                             "amin")
+    zbuf = zbuf.reshape(h, w)
+    found = zbuf != _NO_KEY
+    src = torch.where(found, zbuf & 0x7FFFFFFF, 0)
+    hit_rows = torch.arange(h, device=dev)[:, None]
+    tex = torch.where(found, t[hit_rows, src], -1.0)
+    rgba = torch.where(found[..., None], rgbm[hit_rows, src], 0.0)
+    return found.to(torch.float32), tex, rgba
 
 
 def finish_billboard(found, tex, rgba, background, to_srgb: bool,
@@ -244,8 +319,9 @@ def billboard_inputs(rgb, disp, mask, invz_min, invz_max, c1x, f1, ixs, mms,
 
 def billboard_march_batch(disp, rgbm, ixs, mms, abp, *geo):
     """The pose batch on the device of `disp`: a CUDA tensor launches the
-    kernel once, a CPU tensor takes the plain twin pose by pose. Returns
-    found, tex (B, H, W) and rgba (B, H, W, 4)."""
+    kernel once, a CPU tensor takes its plain version pose by pose. Both
+    need su_half < 1 (ValueError otherwise). Returns found, tex (B, H, W)
+    and rgba (B, H, W, 4)."""
     if disp.device.type == "cuda":
         return sweep_billboard(disp, rgbm, ixs, mms, abp, *geo)
     if disp.device.type != "cpu":
@@ -253,6 +329,7 @@ def billboard_march_batch(disp, rgbm, ixs, mms, abp, *geo):
             f"the billboard splat runs on CUDA or CPU tensors, not "
             f"{disp.device.type}"
         )
-    outs = [billboard_march_plain(disp, rgbm, ix, m, ab, *geo)
+    check_su_half(abp)
+    outs = [billboard_scatter_plain(disp, rgbm, ix, m, ab, *geo)
             for ix, m, ab in zip(ixs, mms, abp)]
     return tuple(torch.stack(parts) for parts in zip(*outs))

@@ -28,7 +28,9 @@ drift from the reference. Two implementations of the march share it:
     kernel's plain version; render_target_plain is the twin of
     lif_tpu's render_target_xla, the CPU path;
   * lif_tpu_torch.ops.cuda.sweep_target: the hand-written CUDA kernel
-    (csrc/sweep_target.cu), the path of every CUDA tensor.
+    (csrc/sweep_target.cu), the path of every CUDA tensor, which skips
+    planes exactly with the max tables of skip_tables;
+    march_target_skip_plain is the plain mirror of its walk.
 render_target_batch and render_target_fetch_batch dispatch on the
 device of the textures.
 
@@ -59,10 +61,12 @@ __all__ = [
     "target_pose_scalars",
     "target_plane_grids",
     "march_target_plain",
+    "march_target_skip_plain",
     "render_target_batch",
     "render_target_fetch_batch",
     "render_target_plain",
     "finalize_target",
+    "skip_tables",
 ]
 
 # lif_tpu's tiling constants. The plan below keeps lif_tpu's geometry
@@ -659,7 +663,17 @@ def march_target_plain(
         pdiffc = torch.where(crossed, pdiff, pdiffc)
         diffc = torch.where(crossed, diff, diffc)
         pdiff = diff
+    return _bracket(dd, (ax, dxf, ay, dyf), vg, tk, kstar, pdiffc, diffc,
+                    refine, rgbm)
 
+
+def _bracket(dd, fields, vg, tk, kstar, pdiffc, diffc, refine, rgbm):
+    """The march's outputs from its first crossing kstar (-1: none) and
+    the differences at planes kstar-1 and kstar: the secant (with the
+    refine sub-sweep) and, with rgbm, the bracket colour lerp."""
+    ax, dxf, ay, dyf = fields
+    dev = dd.device
+    zeros = torch.zeros_like(ax)
     t = torch.where(kstar == 0, 1.0, _secant(pdiffc, diffc))
     found = kstar >= 0
     km1 = torch.clamp(kstar - 1, min=0)
@@ -671,7 +685,7 @@ def march_target_plain(
         th0, th1 = tk[km1], tk[kc]
         step_s = 1.0 / (refine + 1)
         slo, pd2, d2 = zeros, pdiffc, diffc
-        sfound = torch.zeros((out_h, out_w), dtype=torch.bool, device=dev)
+        sfound = torch.zeros(ax.shape, dtype=torch.bool, device=dev)
         prev_g, prev_s = pdiffc, 0.0
         for j in range(1, refine + 1):
             s = j * step_s
@@ -695,6 +709,227 @@ def march_target_plain(
     c1 = _bil(rgbm, ax + v1 * dxf, ay + v1 * dyf)
     rgba = torch.where(kstar == 0, c1, c0 + t * (c1 - c0))
     return found, vstar, rgba.permute(1, 2, 0)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's exact plane skip: its tables and its walk in plain torch
+# ---------------------------------------------------------------------------
+
+SKIP_SLACK = 2.0 ** -16  # a bound's slack, relative to its largest |tap|
+SKIP_RUN = 24  # planes a warp skips at once (csrc/sweep_target.cu kRun)
+SKIP_CELLS = (8, 32)  # the coarse tables' cells, in tap origins
+SKIP_TILE = (8, 4)  # a warp's output pixels: columns x rows
+WARP = 32
+
+
+def _cell_max(b: torch.Tensor, c: int) -> torch.Tensor:
+    """Maxima of b over c x c cells (the ragged edge padded with -inf)."""
+    h, w = b.shape
+    pad = torch.nn.functional.pad(b, (0, -w % c, 0, -h % c),
+                                  value=-math.inf)
+    return pad.reshape((h + c - 1) // c, c, (w + c - 1) // c, c).amax((1, 3))
+
+
+def skip_tables(disp):
+    """The target kernel's skip bounds, built once per launch in plain
+    torch: (b0, b8, b32). b0 (Hs-1, Ws-1) bounds every bilinear read whose
+    tap origin is (x, y) (_bil clamps origins into that range): a read is
+    a convex combination of its four taps up to a few roundings, so it is
+    at most their max plus max|tap|·2^-16 + 1e-30. b8 and b32 are maxima
+    of b0 over 8x8 and 32x32 cells of origins. A NaN tap bounds its reads
+    by +inf (they are never skipped)."""
+    d = disp.to(torch.float32)
+    taps = (d[:-1, :-1], d[:-1, 1:], d[1:, :-1], d[1:, 1:])
+    hi = torch.maximum(torch.maximum(taps[0], taps[1]),
+                       torch.maximum(taps[2], taps[3]))
+    lo = torch.minimum(torch.minimum(taps[0], taps[1]),
+                       torch.minimum(taps[2], taps[3]))
+    b0 = hi + torch.maximum(hi.abs(), lo.abs()) * SKIP_SLACK + 1e-30
+    b0 = torch.where(torch.isnan(b0), math.inf, b0).contiguous()
+    b8 = _cell_max(b0, SKIP_CELLS[0])
+    return b0, b8, _cell_max(b8, SKIP_CELLS[1] // SKIP_CELLS[0])
+
+
+def _origin(p: torch.Tensor, n: int) -> torch.Tensor:
+    """_bil's tap origin along an axis of n texels, as int64 (NaN -> 0,
+    as the clamp of floor(NaN) gives on the card)."""
+    o = torch.clamp(torch.floor(p), 0, n - 2)
+    return torch.where(torch.isnan(o), 0.0, o).to(torch.int64)
+
+
+def _box_bound(tables, box):
+    """Per warp, the larger bound of the cells covering the origin box
+    (x0, x1, y0, y1): 8x8 cells where at most 8 wide and 4 tall cover it
+    (one a lane), else such 32x32 cells, else +inf; an empty box (no
+    searching lane) gives -inf."""
+    x0, x1, y0, y1 = box
+    lanes = torch.arange(WARP, device=x0.device)
+    out = torch.full(x0.shape, math.inf, device=x0.device)
+    done = torch.zeros(x0.shape, dtype=torch.bool, device=x0.device)
+    for table, c in zip(tables[1:], SKIP_CELLS):
+        cx0, cy0, cx1, cy1 = x0 // c, y0 // c, x1 // c, y1 // c
+        use = ~done & (cx1 - cx0 < 8) & (cy1 - cy0 < 4)
+        cx = cx0[..., None] + lanes % 8
+        cy = cy0[..., None] + lanes // 8
+        cover = (cx <= cx1[..., None]) & (cy <= cy1[..., None])
+        vals = table[cy.clamp(0, table.shape[0] - 1),
+                     cx.clamp(0, table.shape[1] - 1)]
+        vals = torch.where(cover, vals, -math.inf).amax(-1)
+        out = torch.where(use, vals, out)
+        done = done | use
+    return torch.where(x1 < x0, -math.inf, out)
+
+
+def march_target_skip_plain(disp, invz_min: float, invz_max: float, pose_sc,
+                            plane_invz, out_w: int, out_h: int,
+                            refine: int = 0, rgbm=None, run: int = SKIP_RUN,
+                            stats: dict | None = None):
+    """The CUDA kernel's walk for ONE pose, in plain torch: march_target_plain's
+    outputs, bit for bit, reached through the kernel's exact skips.
+
+    A warp (an 8 x 4 tile of output pixels) starts one plane before the
+    first plane whose threshold any texel can reach (the ladder's padding)
+    and walks the ladder in runs of `run` planes. A run's source positions
+    lie, per lane, between those at the run's smallest and largest invz
+    (positions are affine in invz and rounding is monotone); the box of
+    their tap origins over the warp's searching lanes is looked up in the
+    coarse tables (skip_tables), and where that bound is not above the
+    run's lowest threshold no lane can cross in the run, which is skipped
+    whole. Otherwise each searching lane tests each plane with one read of
+    b0 at its tap origin and reads the four taps only where b0 exceeds the
+    threshold (a candidate). A lane stops at its first crossing; where the
+    plane before it was skipped, its difference is read afresh for the
+    secant bracket.
+
+    `stats`, if given, gathers counts of the walk: warp runs tested and
+    skipped, the planes the warps walk (those where a lane has a
+    candidate, and the kernel's candidate rounds: per walked run the most
+    candidates of a lane), lane b0 tests, bilinear reads (bracket and
+    refresh), bracket refreshes, crossings at the first plane after a
+    skipped run, and the plain one-thread-per-pixel walk's lane and
+    warp-max plane visits (the walk of the kernel's previous design, whose
+    warps were rows of 32 pixels)."""
+    dev = disp.device
+    dd = disp.to(torch.float32)
+    h_s, w_s = dd.shape
+    ps = torch.as_tensor(pose_sc, dtype=torch.float32, device=dev)
+    ax, dxf, ay, dyf, _, _ = _fields(ps, out_w, out_h, w_s, h_s)
+    vg = torch.as_tensor(plane_invz, dtype=torch.float32, device=dev)
+    tk = plane_thresholds(vg, invz_min, invz_max)
+    n_k = vg.shape[0]
+    tables = skip_tables(dd)
+    # the padding skip (sweep_target.cu): start one plane before the first
+    # plane whose threshold is not above max(disp) with its slack
+    m = dd.max()
+    bound = m + m.abs() * 1.52587890625e-05 + 1e-30
+    reach = torch.nonzero(~(tk > bound))
+    k_start = max(int(reach[0, 0]) - 1 if len(reach) else n_k - 1, 0)
+
+    # lanes as (warp row, warp column, lane): the image padded to whole
+    # SKIP_TILE tiles, a lane's pixel (lane % tx, lane // tx) in its tile
+    tx, ty = SKIP_TILE
+    n_h, n_w = -(-out_h // ty), -(-out_w // tx)
+
+    def lanes(x, fill):
+        x = torch.nn.functional.pad(
+            x, (0, n_w * tx - out_w, 0, n_h * ty - out_h), value=fill)
+        return x.reshape(n_h, ty, n_w, tx).transpose(1, 2).reshape(
+            n_h, n_w, WARP)
+
+    def cols(x):
+        x = x.reshape(n_h, n_w, ty, tx).transpose(1, 2)
+        return x.reshape(n_h * ty, n_w * tx)[:out_h, :out_w]
+
+    sane = (torch.isfinite(ax) & torch.isfinite(dxf) & torch.isfinite(ay)
+            & torch.isfinite(dyf))
+    active = torch.ones((out_h, out_w), dtype=torch.bool, device=dev)
+    kstar = torch.full((out_h, out_w), -1, dtype=torch.int64, device=dev)
+    zeros = torch.zeros((out_h, out_w), dtype=torch.float32, device=dev)
+    pd, pdc, dc = zeros, zeros, zeros
+    pk = torch.full((out_h, out_w), -1, dtype=torch.int64, device=dev)
+    vl, tl = vg.tolist(), tk.tolist()
+    count = dict(runs=0, runs_skipped=0, warp_steps=0, warp_bil_steps=0,
+                 warp_bil_rounds=0, lane_tests=0, bil_reads=0, refreshes=0,
+                 after_skip=0)
+    prev_skip = torch.zeros((n_h, n_w), dtype=torch.bool, device=dev)
+
+    def diff_at(k):
+        return _bil(dd, ax + vl[k] * dxf, ay + vl[k] * dyf) - tl[k]
+
+    for k in range(k_start, n_k, run):
+        ke = min(k + run, n_k) - 1
+        live = lanes(active, False).any(-1)  # warps still searching
+        if not bool(live.any()):
+            break
+        seg = [v for v in vl[k:ke + 1] if v == v]
+        vlo, vhi = (min(seg), max(seg)) if seg else (math.inf, -math.inf)
+        tmin = min((t for t in tl[k:ke + 1] if t == t), default=math.inf)
+        ends = [(ax + vlo * dxf, ay + vlo * dyf),
+                (ax + vhi * dxf, ay + vhi * dyf)]
+        bad = ~sane
+        for px, py in ends:
+            bad = bad | torch.isnan(px) | torch.isnan(py)
+        ox = [_origin(px, w_s) for px, _ in ends]
+        oy = [_origin(py, h_s) for _, py in ends]
+        box = (torch.where(bad, 0, torch.minimum(*ox)),
+               torch.where(bad, w_s - 2, torch.maximum(*ox)),
+               torch.where(bad, 0, torch.minimum(*oy)),
+               torch.where(bad, h_s - 2, torch.maximum(*oy)))
+        big = 1 << 40
+        box = [lanes(torch.where(active, b, fill), fill).amin(-1) if lo
+               else lanes(torch.where(active, b, fill), fill).amax(-1)
+               for b, lo, fill in zip(box, (True, False, True, False),
+                                      (big, -1, big, -1))]
+        skip = live & ~(_box_bound(tables, box) > tmin)
+        count["runs"] += int(live.sum())
+        count["runs_skipped"] += int(skip.sum())
+        walk = cols((live & ~skip)[..., None].expand(n_h, n_w, WARP))
+        after_skip = cols(prev_skip[..., None].expand(n_h, n_w, WARP))
+        prev_skip = skip
+        candidates = torch.zeros((out_h, out_w), dtype=torch.int64,
+                                 device=dev)
+        for kk in range(k, ke + 1):
+            lane = active & walk
+            steps = lanes(lane, False).any(-1)
+            if not bool(steps.any()):
+                break
+            count["warp_steps"] += int(steps.sum())
+            count["lane_tests"] += int(lane.sum())
+            px, py = ax + vl[kk] * dxf, ay + vl[kk] * dyf
+            need = lane & (tables[0][_origin(py, h_s), _origin(px, w_s)]
+                           > tl[kk])
+            count["bil_reads"] += int(need.sum())
+            count["warp_bil_steps"] += int(lanes(need, False).any(-1).sum())
+            candidates = candidates + need
+            d = _bil(dd, px, py) - tl[kk]
+            crossed = need & (d > 0.0)
+            if bool(crossed.any()):
+                fresh = crossed & (pk != kk - 1)
+                count["refreshes"] += int(fresh.sum())
+                count["bil_reads"] += int(fresh.sum())
+                if kk == k:
+                    count["after_skip"] += int((crossed & after_skip).sum())
+                prev = diff_at(kk - 1) if kk > 0 else zeros
+                pdc = torch.where(crossed, torch.where(fresh, prev, pd), pdc)
+                dc = torch.where(crossed, d, dc)
+                kstar = torch.where(crossed, kk, kstar)
+                active = active & ~crossed
+            keep = need & ~crossed
+            pd = torch.where(keep, d, pd)
+            pk = torch.where(keep, kk, pk)
+        count["warp_bil_rounds"] += int(lanes(candidates, 0).amax(-1).sum())
+    if stats is not None:
+        visits = torch.where(kstar >= 0, kstar - k_start + 1, n_k - k_start)
+        count["old_lane_visits"] = int(visits.sum())
+        # that walk's warps were 32 neighbouring columns of a row
+        rows = torch.nn.functional.pad(visits, (0, -out_w % WARP))
+        count["old_warp_visits"] = int(
+            rows.reshape(out_h, -1, WARP).amax(-1).sum()) * WARP
+        count["k_start"] = k_start
+        for key, val in count.items():
+            stats[key] = stats.get(key, 0) + val
+    return _bracket(dd, (ax, dxf, ay, dyf), vg, tk, kstar, pdc, dc, refine,
+                    rgbm)
 
 
 def _solved_uv(pose_b, vstar, izmin, izmax, out_w, out_h, src_w, src_h):

@@ -8,11 +8,14 @@ march bit for bit in `found` and to 3e-5 in invz*/rgba* (the
 kernel-vs-twin gate of tests/test_sweep_march.py): its arithmetic is the
 twin's, step by step, so only the plane-range bounds could differ — and
 they are exact. The target-ray kernel is held to the kernel-vs-twin gate
-of tests/test_sweep_target.py. The billboard kernel and the plain-torch
-mesh modes are held to the billboard's bound
-(tests/test_splat_march.py:106-115): hit disagreement, and colour
-mismatches > 1e-6 where both hit, each under 1e-3 of the pixels (the
-kernel evaluates its twin's float sequence, so it should be exact).
+of tests/test_sweep_target.py, and bit for bit to the plain march and
+the plain mirror of its skip walk on scenes where the skips fire. The
+billboard kernel and the plain-torch mesh modes are held to the
+billboard's bound (tests/test_splat_march.py:106-115): hit disagreement,
+and colour mismatches > 1e-6 where both hit, each under 1e-3 of the
+pixels; the billboard kernel also bit for bit to both of its plain
+versions (the scatter's and the ladder dual's), whose float sequence it
+evaluates.
 """
 
 import numpy as np
@@ -162,6 +165,83 @@ def test_target_kernel_matches_plain_march(cuda, mode, refine, step_px):
                 f_k.shape + (1,) * (want.ndim - 2))).cpu().numpy()
             assert np.median(err) < 1e-5
             assert (err > 1e-3).mean() < 1e-3
+    assert out[0].mean().item() > 0.5
+
+
+def _far_scene(h, w):
+    """A far background (disparity 0.04..0.17, a ramp) behind a near box:
+    the walk from the box's planes to the background's crossings passes
+    long runs of planes no texel near a warp can reach."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    disp = 0.04 + 0.12 * xx / w + 0.01 * np.sin(yy / 7)
+    disp[h // 3 : h // 2, w // 4 : w // 2] = 0.95
+    rng = np.random.default_rng(h + w)
+    rgb = rng.random((h, w, 3), dtype=np.float32)
+    mask = (rng.random((h, w)) > 0.2).astype(np.float32)
+    return rgb, disp.astype(np.float32), mask
+
+
+def _run_edge_scene(h, w, pose, grid, izmin, izmax):
+    """A flat background behind a near box, its disparity halfway between
+    the thresholds of the first plane of a skip run (counted from the
+    pose's start plane, as the kernel counts them) and the plane before:
+    the background crosses right after a run its warps skip whole."""
+    rgb, disp, mask = _far_scene(h, w)
+    box = disp == np.float32(0.95)
+    stats = {}
+    tst.march_target_skip_plain(torch.from_numpy(disp), izmin, izmax, pose,
+                                grid, w, h, stats=stats)
+    tk = tst.plane_thresholds(torch.from_numpy(grid), izmin, izmax).numpy()
+    starts = np.arange(stats["k_start"] + tst.SKIP_RUN, len(grid),
+                       tst.SKIP_RUN)
+    c = starts[np.argmin(np.abs(tk[starts] - 0.3))]
+    disp[~box] = (tk[c - 1] + tk[c]) / 2
+    return rgb, disp, mask
+
+
+@pytest.mark.parametrize("scene", ["far", "run_edge"])
+@pytest.mark.parametrize("mode,refine", [("depth", 0), ("depth", 1),
+                                         ("color", 0)])
+def test_target_kernel_exact_through_skipped_runs(cuda, scene, mode, refine):
+    """On a far background the warps skip long runs of planes (most runs of
+    pose 0); on a flat one whose crossing is the first plane of a run, the
+    crossings fall right after a run skipped whole, so the secant bracket
+    is read afresh there. The kernel still equals march_target_plain bit
+    for bit, as its plain mirror march_target_skip_plain does."""
+    h, w = 112, 128
+    f1, izmin, izmax = 0.78 * w, 2.0, 0.1
+    rots = [_roty(12.0), _roty(-8.0), _roty(3.0)]
+    cs = [np.array(c) for c in ([0.22, 0.0, -0.03], [-0.12, 0.05, 0.02],
+                                [0.05, 0.0, 0.0])]
+    plan, _, _ = tst.plan_target(w, h, w, h, f1, f1, rots, cs, izmin, izmax)
+    grids, k = tst.target_plane_grids(rots, cs, f1, f1, w, h, w, h, izmin,
+                                      izmax)
+    poses = np.stack([tst.target_pose_scalars(r, c, f1, f1, w, h, w, h)
+                      for r, c in zip(rots, cs)])
+    if scene == "far":
+        rgb, disp, mask = _far_scene(h, w)
+    else:
+        rgb, disp, mask = _run_edge_scene(h, w, poses[0], grids[0], izmin,
+                                          izmax)
+    tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
+    rgbm = tst._rgbm_stack(tex[0], tex[2]) if mode == "color" else None
+    out = tcuda_t.march_target_cuda(
+        tex[1], izmin, izmax, torch.from_numpy(poses).to(cuda),
+        torch.from_numpy(grids).to(cuda), plan, refine=refine, rgbm=rgbm)
+    torch.cuda.synchronize()
+    stats = [{} for _ in range(3)]
+    for i in range(3):
+        ref = tst.march_target_plain(tex[1], izmin, izmax, poses[i],
+                                     grids[i], w, h, refine=refine,
+                                     rgbm=rgbm)
+        mirror = tst.march_target_skip_plain(
+            tex[1], izmin, izmax, poses[i], grids[i], w, h, refine=refine,
+            rgbm=rgbm, stats=stats[i])
+        for got, want, mir in zip(out, ref, mirror):
+            assert torch.equal(got[i], want) and torch.equal(mir, want)
+    assert stats[0]["runs_skipped"] > stats[0]["runs"] // 2
+    if scene == "run_edge":
+        assert stats[0]["after_skip"] > h * w // 4
     assert out[0].mean().item() > 0.5
 
 
@@ -408,6 +488,40 @@ def test_billboard_kernel_matches_plain(cuda, w, h):
             flips, mism = _bb_disagreement(a, b)
             assert flips == 0.0 and mism == 0.0, (i, show_depth, flips, mism)
     assert found.mean().item() > 0.5
+
+
+@pytest.mark.parametrize("w,h,cxs,su", [
+    (96, 64, [0.25], None),  # one pose
+    (1000, 24, [0.1, -0.07, 0.0], None),  # W not a multiple of the block
+    (200, 120, [0.2, -0.15, 0.05, 0.1, -0.02], 0.95),  # su/2 near 0.95
+    (3840, 12, [0.05, -0.03], None),  # two poses' rows over 48 KB
+])
+def test_billboard_kernel_matches_scatter_plain(cuda, w, h, cxs, su):
+    """The z-buffer scatter kernel against its plain version
+    billboard_scatter_plain and the dual's billboard_march_plain: found,
+    tex and rgba equal, at one pose, an odd pose group (5 poses), a width
+    the 256-thread block does not divide, su/2 = 0.95 and W = 3840."""
+    rgb, disp, mask = _scene(w + 7 * h, h, w)
+    f1, izmin, izmax = 0.78 * w, 2.0, 0.1
+    point_size = 1.0 if su is None else su / tbb.su_half_bound(1.0, w, h, f1)
+    plan = tsm.translation_plan(w, h, w, h,
+                                f1 * max(map(abs, cxs)) * izmin + 4.0, 0.0)
+    ixs, mms, k = tbb.billboard_shift_tables(f1, cxs, izmin, izmax, plan)
+    tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
+    args = tbb.billboard_inputs(*tex, izmin, izmax, cxs, f1, ixs, mms, plan,
+                                k, w / 2.0, h / 2.0, point_size)
+    if su is not None:
+        assert abs(float(args[4][0, 2]) - su) < 1e-3
+    before = tcuda_b.sweep_billboard.launches
+    out = tcuda_b.sweep_billboard(*args)
+    torch.cuda.synchronize()
+    assert tcuda_b.sweep_billboard.launches == before + 1
+    for i in range(len(cxs)):
+        one = (args[0], args[1], args[2][i], args[3][i], args[4][i], *args[5:])
+        for plain in (tbb.billboard_scatter_plain, tbb.billboard_march_plain):
+            for got, want in zip(out, plain(*one)):
+                assert torch.equal(got[i], want), (i, plain.__name__)
+    assert out[0].mean().item() > 0.5
 
 
 def test_billboard_kernel_rejects_bad_inputs(cuda):

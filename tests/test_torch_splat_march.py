@@ -38,17 +38,28 @@ def _plans(w, h, max_shift):
 
 
 def _twin_batch(rgb, disp, mask, f1, cxs, h, w, point_size=1.0,
-                show_depth=False):
-    """The port's render_billboard_batch on CPU tensors (the twin), planned
-    as tests/test_splat_march.py::_kernel_out plans lif_tpu's kernel."""
+                show_depth=False, plain=None):
+    """The port's render_billboard_batch on CPU tensors (its CPU branch,
+    billboard_scatter_plain), or with `plain` that plain version pose by
+    pose and the same epilogue; planned as
+    tests/test_splat_march.py::_kernel_out plans lif_tpu's kernel."""
     plan = tsm.translation_plan(
         w, h, w, h, abs(f1) * max(abs(c) for c in cxs) * IZMIN + 4.0, 0.0)
     ixs, mms, k = tbb.billboard_shift_tables(f1, cxs, IZMIN, IZMAX, plan)
-    return tbb.render_billboard_batch(
-        torch.from_numpy(rgb), torch.from_numpy(disp), torch.from_numpy(mask),
-        IZMIN, IZMAX, np.asarray(cxs), float(f1), ixs, mms, np.zeros(4), plan,
-        k, cx0=w / 2.0, cy0=h / 2.0, point_size=point_size, to_srgb=False,
-        show_depth=show_depth).numpy()
+    tex = [torch.from_numpy(a) for a in (rgb, disp, mask)]
+    if plain is None:
+        return tbb.render_billboard_batch(
+            *tex, IZMIN, IZMAX, np.asarray(cxs), float(f1), ixs, mms,
+            np.zeros(4), plan, k, cx0=w / 2.0, cy0=h / 2.0,
+            point_size=point_size, to_srgb=False,
+            show_depth=show_depth).numpy()
+    args = tbb.billboard_inputs(*tex, IZMIN, IZMAX, cxs, f1, ixs, mms, plan,
+                                k, w / 2.0, h / 2.0, point_size)
+    outs = [plain(args[0], args[1], args[2][i], args[3][i], args[4][i],
+                  *args[5:]) for i in range(len(cxs))]
+    found, tex_, rgba = (torch.stack(p) for p in zip(*outs))
+    return tbb.finish_billboard(found, tex_, rgba, np.zeros(4), False,
+                                show_depth).numpy()
 
 
 def _disagreement(ref, got, channels=3):
@@ -96,17 +107,114 @@ def test_clipped_real_shift_raises():
 
 @pytest.mark.parametrize("cx", [0.25, -0.18, 0.0])
 def test_twin_matches_kernel_and_eager_oracle(rng, cx):
-    """The plain twin against lif_tpu's TPU kernel in interpret mode and
-    against the eager scatter, at both signs of cx and at cx = 0."""
+    """The plain twin (the dual, billboard_march_plain) against lif_tpu's
+    TPU kernel in interpret mode and against the eager scatter, at both
+    signs of cx and at cx = 0."""
     h, w = 64, 96
     rgb, disp, mask = _smooth_scene(rng, h, w)
     f1 = 0.78 * w
-    got = _twin_batch(rgb, disp, mask, f1, [cx], h, w)[0]
+    got = _twin_batch(rgb, disp, mask, f1, [cx], h, w,
+                      plain=tbb.billboard_march_plain)[0]
     for ref in (_kernel_out(rgb, disp, mask, f1, [cx], h, w)[0],
                 _splat_ref(rgb, disp, f1, cx, h, w)):
         flips, mism = _disagreement(ref, got)
         assert flips < 1e-3 and mism < 1e-3, (flips, mism)
     assert (got[..., 3] > 0.5).mean() > 0.5
+
+
+@pytest.mark.parametrize("cx,point_size", [(0.25, 1.0), (-0.18, 1.0),
+                                           (0.0, 1.0), (0.2, 1.4)])
+def test_scatter_matches_kernel_and_eager_oracle(rng, cx, point_size):
+    """The scatter's plain version (the CUDA kernel's, and the CPU branch
+    of render_billboard_batch) against lif_tpu's TPU kernel in interpret
+    mode and the eager scatter, to test_twin_matches_kernel_and_eager_
+    oracle's bounds, and equal to the dual twin."""
+    h, w = 64, 96
+    rgb, disp, mask = _smooth_scene(rng, h, w)
+    f1 = 0.78 * w
+    got = _twin_batch(rgb, disp, mask, f1, [cx], h, w, point_size,
+                      plain=tbb.billboard_scatter_plain)[0]
+    refs = [_kernel_out(rgb, disp, mask, f1, [cx], h, w, point_size)[0],
+            _splat_ref(rgb, disp, f1, cx, h, w, point_size)]
+    for ref in refs:
+        flips, mism = _disagreement(ref, got)
+        assert flips < 1e-3 and mism < 1e-3, (flips, mism)
+    dual = _twin_batch(rgb, disp, mask, f1, [cx], h, w, point_size,
+                       plain=tbb.billboard_march_plain)[0]
+    assert np.array_equal(got, dual)
+    assert np.array_equal(
+        got, _twin_batch(rgb, disp, mask, f1, [cx], h, w, point_size)[0])
+
+
+def _edge_scene(rng, h, w, lo=0.0, hi=1.0):
+    """Random disparity in [lo, hi] (outside [0, 1] where asked) with hard
+    near and far boxes, random colour and mask."""
+    disp = lo + (hi - lo) * rng.random((h, w))
+    disp[h // 4 : h // 2, w // 3 : 2 * w // 3] = 0.95
+    disp[h // 2 : 3 * h // 4, w // 5 : w // 3] = 0.05
+    rgb = rng.random((h, w, 3), dtype=np.float32)
+    mask = (rng.random((h, w)) > 0.3).astype(np.float32)
+    return rgb, disp.astype(np.float32), mask
+
+
+@pytest.mark.parametrize("w,cxs,su,lo,hi", [
+    (97, [0.25, -0.18, 0.02], None, 0.0, 1.0),  # odd width, sentinels
+    (96, [0.3, -0.3, 0.1], 0.95, 0.0, 1.0),  # su/2 = 0.95
+    (64, [0.22, 0.0], 0.8, 0.0, 1.0),  # cx = 0 beside a wide ladder
+    (71, [0.2, -0.1], None, -0.3, 1.3),  # disparity outside the ladder
+])
+def test_scatter_plain_equals_dual(w, cxs, su, lo, hi):
+    """billboard_scatter_plain equals billboard_march_plain bit for bit
+    (found, tex, rgba) on scenes with hard near-box edges, at both signs of
+    cx, su/2 up to 0.95, an odd width, ladders padded with sentinel
+    planes, and texels outside [0, 1] (whose parallax the ladder's range
+    leaves out: neither version covers anything from them)."""
+    h = 40
+    rng = np.random.default_rng(w + 13)
+    rgb, disp, mask = _edge_scene(rng, h, w, lo, hi)
+    f1 = 0.78 * w
+    point_size = 1.0 if su is None else su / tbb.su_half_bound(1.0, w, h, f1)
+    plan = tsm.translation_plan(
+        w, h, w, h, f1 * max(abs(c) for c in cxs) * IZMIN + 4.0, 0.0)
+    ixs, mms, k = tbb.billboard_shift_tables(f1, cxs, IZMIN, IZMAX, plan)
+    assert (mms[:, -1] == mms[:, -2]).any()  # a sentinel-padded ladder
+    args = tbb.billboard_inputs(
+        *[torch.from_numpy(a) for a in (rgb, disp, mask)], IZMIN, IZMAX, cxs,
+        f1, ixs, mms, plan, k, w / 2.0, h / 2.0, point_size)
+    if su is not None:
+        assert abs(float(args[4][0, 2]) - su) < 1e-4
+    for i in range(len(cxs)):
+        one = (args[0], args[1], args[2][i], args[3][i], args[4][i],
+               *args[5:])
+        dual = tbb.billboard_march_plain(*one)
+        scatter = tbb.billboard_scatter_plain(*one)
+        for a, b in zip(dual, scatter):
+            assert torch.equal(a, b), (i, cxs[i])
+        assert 0.3 < float(dual[0].mean()) <= 1.0
+
+
+def test_su_half_of_one_raises():
+    """sweep_billboard (before any device check) and the CPU branch of
+    billboard_march_batch raise ValueError where a pose's su/2 reaches 1:
+    there neither the scatter nor the dual is the z-buffered splat."""
+    from lif_tpu_torch.ops.cuda import splat_march as kbb
+
+    disp = torch.rand(8, 16)
+    rgbm = torch.rand(8, 16, 4)
+    ix = torch.zeros(2, 8, dtype=torch.int32)
+    m = torch.zeros(2, 8)
+    geo = (0, 8.0, 4.0, 0.1, 0.5)
+    for su in (1.0, 1.5, float("nan")):
+        ab = torch.tensor([[0.0, 0.0, 0.5], [0.0, 0.0, su]])
+        with pytest.raises(ValueError, match="su/2 < 1"):
+            kbb.sweep_billboard(disp, rgbm, ix, m, ab, *geo)
+        with pytest.raises(ValueError, match="su/2 < 1"):
+            tbb.billboard_march_batch(disp, rgbm, ix, m, ab, *geo)
+    ab = torch.tensor([[0.0, 0.0, 0.5], [0.0, 0.0, 0.999]])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kbb.sweep_billboard(disp, rgbm, ix, m, ab, *geo)
+    found, _, _ = tbb.billboard_march_batch(disp, rgbm, ix, m, ab, *geo)
+    assert found.shape == (2, 8, 16)
 
 
 def test_batch_equals_per_pose_and_show_depth(rng):

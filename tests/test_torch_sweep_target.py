@@ -16,6 +16,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from lif_tpu.ops import composite as jcomp
 from lif_tpu.ops import sampling as jsampling
@@ -256,6 +258,89 @@ def test_edge_alpha_on_packed_mask(rng, mask_mode):
     ta = tcomp.edge_alpha(*_t(found, u, v), 0.1, m, mask_mode)
     for p, q in zip(ja, ta):
         assert np.abs(np.asarray(p) - q.numpy()).max() < 1e-6
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), h=st.integers(2, 40),
+       w=st.integers(2, 70), scale=st.sampled_from([1.0, 1e-3, 1e4]),
+       offset=st.sampled_from([0.0, -0.5, 0.7]))
+def test_skip_tables_bound_every_read(seed, h, w, scale, offset):
+    """Every bilinear read (_bil, the kernel's) at any position, inside the
+    source or clamped at its edges, is at most its b0 entry, and b0 at most
+    its b8 and b32 cells; b0 is the four taps' max plus their max|tap|
+    times 2^-16 plus 1e-30 (the stated slack, no looser), on scenes of
+    either sign and of large and small magnitude; a NaN tap gives +inf."""
+    rng = np.random.default_rng(seed)
+    disp = ((rng.random((h, w)) + offset) * scale).astype(np.float32)
+    b0, b8, b32 = tst.skip_tables(torch.from_numpy(disp))
+    taps = np.stack([disp[:-1, :-1], disp[:-1, 1:], disp[1:, :-1],
+                     disp[1:, 1:]]).astype(np.float64)
+    hi, mag = taps.max(0), np.abs(taps).max(0)
+    b0n = b0.numpy().astype(np.float64)
+    assert (b0n >= hi).all()
+    assert (b0n <= hi + mag * 2.0 ** -16 * (1 + 2.0 ** -6) + 2e-30).all()
+    px = torch.from_numpy(rng.uniform(-3.0, w + 2.0, 4000).astype(np.float32))
+    py = torch.from_numpy(rng.uniform(-3.0, h + 2.0, 4000).astype(np.float32))
+    px[:8] = torch.tensor([0.0, w - 1.0, w - 2.0, -0.0, 1e-7, w - 1.5,
+                           -1e30, 1e30])
+    reads = tst._bil(torch.from_numpy(disp), px, py)
+    ox, oy = tst._origin(px, w), tst._origin(py, h)
+    assert (reads <= b0[oy, ox]).all()
+    assert (b0[oy, ox] <= b8[oy // 8, ox // 8]).all()
+    assert (b8[oy // 8, ox // 8] <= b32[oy // 32, ox // 32]).all()
+    disp[h // 2, w // 2] = np.nan
+    b0, b8, _ = tst.skip_tables(torch.from_numpy(disp))
+    y, x = min(h // 2, h - 2), min(w // 2, w - 2)
+    assert b0[y, x] == np.inf and b8[y // 8, x // 8] == np.inf
+
+
+def _far_scene(h, w):
+    """A far background ramp behind a near box (long skipped runs)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    disp = 0.04 + 0.12 * xx / w + 0.01 * np.sin(yy / 7)
+    disp[h // 3 : h // 2, w // 4 : w // 2] = 0.95
+    rgb = np.random.default_rng(h).random((h, w, 3), dtype=np.float32)
+    return rgb, disp.astype(np.float32), np.ones((h, w), np.float32)
+
+
+@pytest.mark.parametrize("scene", ["noise", "far"])
+@pytest.mark.parametrize("mode,refine,step_px,run,out_hw", [
+    ("depth", 0, 1.0, tst.SKIP_RUN, None), ("depth", 1, 2.0, 8, None),
+    ("color", 0, 1.0, tst.SKIP_RUN, None), ("depth", 2, 1.0, 32, (37, 100)),
+])
+def test_skip_walk_equals_plain_march(rng, scene, mode, refine, step_px, run,
+                                      out_hw):
+    """march_target_skip_plain, the CUDA kernel's walk with its exact
+    skips, gives march_target_plain's found, invz* (and rgba*) bit for
+    bit: depth only at refine 0, 1 and 2, full colour, runs of 8, 16 and
+    32 planes, an output whose width is not a whole number of warps; and
+    its skips do fire (b0 tests saving tap reads; on the far scene,
+    skipped runs)."""
+    h, w = 96, 128
+    rots, cs = _BATCHES["yaw2"]
+    if scene == "noise":
+        rgb, disp, mask = _scene(rng, h=h, w=w)
+    else:
+        rgb, disp, mask = _far_scene(h, w)
+    out_h, out_w = out_hw or (h, w)
+    f1 = 0.78 * w
+    grids, _ = tst.target_plane_grids(rots, cs, f1, f1, out_w, out_h, w, h,
+                                      IZMIN, IZMAX, step_px=step_px)
+    tex = _t(rgb, disp, mask)
+    rgbm = tst._rgbm_stack(tex[0], tex[2]) if mode == "color" else None
+    stats = {}
+    for r, c, grid in zip(rots, cs, grids):
+        pose = tst.target_pose_scalars(r, np.asarray(c), f1, f1, out_w,
+                                       out_h, w, h)
+        want = tst.march_target_plain(tex[1], IZMIN, IZMAX, pose, grid,
+                                      out_w, out_h, refine=refine, rgbm=rgbm)
+        got = tst.march_target_skip_plain(tex[1], IZMIN, IZMAX, pose, grid,
+                                          out_w, out_h, refine=refine,
+                                          rgbm=rgbm, run=run, stats=stats)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+    assert stats["runs_skipped"] > 0 or scene == "noise"
+    assert stats["bil_reads"] < stats["lane_tests"] <= stats["old_lane_visits"]
 
 
 def test_plain_march_rejects_other_devices(rng):
