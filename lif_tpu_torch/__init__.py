@@ -9,7 +9,8 @@ poses ('scaled'), the orbit's target-ray march ('target': yaw-family
 poses, and pitch-family poses through an x<->y transpose) and the
 two-phase fallback for other rotated poses ('rotated'); and the mesh
 modes, render(mode='billboard' | 'mesh') and, for lateral pose batches,
-render_billboard_fast_batch (the billboard splat as a ladder gather).
+render_billboard_fast_batch (the billboard splat as a row z-buffer
+scatter).
 As in lif_tpu, the top level exports the render entry points; the tiers'
 functions stay in lif_tpu_torch.ops. It imports neither jax nor lif_tpu.
 """

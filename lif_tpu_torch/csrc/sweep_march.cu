@@ -5,32 +5,50 @@
 // it walks the pose's snap planes near -> far over the x-shifted source
 // disparity, finds the FIRST plane k whose warped inverse depth lies in
 // front of the plane (diff > 0), and returns the secant-refined crossing
-// invz* and the color lerped between the warps at planes k-1 and k —
-// the outputs found / invz* / rgba* of the plain twin
-// lif_tpu_torch.ops.sweep_march.render_translation_plain, bit for bit.
+// invz* (with `refine` in-bracket sub-planes) and the color lerped between
+// the warps at planes k-1 and k — the outputs found / invz* / rgba* of the
+// plain twin lif_tpu_torch.ops.sweep_march.march_translation_plain, bit
+// for bit.
 //
-// Design. One thread marches one (pose, row, column) pixel; a warp covers
-// 32 adjacent columns of one row, so each plane's shifted read of the
-// row-major source is one coalesced load of 33 floats. The first-crossing
-// search and the color lerp fuse: on its first crossing a thread reads
-// the color at planes k-1 and k, lerps, writes and stops. Column clamping
-// replaces the edge padding of the TPU layout (the transposed (C, W, H)
-// stack, the 8-aligned slices and their 16-way switch, the 128-lane
-// height pad and the flattened SMEM tables are all TPU constraints and
-// are gone). A block is tw columns x (128 / tw) rows and lies inside one
-// (tw-column band x 128-row chunk) cell, so it reads that cell's plane
-// range [k_lo, k_hi) from the bounds tables (lif_tpu_torch/ops/bounds.py),
-// and seeds the secant bracket by warping plane k_lo - 1 first (the TPU
-// kernel's bracket refresh).
+// Design. A block is 8 rows of one pose and walks kTiles (8) tiles of 32
+// columns, one after the other; each warp is one row of a tile, 32
+// neighbouring columns, so a plane's shifted read is one coalesced load of
+// 33 floats. The pose's shifts, fractions and plane depths (K <= 1024) are
+// staged in shared memory once per block, with per run of kRun (16) planes
+// (runs aligned at multiples of kRun) the smallest and largest shift and
+// the smallest plane depth; the tiles share that staging. Column
+// clamping replaces the edge padding of the TPU layout (the transposed
+// stack, 8-aligned slices, 128-lane pads and flattened SMEM tables are
+// TPU constraints and are gone). Each lane searches its (band x 128-row)
+// cell's plane range [k_lo, k_hi) of the bounds tables
+// (lif_tpu_torch/ops/bounds.py). The
+// walk, not memory, bounds this kernel: one thread walking its range
+// visits about 115 planes a pixel on the lateral drive, a dependent load
+// chain at each (tools/profile_kernels.py). Two things cut it, neither of
+// which can change an output:
+//  - per warp, runs of planes skipped whole: over a run, the warp's
+//    searching lanes read tap origins in the row window [jmin - pad + min
+//    ix, jmax - pad + max ix] (clamped to the row); the row tables of
+//    ops/sweep_march.py::row_skip_tables (built once per texture, r8 and
+//    r32 the maxima over 8- and 32-texel cells of a pair bound r0 that
+//    is at least every lerp with that origin) bound every texel read
+//    there; the lanes read the cells covering the window, one each, and
+//    where that bound, decoded with the kernel's own rounded operations
+//    (monotone, so it bounds every decoded read), is not above the run's
+//    smallest plane depth no lane can cross in the run. Tables of -disp,
+//    negated here, serve a decode that falls as the texel rises;
+//  - in a run that is not skipped, a lane reads kGroup planes together
+//    (independent loads) before it tests them in order, instead of one
+//    dependent load and branch at a time.
+// A lane leaves at its crossing or at k_hi and no longer widens its warp's
+// window. If the plane before the crossing was not read, its difference is
+// read afresh for the secant bracket (lif_tpu's bracket refresh), so the
+// outputs are the dense walk's. The plain mirror of this walk is
+// ops/sweep_march.py::march_translation_skip_plain.
 //
-// Bound on the H100: source re-reads. Each visited plane costs every
-// thread two 4-byte disparity reads — up to (k_hi - k_lo) x 8 B per pixel
-// from L1/L2 against one 24-byte output write — while the row window of a
-// block (a few KB) stays cache-resident across planes, so device memory
-// sees little more than one source read per block and the output. The
-// work is a serial loop of dependent cache loads per thread; the bounded
-// plane range and the early exit at the first crossing are what cut it.
-// The per-plane cm3/occ2 skip tests are left to a later change.
+// Bound on the H100: the operations of the first-crossing march above the
+// crossing (the one-thread walk's yardstick, kept so that times before and
+// after this design compare), against a 24-byte output write per pixel.
 // FP32 ops: per plane 8, per pixel 0, per found 52.
 // (Per visited plane the lerp, the decode and the crossing test; at
 // the crossing the secant and nine lerps.)
@@ -42,7 +60,19 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cmath>
+
 namespace {
+
+constexpr int kMaxPlanes = 1024;
+constexpr int kBlockX = 32;  // a warp: 32 columns of one row
+constexpr int kBlockY = 8;
+constexpr int kRun = 16;  // planes a warp skips at once (LATERAL_RUN)
+constexpr int kMaxRuns = kMaxPlanes / kRun;
+constexpr int kTiles = 8;  // 32-column tiles a block walks
+constexpr int kGroup = 4;  // planes a lane reads together (LATERAL_GROUP)
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float lerp_rn(float a, float b, float f) {
   // a * (1 - f) + b * f
@@ -54,101 +84,280 @@ __device__ __forceinline__ float mix_rn(float lo, float hi, float s) {
   return __fadd_rn(lo, __fmul_rn(s, __fsub_rn(hi, lo)));
 }
 
-__global__ void lateral_march_kernel(
+// pd / min(pd - d, -1e-12), clipped to [0, 1]
+__device__ __forceinline__ float secant(float pd, float d) {
+  return fminf(fmaxf(__fdiv_rn(pd, fminf(__fsub_rn(pd, d), -1e-12f)), 0.0f),
+               1.0f);
+}
+
+// this lane's cell of the row-window cover [xa, xb]: 8-texel cells where
+// at most 32 cover it, else 32-texel cells, else +inf; -inf past the cover
+__device__ __forceinline__ float row_bound(const float* __restrict__ r8,
+                                           const float* __restrict__ r32,
+                                           int xa, int xb, int lane) {
+  int ca = xa >> 3, cb = xb >> 3;
+  if (cb - ca < 32) {
+    return ca + lane <= cb ? __ldg(r8 + ca + lane) : -INFINITY;
+  }
+  ca = xa >> 5, cb = xb >> 5;
+  if (cb - ca < 32) {
+    return ca + lane <= cb ? __ldg(r32 + ca + lane) : -INFINITY;
+  }
+  return INFINITY;
+}
+
+__global__ void __launch_bounds__(kBlockX * kBlockY) lateral_march_kernel(
     const float* __restrict__ src,   // (5, H, W): r, g, b, mask, disp
     const int* __restrict__ ix,      // (B, K) window starts, padded coords
     const float* __restrict__ fx,    // (B, K) lerp fractions
     const float* __restrict__ izt,   // (B, K) plane invz, near -> far
     const int* __restrict__ klo,     // (B, nb, n_hc) first plane to visit
     const int* __restrict__ khi,     // (B, nb, n_hc) one past the last
+    const float* __restrict__ r8,    // (H, n8) row_skip_tables
+    const float* __restrict__ r32,   // (H, n32)
     float* __restrict__ found,       // (B, H, out_w)
     float* __restrict__ invz_star,   // (B, H, out_w)
     float4* __restrict__ rgba_star,  // (B, H, out_w)
-    int K, int H, int W, int out_w, int pad_lo_x, int n_hc,
-    float izmin, float izmax) {
-  const int band = blockIdx.x;
-  const int j = band * blockDim.x + threadIdx.x;  // output column
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;  // row
-  const int p = blockIdx.z;  // pose
-  if (i >= H) return;
+    int K, int H, int W, int out_w, int pad_lo_x, int tw, int n_hc, int n8,
+    int n32, float izmin, float izmax, int refine) {
+  __shared__ int s_ix[kMaxPlanes];
+  __shared__ float s_fx[kMaxPlanes], s_iz[kMaxPlanes];
+  __shared__ int s_ixlo[kMaxRuns], s_ixhi[kMaxRuns];
+  __shared__ float s_tmin[kMaxRuns];
+  const int p = blockIdx.z;
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  constexpr int nthreads = kBlockX * kBlockY;
+  for (int k = tid; k < K; k += nthreads) {
+    const size_t o = static_cast<size_t>(p) * K + k;
+    s_ix[k] = ix[o];
+    s_fx[k] = fx[o];
+    s_iz[k] = izt[o];
+  }
+  __syncthreads();
+  // per run: its shift range and smallest plane invz (NaN planes cannot
+  // cross and are left out)
+  const int n_runs = (K + kRun - 1) / kRun;
+  for (int r = tid; r < n_runs; r += nthreads) {
+    int lo = INT_MAX, hi = INT_MIN;
+    float tmin = INFINITY;
+    for (int k = r * kRun; k < min(r * kRun + kRun, K); ++k) {
+      lo = min(lo, s_ix[k]);
+      hi = max(hi, s_ix[k]);
+      tmin = fminf(tmin, s_iz[k]);
+    }
+    s_ixlo[r] = lo;
+    s_ixhi[r] = hi;
+    s_tmin[r] = tmin;
+  }
+  __syncthreads();
 
+  const int lane = threadIdx.x;
+  const int i = blockIdx.y * kBlockY + threadIdx.y;  // row, warp-uniform
+  if (i >= H) return;
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t row = static_cast<size_t>(i) * W;
   const float* disp = src + 4 * plane + row;
-  const int* ixp = ix + static_cast<size_t>(p) * K;
-  const float* fxp = fx + static_cast<size_t>(p) * K;
-  const float* izp = izt + static_cast<size_t>(p) * K;
-  const int cell = (p * gridDim.x + band) * n_hc + i / 128;
-  const int k0 = klo[cell];
-  const int k1 = khi[cell];
   const float dsc = __fsub_rn(izmin, izmax);
-  const int x0 = j - pad_lo_x;  // source column of window start 0
+  const bool down = dsc < 0.0f;  // the tables bound -disp
+  const float* row8 = r8 + static_cast<size_t>(i) * n8;
+  const float* row32 = r32 + static_cast<size_t>(i) * n32;
+  for (int tile = 0; tile < kTiles; ++tile) {
+    const int j = (blockIdx.x * kTiles + tile) * kBlockX + lane;  // column
+    if (j - lane >= out_w) break;  // warp-uniform: no column left
+    const bool valid = j < out_w;
+    int k0 = K, k1 = 0;
+    if (valid) {
+      const int cell = (p * (out_w / tw) + j / tw) * n_hc + i / 128;
+      k0 = klo[cell];
+      k1 = khi[cell];
+    }
 
-  auto tap = [&](int k, int d) {
-    return min(max(x0 + ixp[k] + d, 0), W - 1);
-  };
-  // decoded inverse depth of the warped disparity minus the plane's
-  auto diff_at = [&](int k) {
-    const float tex = lerp_rn(disp[tap(k, 0)], disp[tap(k, 1)], fxp[k]);
-    return __fsub_rn(__fadd_rn(__fmul_rn(tex, dsc), izmax), izp[k]);
-  };
+    const int x0 = j - pad_lo_x;  // source column of window start 0
 
-  float pd = k0 > 0 ? diff_at(k0 - 1) : 0.0f;
-  float f_out = 0.0f, iz_out = 0.0f;
-  float4 c_out = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int k = k0; k < k1; ++k) {
-    const float d = diff_at(k);
-    if (d > 0.0f) {
-      float s = 1.0f;  // a first-plane crossing snaps to plane 0
-      float prev[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (k > 0) {
-        const float t = __fdiv_rn(pd, fminf(__fsub_rn(pd, d), -1e-12f));
-        s = fminf(fmaxf(t, 0.0f), 1.0f);
-        const int a = tap(k - 1, 0), b = tap(k - 1, 1);
+    auto tap = [&](int start, int d) {
+      return min(max(x0 + start + d, 0), W - 1);
+    };
+    // decoded inverse depth of the warped disparity minus the plane's
+    auto diff_at = [&](int k) {
+      const float tex =
+          lerp_rn(disp[tap(s_ix[k], 0)], disp[tap(s_ix[k], 1)], s_fx[k]);
+      return __fsub_rn(__fadd_rn(__fmul_rn(tex, dsc), izmax), s_iz[k]);
+    };
+
+    // pass 1: the first crossing and its bracket
+    bool active = valid && k0 < k1;
+    int ks = -1, pk = -1;  // pd holds the difference at plane pk
+    float pd = 0.0f, pdc = 0.0f, dc = 0.0f;
+    const int kw0 = __reduce_min_sync(kAll, active ? k0 : K);
+    const int kw1 = __reduce_max_sync(kAll, active ? k1 : 0);
+    for (int r = kw0 / kRun; r * kRun < kw1; ++r) {
+      const int kb = r * kRun;
+      if (active && k1 <= kb) active = false;
+      if (!__any_sync(kAll, active)) break;
+      // the warp's window of tap origins over the run
+      const int jlo = __reduce_min_sync(kAll, active ? j : INT_MAX);
+      const int jhi = __reduce_max_sync(kAll, active ? j : INT_MIN);
+      const int xa = min(max(jlo - pad_lo_x + s_ixlo[r], 0), W - 1);
+      const int xb = min(max(jhi - pad_lo_x + s_ixhi[r], 0), W - 1);
+      float m = row_bound(row8, row32, xa, xb, lane);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float* ch = src + c * plane + row;
-          prev[c] = lerp_rn(ch[a], ch[b], fxp[k - 1]);
+      for (int off = 16; off > 0; off >>= 1) {
+        m = fmaxf(m, __shfl_xor_sync(kAll, m, off));
+      }
+      const float top = __fadd_rn(__fmul_rn(down ? -m : m, dsc), izmax);
+      if (m != INFINITY && !(__fsub_rn(top, s_tmin[r]) > 0.0f)) continue;
+      // walk the run: kGroup planes read together, then tested in order
+      const int ke = min(kb + kRun, K);
+      for (int c = kb + max(kw0 - kb, 0) / kGroup * kGroup; c < ke;
+           c += kGroup) {
+        if (!__any_sync(kAll, active)) break;
+        if (!active) continue;
+        float d[kGroup];
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) d[u] = diff_at(min(c + u, K - 1));
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          const int cc = c + u;
+          if (!active || cc >= ke) break;
+          if (cc >= k1) {
+            active = false;
+            break;
+          }
+          if (cc < k0) continue;
+          if (d[u] > 0.0f) {
+            ks = cc;
+            dc = d[u];
+            // the bracket refresh: the plane before was not read
+            pdc = pk == cc - 1 ? pd : (cc > 0 ? diff_at(cc - 1) : 0.0f);
+            active = false;
+          } else {
+            pd = d[u];
+            pk = cc;
+          }
         }
       }
-      const int a = tap(k, 0), b = tap(k, 1);
-      float cur[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float* ch = src + c * plane + row;
-        cur[c] = lerp_rn(ch[a], ch[b], fxp[k]);
-      }
-      c_out = make_float4(mix_rn(prev[0], cur[0], s), mix_rn(prev[1], cur[1], s),
-                          mix_rn(prev[2], cur[2], s), mix_rn(prev[3], cur[3], s));
-      iz_out = mix_rn(izp[k > 0 ? k - 1 : 0], izp[k], s);
-      f_out = 1.0f;
-      break;
     }
-    pd = d;
-  }
-  const size_t o = (static_cast<size_t>(p) * H + i) * out_w + j;
-  found[o] = f_out;
-  invz_star[o] = iz_out;
-  rgba_star[o] = c_out;
+    if (!valid) continue;
+
+    const size_t o = (static_cast<size_t>(p) * H + i) * out_w + j;
+    if (ks < 0) {
+      found[o] = 0.0f;
+      invz_star[o] = 0.0f;
+      rgba_star[o] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    // the [r, g, b, mask] warps at a shift t (ix + fx, or a sub-plane's)
+    auto color_at = [&](float t, float* out) {
+      const float tf = floorf(t);
+      const int a = tap(static_cast<int>(tf), 0);
+      const int b = tap(static_cast<int>(tf), 1);
+      const float f = __fsub_rn(t, tf);
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        const float* cp = src + ch * plane + row;
+        out[ch] = lerp_rn(cp[a], cp[b], f);
+      }
+    };
+    const int km1 = max(ks - 1, 0);
+    const float tx0 = __fadd_rn(static_cast<float>(s_ix[km1]), s_fx[km1]);
+    const float tx1 = __fadd_rn(static_cast<float>(s_ix[ks]), s_fx[ks]);
+    float cur[4], prev[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c[4];
+    color_at(tx1, cur);
+    float s_star = 1.0f;  // a first-plane crossing snaps to plane 0
+    if (ks == 0) {
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) c[ch] = cur[ch];
+    } else if (refine == 0) {
+      color_at(tx0, prev);
+      s_star = secant(pdc, dc);
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) c[ch] = mix_rn(prev[ch], cur[ch], s_star);
+    } else {
+      // in-bracket sub-sweep at exactly lerped shifts and plane depths
+      color_at(tx0, prev);
+      const double step = 1.0 / static_cast<double>(refine + 1);
+      float slo = 0.0f, pd2 = pdc, d2 = dc, prev_g = pdc, prev_s = 0.0f;
+      float clo[4], chi[4], prev_c[4];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        clo[ch] = prev[ch];
+        chi[ch] = cur[ch];
+        prev_c[ch] = prev[ch];
+      }
+      bool sfound = false;
+      for (int jj = 1; jj <= refine + 1; ++jj) {
+        const float s = static_cast<float>(static_cast<double>(jj) * step);
+        float g, cs[4];
+        if (jj <= refine) {
+          const float t = mix_rn(tx0, tx1, s);
+          const float tf = floorf(t);
+          const float tex = lerp_rn(disp[tap(static_cast<int>(tf), 0)],
+                                    disp[tap(static_cast<int>(tf), 1)],
+                                    __fsub_rn(t, tf));
+          g = __fsub_rn(__fadd_rn(__fmul_rn(tex, dsc), izmax),
+                        mix_rn(s_iz[km1], s_iz[ks], s));
+          color_at(t, cs);
+        } else {
+          g = dc;
+#pragma unroll
+          for (int ch = 0; ch < 4; ++ch) cs[ch] = cur[ch];
+        }
+        if (!sfound && g > 0.0f) {
+          slo = prev_s;
+          pd2 = prev_g;
+          d2 = g;
+#pragma unroll
+          for (int ch = 0; ch < 4; ++ch) {
+            clo[ch] = prev_c[ch];
+            chi[ch] = cs[ch];
+          }
+          sfound = true;
+        }
+        prev_g = g;
+        prev_s = s;
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) prev_c[ch] = cs[ch];
+      }
+      if (!sfound) {
+        slo = prev_s;
+        pd2 = prev_g;
+      }
+      const float t2 = secant(pd2, d2);
+      s_star = __fadd_rn(slo, __fmul_rn(static_cast<float>(step), t2));
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) c[ch] = mix_rn(clo[ch], chi[ch], t2);
+    }
+    found[o] = 1.0f;
+    invz_star[o] = mix_rn(s_iz[km1], s_iz[ks], s_star);
+    rgba_star[o] = make_float4(c[0], c[1], c[2], c[3]);
+  }  // tiles
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() right after the launch.
-// tw (the band width, dividing out_w and 128) sets the block shape.
+// Launch on `stream`; returns cudaGetLastError() right after the launch,
+// or cudaErrorInvalidValue for a ladder longer than kMaxPlanes. tw (the
+// band width of the bounds cells, dividing out_w) locates each lane's
+// cell; r8/r32 are row_skip_tables' cells.
 extern "C" int lif_lateral_march(
     const void* src, const void* ix, const void* fx, const void* izt,
-    const void* klo, const void* khi, void* found, void* invz_star,
-    void* rgba_star, int B, int K, int H, int W, int out_w, int pad_lo_x,
-    int tw, int n_hc, float izmin, float izmax, void* stream) {
-  const dim3 block(tw, 128 / tw);
-  const dim3 grid(out_w / tw, (H + block.y - 1) / block.y, B);
+    const void* klo, const void* khi, const void* r8, const void* r32,
+    void* found, void* invz_star, void* rgba_star, int B, int K, int H,
+    int W, int out_w, int pad_lo_x, int tw, int n_hc, int n8, int n32,
+    float izmin, float izmax, int refine, void* stream) {
+  if (K < 1 || K > kMaxPlanes || refine < 0 || W < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 block(kBlockX, kBlockY);
+  const int span = kBlockX * kTiles;
+  const dim3 grid((out_w + span - 1) / span, (H + kBlockY - 1) / kBlockY, B);
   lateral_march_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(src), static_cast<const int*>(ix),
       static_cast<const float*>(fx), static_cast<const float*>(izt),
       static_cast<const int*>(klo), static_cast<const int*>(khi),
+      static_cast<const float*>(r8), static_cast<const float*>(r32),
       static_cast<float*>(found), static_cast<float*>(invz_star),
-      static_cast<float4*>(rgba_star), K, H, W, out_w, pad_lo_x, n_hc,
-      izmin, izmax);
+      static_cast<float4*>(rgba_star), K, H, W, out_w, pad_lo_x, tw, n_hc,
+      n8, n32, izmin, izmax, refine);
   return static_cast<int>(cudaGetLastError());
 }

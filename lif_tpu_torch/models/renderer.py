@@ -16,8 +16,9 @@ the production fast path render_fast_batch on four tiers —
 The mesh modes: render(mode='billboard') is the billboard scatter
 (ops/splat.py) and render(mode='mesh') the connected-mesh rasterizer
 (ops/mesh.py), both plain torch on any device; render_billboard_fast_batch
-renders a lateral pose batch in billboard mode through the ladder gather
-(on CUDA through csrc/splat_march.cu, one launch per batch).
+renders a lateral pose batch in billboard mode through the row z-buffer
+scatter (on CUDA through csrc/splat_march.cu, one launch per batch; on
+the CPU its plain version billboard_scatter_plain).
 A pose, layer or option that needs what the port does not have yet (the
 'sweep' fallback, the skewed lateral fold, ...) raises
 NotImplementedError naming it; nothing falls back to an approximate tier.
@@ -49,6 +50,7 @@ from ..ops import sweep_march as _sweep_march
 from ..ops import sweep_scaled as _sweep_scaled
 from ..ops import sweep_target as _sweep_target
 from ..ops.cuda.sweep_march import prepare_translation_src
+from ..ops.cuda.sweep_target import skip_table_buffer
 from .projector import Projector
 
 __all__ = ["BillboardPlan", "TierPlan", "plan_billboard", "plan_tiers",
@@ -56,9 +58,10 @@ __all__ = ["BillboardPlan", "TierPlan", "plan_billboard", "plan_tiers",
            "render_mono_view"]
 
 # Two caches for the fast path, both LRU. The TEXTURE cache holds the
-# pose-independent per-layer views and host scalars once per projector;
-# it keys on the identity of the texture tensors plus their in-place
-# version counters, and stores strong references so the ids stay valid. The
+# pose-independent per-layer views, host scalars and the kernels' skip
+# tables once per projector; it keys on the identity of the texture
+# tensors plus their in-place version counters and on the host fields the
+# entry bakes in, and stores strong references so the ids stay valid. The
 # TABLE cache holds the per-pose snap-plane grids on the device: building
 # them is host numpy per pose, which a replayed trajectory must not pay
 # every frame.
@@ -114,17 +117,43 @@ def _disp_fingerprint(buf: torch.Tensor) -> int:
 
 
 def _texture_key(projector):
-    """Cache key + strong-reference tuple covering every texture buffer a
-    prepared entry bakes in."""
+    """Cache key + strong-reference tuple covering everything a prepared
+    entry bakes in: the texture buffers (identity and in-place version
+    counter) and the host fields focal, invz_min/invz_max, baseline and
+    layer_res (numpy, so reading them costs no device sync). A projector
+    made with dataclasses.replace keeps the textures of the first one and
+    must still miss when one of those fields differs."""
     refs = (projector.disp, projector.rgb, projector.mask)
-    key = tuple((id(buf), _disp_fingerprint(buf)) for buf in refs)
+    key = tuple((id(buf), _disp_fingerprint(buf)) for buf in refs) + tuple(
+        np.asarray(field).tobytes()
+        for field in (projector.focal, projector.invz_min, projector.invz_max,
+                      projector.baseline, projector.layer_res)
+    )
     return key, refs
+
+
+def _layer_skip(disp, izmin, izmax):
+    """The march kernels' skip tables of one layer's disparity, built once
+    per CUDA texture by each kernel's builder: the target kernel's flat
+    buffer, the scaled kernel's skip_pack (which reuses that buffer where
+    it can) and the lateral kernel's (r8, r32) row tables. A CPU texture
+    takes the plain marches, which read none of them."""
+    if disp.device.type != "cuda":
+        return {}
+    target = skip_table_buffer(disp)
+    return dict(
+        skip_target=target,
+        skip_scaled=_sweep_scaled.skip_pack(disp, izmin, izmax,
+                                            target=target),
+        skip_rows=_sweep_march.row_skip_tables(disp, izmin, izmax)[1:],
+    )
 
 
 def _prepared_textures(projector):
     """Pose-independent per-layer constants, cached once per projector:
-    texture views on the device, baseline-normalized ranges and the host
-    scalars the planners read. Returns a list of per-layer dicts."""
+    texture views on the device, baseline-normalized ranges, the host
+    scalars the planners read and the kernels' skip tables (_layer_skip).
+    Returns a list of per-layer dicts."""
     key, refs = _texture_key(projector)
     hit = _TEX_CACHE.get(key)
     if hit is not None and all(a is b for a, b in zip(hit[0], refs)):
@@ -136,16 +165,20 @@ def _prepared_textures(projector):
     for i in range(projector.num_layers):
         w_i = int(projector.layer_res[i, 0])
         h_i = int(projector.layer_res[i, 1])
+        izmin = float(projector.invz_min[i]) / baseline
+        izmax = float(projector.invz_max[i]) / baseline
+        disp = projector.disp[i, :h_i, :w_i]
         layers.append(
             dict(
                 rgb=projector.rgb[i, :h_i, :w_i],
-                disp=projector.disp[i, :h_i, :w_i],
+                disp=disp,
                 mask=projector.mask[i, :h_i, :w_i],
                 focal_host=float(projector.focal[i]),
-                izmin_host=float(projector.invz_min[i]) / baseline,
-                izmax_host=float(projector.invz_max[i]) / baseline,
+                izmin_host=izmin,
+                izmax_host=izmax,
                 w=w_i,
                 h=h_i,
+                **_layer_skip(disp.to(torch.float32), izmin, izmax),
             )
         )
     while len(_TEX_CACHE) >= _TEX_CACHE_MAX:
@@ -233,18 +266,21 @@ def _march_sources(lay, plan, crop_y):
 def _attach_march_prep(layers, modes, plans, crops):
     """Hoist the march's pose-independent source prep (the kernel's source
     stack + plane-range tables) out of the pose-chunk loop: computed ONCE
-    per call, for 'march' layers. CUDA path only (the CPU twin reads the
-    raw textures)."""
+    per call, for 'march' layers, with the rows of the cached row skip
+    tables the crop keeps. CUDA path only (the CPU twin reads the raw
+    textures)."""
     out = []
     for lay, mode, plan, crop_y in zip(layers, modes, plans, crops):
         if mode != "march" or lay["disp"].device.type != "cuda":
             out.append(lay)
             continue
+        rows = slice(crop_y, crop_y + plan.out_h)
         out.append(dict(
             lay,
             march_prep=prepare_translation_src(
                 *_march_sources(lay, plan, crop_y), plan
             ),
+            march_rows=tuple(t[rows] for t in lay["skip_rows"]),
         ))
     return out
 
@@ -515,16 +551,17 @@ def _layer_tier_batch(
             lay["izmax_host"], c1_b, lay["focal_host"], fr, lay["grids"],
             zero_bg, splan, k_s, feathering=feathering, mask_mode=mask_mode,
             to_srgb=False, refine=rot_refine, dx_user=dxu, dy_user=dyu,
+            skip_tables=lay.get("skip_scaled"),
         )
     if mode == "rotated":
-        rplan, wi, hi, k_r, skip, sk1_t, sk2_t = setup
+        rplan, wi, hi, k_r, skip_a, sk1_t, sk2_t = setup
         return _rotated_march.render_rotated_march_batch(
             lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
             lay["izmax_host"], lay["focal_host"], c1_b, rot_b,
             lay["aligned"], f2, lay["grids"], zero_bg, rplan, k_r, out_w,
             out_h, wi, hi, feathering=feathering, mask_mode=mask_mode,
-            to_srgb=False, refine=rot_refine, skip_phase_a=skip, sk1=sk1_t,
-            sk2=sk2_t,
+            to_srgb=False, refine=rot_refine, skip_phase_a=skip_a, sk1=sk1_t,
+            sk2=sk2_t, skip_tables=lay.get("skip_scaled"),
         )
     if mode == "target":
         tplan, k_t = setup
@@ -532,7 +569,7 @@ def _layer_tier_batch(
             lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
             lay["izmax_host"], lay["pose_sc"], lay["grids"], zero_bg, tplan,
             k_t, feathering=feathering, mask_mode=mask_mode, to_srgb=False,
-            refine=t_refine,
+            refine=t_refine, skip_tables=lay.get("skip_target"),
         )
     if mode != "march":
         raise NotImplementedError(f"the '{mode}' tier is not ported yet")
@@ -543,6 +580,7 @@ def _layer_tier_batch(
         plan=plan, num_planes=k_l, refine=refine, feathering=feathering,
         mask_mode=mask_mode, to_srgb=False, offset=base_offset,
         crop_y=crop_y, prepared=lay.get("march_prep"),
+        skip_rows=lay.get("march_rows"),
     )
 
 
@@ -995,10 +1033,11 @@ def render_billboard_fast_batch(
     to_srgb: bool = True,
     show_depth: bool = False,
 ):
-    """Billboard (splat) mode over a whole lateral pose batch: the ladder
-    gather of ops.splat_march, the exact dual of render(mode='billboard')
-    on these poses. On a CUDA projector it is ONE kernel launch for the
-    batch; on a CPU projector the plain twin (not lif_tpu's per-frame XLA
+    """Billboard (splat) mode over a whole lateral pose batch: the row
+    z-buffer scatter of ops.splat_march, exact against
+    render(mode='billboard') on these poses. On a CUDA
+    projector it is ONE kernel launch for the batch; on a CPU projector
+    its plain version billboard_scatter_plain (not lif_tpu's per-frame XLA
     scatter: the port's CPU branch computes what the kernel computes).
     Returns (B, H, W, 4) on the projector's device.
 

@@ -4,21 +4,23 @@ tables and the wrapper of the CUDA kernel csrc/sweep_march.cu.
 The counterpart of lif_tpu.ops.pallas.sweep_march, which holds the TPU
 kernel this one replaces. What the kernel computes is the same — planes
 walked near -> far over the x-shifted source disparity, the first
-crossing with its secant bracket, the color lerp between the warps at
-planes k-1 and k — but not the TPU's layout: the source stays row-major
-with x contiguous (each plane's shifted read is a coalesced load), one
-thread marches one (pose, row, column) pixel, and column clamping
-replaces the edge padding.
+crossing with its secant bracket (and the optional in-bracket refine
+sub-sweep), the color lerp between the warps at planes k-1 and k — but
+not the TPU's layout: the source stays row-major with x contiguous (each
+plane's shifted read is a coalesced load), one thread marches one (pose,
+row, column) pixel, and column clamping replaces the edge padding.
 
-Each thread block lies inside one (tw-column band x 128-row chunk) cell
-of lif_tpu's tiling, so it reads its plane range [k_lo, k_hi) from the
-same plane_loop_bounds tables (built here by _skip_tables and
-lateral_loop_bounds). The per-plane cm3/occ2 skip tests of the TPU
-kernel are not ported: they only avoid work and never change outputs.
+Each lane reads its plane range [k_lo, k_hi) from lif_tpu's (band x
+128-row) cell tiling, the same plane_loop_bounds tables (built here by
+_skip_tables and lateral_loop_bounds). In place of lif_tpu's per-plane
+cm3/occ2 tests, the warps skip whole runs of planes exactly with the row
+tables of ops.sweep_march.row_skip_tables (built once per texture by the
+renderer, and required by the wrapper).
 
 The kernel's plain version is ops.sweep_march.march_translation_plain
-(inside the twin render_translation_plain); a CUDA tensor never reaches
-it from here.
+(inside the twin render_translation_plain), and the plain mirror of its
+skip walk ops.sweep_march.march_translation_skip_plain; a CUDA tensor
+never reaches either from here.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..sweep_march import (
 from .build import load_library
 
 __all__ = [
+    "MAX_PLANES",
     "lateral_kernel_inputs",
     "lateral_loop_bounds",
     "march_translation_cuda",
@@ -48,6 +51,7 @@ __all__ = [
     "sweep_lateral",
 ]
 
+MAX_PLANES = 1024  # the kernel's shared-memory tables (kMaxPlanes)
 _COARSE = 8  # coarse skip-table cell width, px
 _LC = 128  # rows per bounds chunk (lif_tpu's 128-lane y chunk)
 
@@ -134,6 +138,8 @@ def lateral_loop_bounds(cm3, cmin3, ix_t, tkt, out_w: int, num_planes: int):
 
 
 def _check(t, name, dtype, shape):
+    if t is None:
+        raise ValueError(f"{name} is required")
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -145,9 +151,11 @@ def _check(t, name, dtype, shape):
 
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 9  # src, ix, fx, izt, klo, khi, found, invz, rgba
-    + [ctypes.c_int] * 8  # B, K, H, W, out_w, pad_lo_x, tw, n_hc
+    # src, ix, fx, izt, klo, khi, r8, r32, found, invz, rgba
+    [ctypes.c_void_p] * 11
+    + [ctypes.c_int] * 10  # B, K, H, W, out_w, pad_lo_x, tw, n_hc, n8, n32
     + [ctypes.c_float] * 2  # izmin, izmax
+    + [ctypes.c_int]  # refine
     + [ctypes.c_void_p]  # stream
 )
 
@@ -162,14 +170,16 @@ def _lib():
 
 
 def sweep_lateral(src, ix, fx, izt, klo, khi, izmin: float, izmax: float,
-                  plan: TranslationPlan):
+                  plan: TranslationPlan, refine: int = 0, *, rows):
     """Launch the lateral march kernel for a pose batch.
 
     src: (5, H, W) float32 stack from prepare_translation_src; ix/fx:
     (B, K) int32/float32 warp shifts (warp_shifts of the plane tables);
     izt: (B, K) float32 plane inverse depths, near -> far; klo/khi:
-    (B, nb, Hc) int32 plane ranges. Returns found (B, H, out_w),
-    invz* (B, H, out_w) and rgba* (B, H, out_w, 4), float32.
+    (B, nb, Hc) int32 plane ranges; rows: (r8, r32) of
+    ops.sweep_march.row_skip_tables for src[4] and (izmin, izmax);
+    refine: in-bracket sub-planes. Returns found (B, H, out_w), invz*
+    (B, H, out_w) and rgba* (B, H, out_w, 4), float32.
     `sweep_lateral.launches` counts the launches."""
     _, h, w = src.shape
     b, k = ix.shape
@@ -184,6 +194,16 @@ def sweep_lateral(src, ix, fx, izt, klo, khi, izmin: float, izmax: float,
     _check(khi, "khi", torch.int32, (b, out_w // tw, n_hc))
     if (plan.src_w, plan.src_h, plan.out_h) != (w, h, h):
         raise ValueError(f"plan {plan} does not match a {w}x{h} source")
+    if not 1 <= k <= MAX_PLANES:
+        raise ValueError(f"{k} planes: the kernel takes 1..{MAX_PLANES}")
+    if refine < 0:
+        raise ValueError(f"refine {refine} must be >= 0")
+    if rows is None:
+        raise ValueError("rows is required: row_skip_tables(src[4], izmin, "
+                         "izmax)[1:]")
+    r8, r32 = rows
+    _check(r8, "r8", torch.float32, (h, -(-w // 8)))
+    _check(r32, "r32", torch.float32, (h, -(-w // 32)))
     found = torch.empty((b, h, out_w), dtype=torch.float32, device=src.device)
     invz = torch.empty_like(found)
     rgba = torch.empty((b, h, out_w, 4), dtype=torch.float32, device=src.device)
@@ -192,10 +212,10 @@ def sweep_lateral(src, ix, fx, izt, klo, khi, izmin: float, izmax: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             src.data_ptr(), ix.data_ptr(), fx.data_ptr(), izt.data_ptr(),
-            klo.data_ptr(), khi.data_ptr(), found.data_ptr(),
-            invz.data_ptr(), rgba.data_ptr(),
-            b, k, h, w, out_w, plan.pad_lo_x, tw, n_hc,
-            float(izmin), float(izmax), stream,
+            klo.data_ptr(), khi.data_ptr(), r8.data_ptr(), r32.data_ptr(),
+            found.data_ptr(), invz.data_ptr(), rgba.data_ptr(),
+            b, k, h, w, out_w, plan.pad_lo_x, tw, n_hc, r8.shape[1],
+            r32.shape[1], float(izmin), float(izmax), int(refine), stream,
         )
     if err != 0:
         raise RuntimeError(f"lif_lateral_march launch failed: CUDA error {err}")
@@ -219,6 +239,9 @@ def march_translation_cuda(
     num_planes: int,
     offset=(0.0, 0.0),
     prepared=None,
+    refine: int = 0,
+    *,
+    rows,
 ):
     """The lateral march of a pose batch through the kernel: plane tables,
     plane-range tables, one launch. Returns found (B, H, W), invz*
@@ -227,13 +250,14 @@ def march_translation_cuda(
 
     Serves the LATERAL case: c1 (B, 3) host array with c1[:, 1] == 0,
     f1 == f2, source height equal to the output height. plane_invz:
-    (B, K) float32 tensor. prepared: prepare_translation_src's pack."""
+    (B, K) float32 tensor. prepared: prepare_translation_src's pack; rows:
+    the (r8, r32) row skip tables of the (cropped) disparity."""
     if prepared is None:
         prepared = prepare_translation_src(rgb, disp, mask, plan)
     return sweep_lateral(*lateral_kernel_inputs(
         prepared, invz_min, invz_max, c1, f1, plane_invz, plan, num_planes,
         offset=offset,
-    ))
+    ), refine=refine, rows=rows)
 
 
 def lateral_kernel_inputs(prepared, invz_min, invz_max, c1, f1, plane_invz,
@@ -252,8 +276,12 @@ def lateral_kernel_inputs(prepared, invz_min, invz_max, c1, f1, plane_invz,
         plan, izt, torch.as_tensor(c1, device=dev), f1, dx=offset[0]
     )
     izmin, izmax = np.float32(invz_min), np.float32(invz_max)
-    # plane thresholds in texel units: texel > tkt <=> decoded d > izt
+    # plane thresholds in texel units: texel > tkt <=> decoded d > izt,
+    # or texel < tkt where the decode falls as the texel rises: the scan
+    # then runs on -disp's tables (its sliding max is -cmin3)
     tkt = (izt - float(izmax)) / float(izmin - izmax)
+    if izmin < izmax:
+        cm3, cmin3, tkt = -cmin3, -cm3, -tkt
     klo, khi = lateral_loop_bounds(cm3, cmin3, ix_t, tkt, plan.out_w,
                                    num_planes)
     ixw, fxw = warp_shifts(ix_t, fx_t)
@@ -281,17 +309,15 @@ def render_translation_batch_cuda(
     offset=(0.0, 0.0),
     crop_y: int = 0,
     prepared=None,
+    *,
+    rows,
 ):
     """The CUDA path of ops.sweep_march.render_translation_batch:
     march_translation_cuda + _finalize (one kernel launch per batch)."""
-    if refine:
-        raise NotImplementedError(
-            "march_refine > 0 is not in the CUDA lateral kernel yet; the "
-            "plain twin (CPU tensors) covers it"
-        )
     found, invz_star, rgba_star = march_translation_cuda(
         rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz, plan,
-        num_planes, offset=offset, prepared=prepared,
+        num_planes, offset=offset, prepared=prepared, refine=refine,
+        rows=rows,
     )
     c1_t = torch.as_tensor(np.asarray(c1, np.float32), device=found.device)
     return _finalize(

@@ -10,8 +10,9 @@ full-color mode the bracket color lerp — but not the TPU's layout: one
 thread marches one (pose, row, column) pixel over the row-major source,
 and the window tables and hat-candidate classes are gone. lif_tpu's
 skip idea stays, redrawn for warps: the max tables of
-ops.sweep_target.skip_tables (built here per launch, in plain torch)
-let a warp skip runs of planes and a lane skip single planes, exactly.
+ops.sweep_target.skip_tables (built once per texture by the renderer,
+and required by the wrapper) let a warp skip runs of planes and a lane
+skip single planes, exactly.
 
 The kernel's plain version is ops.sweep_target.march_target_plain (and
 the mirror of its skip walk ops.sweep_target.march_target_skip_plain); a
@@ -56,6 +57,8 @@ def _lib():
 
 
 def _check(t, name, shape):
+    if t is None:
+        raise ValueError(f"{name} is required")
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != torch.float32:
@@ -67,14 +70,14 @@ def _check(t, name, shape):
 
 
 def sweep_target(disp, pose_b, vg, tk, dmax, out_w: int, out_h: int,
-                 refine: int = 0, rgbm=None):
-    """Launch the target-ray march kernel for a pose batch (after building
-    its skip tables from disp).
+                 refine: int = 0, rgbm=None, *, tables):
+    """Launch the target-ray march kernel for a pose batch.
 
     disp: (Hs, Ws) float32 disparity; pose_b: (B, 16) target_pose_scalars
     rows; vg/tk: (B, K) plane invz (descending) and their texel
     thresholds; dmax: (1,) the largest disparity texel; rgbm: optional
-    (4, Hs, Ws) [r, g, b, mask] planes for the full-color mode. Returns
+    (4, Hs, Ws) [r, g, b, mask] planes for the full-color mode; tables:
+    skip_table_buffer(disp). Returns
     found (B, out_h, out_w), invz* (B, out_h, out_w) and rgba*
     (B, out_h, out_w, 4) or None, float32. `sweep_target.launches` counts
     the launches."""
@@ -91,7 +94,9 @@ def sweep_target(disp, pose_b, vg, tk, dmax, out_w: int, out_h: int,
         raise ValueError(f"{k} planes: the kernel takes 1..{MAX_PLANES}")
     if min(src_w, src_h) < 2 or refine < 0:
         raise ValueError(f"source {src_w}x{src_h}, refine {refine}")
-    tables = skip_table_buffer(disp)
+    th8, tw8 = -(-(src_h - 1) // 8), -(-(src_w - 1) // 8)
+    _check(tables, "tables", ((src_h - 1) * (src_w - 1) + th8 * tw8
+                              + -(-th8 // 4) * -(-tw8 // 4),))
     dev = disp.device
     found = torch.empty((b, out_h, out_w), dtype=torch.float32, device=dev)
     invz = torch.empty_like(found)
@@ -119,11 +124,13 @@ sweep_target.launches = 0
 
 
 def march_target_cuda(disp, invz_min, invz_max, pose_b, plane_invz,
-                      plan: TargetPlan, refine: int = 0, rgbm=None):
+                      plan: TargetPlan, refine: int = 0, rgbm=None, *,
+                      tables):
     """The target-ray march of a pose batch through the kernel: thresholds,
     the disparity bound, one launch. Returns found (B, H, W), invz*
     (B, H, W) and, with rgbm, rgba* (B, H, W, 4) — per pose what
-    ops.sweep_target.march_target_plain computes."""
+    ops.sweep_target.march_target_plain computes. tables:
+    skip_table_buffer(disp), cached with the textures by the renderer."""
     dev = disp.device
     d = disp.to(dtype=torch.float32).contiguous()
     vg = plane_invz.to(device=dev, dtype=torch.float32).contiguous()
@@ -131,6 +138,6 @@ def march_target_cuda(disp, invz_min, invz_max, pose_b, plane_invz,
     found, invz, rgba = sweep_target(
         d, pose_b.to(device=dev, dtype=torch.float32).contiguous(), vg, tk,
         d.amax().reshape(1), plan.out_w, plan.out_h, refine=refine,
-        rgbm=rgbm,
+        rgbm=rgbm, tables=tables,
     )
     return (found, invz) if rgba is None else (found, invz, rgba)

@@ -274,10 +274,13 @@ def render_rotated_march_batch(
     bracket_steps: int = 10,
     sk1=(0.0, 0.0),
     sk2=(0.0, 0.0),
+    skip_tables=None,
 ):
     """Two-phase rotated/zoom render of a pose batch on the device of the
-    textures. Returns (B, out_h, out_w, 4) with premultiplied rgb over
-    `background` (raw=True: the (rgba, alpha, hit, invz) tuple).
+    textures (on CUDA, phase A's scaled kernel needs skip_tables, its
+    skip_pack, cached with the textures). Returns (B, out_h, out_w, 4)
+    with premultiplied rgb over `background` (raw=True: the (rgba, alpha,
+    hit, invz) tuple).
 
     skip_phase_a: the |c1| ~ 0 case — the decoded source disparity IS the
     intermediate depth map (wi/hi must then equal the source dims and
@@ -297,7 +300,7 @@ def render_rotated_march_batch(
         found, izs = render_scaled_batch(
             rgb, disp, mask, izmin, izmax, c1_aligned_b, f1, 1.0,
             plane_grids, None, plan, num_planes, refine=refine,
-            depth_only=True,
+            depth_only=True, skip_tables=skip_tables,
         )
         izmap = torch.where(found > 0.5, izs, 0.0)
 

@@ -1,4 +1,5 @@
-"""The billboard splat of a lateral pose batch as a gather over a ladder.
+"""The billboard splat of a lateral pose batch: a row z-buffer scatter,
+equal to a gather over a ladder.
 
 The counterpart of lif_tpu.ops.pallas.splat_march. On lateral poses
 (translation along x only, matched focal, centered principal point) the

@@ -38,17 +38,20 @@ import numpy as np
 import torch
 
 from . import composite as _composite
+from .sweep_target import SKIP_SLACK, WARP
 
 __all__ = [
     "TranslationPlan",
     "hit_and_alpha",
     "march_translation_plain",
+    "march_translation_skip_plain",
     "pad_sources",
     "plane_tables",
     "preshift_source",
     "render_translation",
     "render_translation_batch",
     "render_translation_plain",
+    "row_skip_tables",
     "snap_plane_table",
     "snap_plane_tables_batch",
     "translation_plan",
@@ -517,6 +520,328 @@ def march_translation_plain(
     return found, invz_star, rgba_star.permute(1, 2, 0)
 
 
+# ---------------------------------------------------------------------------
+# The CUDA kernel's exact plane skip: its row tables and its walk in plain
+# torch
+# ---------------------------------------------------------------------------
+
+LATERAL_RUN = 16  # planes a warp skips at once (csrc/sweep_march.cu kRun)
+ROW_CELLS = (8, 32)  # the coarse row tables' cells, in tap origins
+LATERAL_GROUP = 4  # planes a lane reads together (csrc/sweep_march.cu)
+
+
+def decodes_down(invz_min, invz_max) -> bool:
+    """True where the decode texel * (izmin - izmax) + izmax falls as the
+    texel rises (izmin < izmax in float32): the skip tables then bound
+    -disp from above, which bounds disp from below."""
+    return bool(np.float32(invz_min) < np.float32(invz_max))
+
+
+def _row_cell_max(r: torch.Tensor, c: int) -> torch.Tensor:
+    """Maxima of each row of r over c-texel cells (the ragged end padded
+    with -inf)."""
+    pad = torch.nn.functional.pad(r, (0, -r.shape[1] % c), value=-math.inf)
+    return pad.reshape(r.shape[0], -1, c).amax(-1).contiguous()
+
+
+def row_skip_tables(disp, invz_min, invz_max):
+    """The lateral kernel's skip bounds, (r0, r8, r32), for a decode of
+    range (invz_min, invz_max). r0 (H, W) bounds every lerp of row y whose
+    tap origin is x (taps x and min(x + 1, W - 1); a lerp's origin is its
+    first tap clamped to [0, W - 1]): the larger tap plus max|tap|·2^-16 +
+    1e-30, since a lerp is a convex combination of its taps up to a few
+    roundings; a NaN tap gives +inf. r8 and r32 are maxima of r0 over 8-
+    and 32-texel cells of a row. Where the decode falls as the texel rises
+    (decodes_down), the tables are those of -disp."""
+    d = disp.to(torch.float32)
+    if decodes_down(invz_min, invz_max):
+        d = -d
+    nxt = torch.cat([d[:, 1:], d[:, -1:]], dim=1)
+    hi, lo = torch.maximum(d, nxt), torch.minimum(d, nxt)
+    r0 = hi + torch.maximum(hi.abs(), lo.abs()) * SKIP_SLACK + 1e-30
+    r0 = torch.where(torch.isnan(r0), math.inf, r0).contiguous()
+    r8 = _row_cell_max(r0, ROW_CELLS[0])
+    return r0, r8, _row_cell_max(r8, ROW_CELLS[1] // ROW_CELLS[0])
+
+
+def row_window_bound(r8, r32, xa, xb):
+    """Per warp, the larger bound of the row cells covering the tap-origin
+    window [xa, xb] of its row (r8/r32 rows already picked, (..., n)):
+    8-texel cells where at most 32 cover it (one a lane), else 32-texel
+    cells, else +inf."""
+    lanes = torch.arange(WARP, device=xa.device)
+    out = torch.full(xa.shape, math.inf, device=xa.device)
+    done = torch.zeros(xa.shape, dtype=torch.bool, device=xa.device)
+    for table, c in zip((r8, r32), ROW_CELLS):
+        ca, cb = xa // c, xb // c
+        use = ~done & (cb - ca < WARP)
+        cx = ca[..., None] + lanes
+        vals = table.gather(-1, cx.clamp(0, table.shape[-1] - 1))
+        vals = torch.where(cx <= cb[..., None], vals, -math.inf).amax(-1)
+        out = torch.where(use, vals, out)
+        done = done | use
+    return out
+
+
+def lateral_skip_walk(src, ix, fx, izt, klo, khi, izmin, izmax, pad_lo_x,
+                      tw, rows, run=LATERAL_RUN, stats=None):
+    """The lateral kernel's walk for ONE pose, in plain torch: the first
+    crossing k* (-1 where none) of every pixel and its secant bracket
+    (pd at k* - 1, d at k*), reached through the kernel's exact skips.
+
+    src (5, H, W), ix/fx/izt (K,), klo/khi (nb, Hc) the kernel's inputs
+    for the pose (ops.cuda.sweep_march.lateral_kernel_inputs); rows the
+    (r8, r32) of row_skip_tables. A warp is 32 neighbouring columns of a
+    row; each lane searches its cell's plane range [k_lo, k_hi). Runs of
+    `run` planes are aligned at multiples of `run`. A run's tap origins
+    lie, for the warp's searching lanes, in the window [jmin - pad + min
+    ix, jmax - pad + max ix] of the row (clamped), whose row-cell bound,
+    decoded with the kernel's rounded operations, is not above the run's
+    smallest plane invz where no lane can cross: the run is skipped whole.
+    Otherwise the lanes read planes LATERAL_GROUP at a time. A lane stops
+    at its first crossing; where the plane before it was not read, its
+    difference is read afresh for the secant bracket.
+
+    `stats`, if given, gathers counts of the walk: warp runs tested and
+    skipped, planes the warps walk (whole groups), lane plane reads,
+    bracket refreshes, crossings at the first plane after a skipped run,
+    and the previous design's one-thread walk (from k_lo - 1 through the
+    crossing) per lane and as its warp's slowest lane."""
+    dev = src.device
+    _, h, w = src.shape
+    n_k = ix.shape[0]
+    dd = src[4]
+    izmin, izmax = np.float32(izmin), np.float32(izmax)
+    dsc = float(izmin - izmax)
+    down = dsc < 0.0
+    ixl = ix.tolist()
+    ow = klo.shape[0] * tw
+    nw = -(-ow // WARP)
+    owp = nw * WARP
+    j = torch.arange(owp, device=dev)
+    valid = (j < ow)[None, :].expand(h, owp)
+    jc = j.clamp(max=ow - 1)
+    rows_i = torch.arange(h, device=dev)
+    k_lo = torch.where(valid, klo[(jc // tw)[None, :],
+                                  (rows_i // 128)[:, None]].long(), n_k)
+    k_hi = torch.where(valid, khi[(jc // tw)[None, :],
+                                  (rows_i // 128)[:, None]].long(), 0)
+    x0 = (j - pad_lo_x)[None, :]
+    r8, r32 = rows
+
+    def diff_at(k):
+        a = (x0 + ixl[k]).clamp(0, w - 1).expand(h, owp)
+        b = (x0 + ixl[k] + 1).clamp(0, w - 1).expand(h, owp)
+        f = fx[k]
+        tex = dd.gather(1, a) * (1.0 - f) + dd.gather(1, b) * f
+        return (tex * dsc + float(izmax)) - izt[k]
+
+    def warps(x):
+        return x.reshape(h, nw, WARP)
+
+    active = valid & (k_lo < k_hi)
+    kstar = torch.full((h, owp), -1, dtype=torch.int64, device=dev)
+    zeros = torch.zeros((h, owp), dtype=torch.float32, device=dev)
+    pd, pdc, dc = zeros, zeros, zeros
+    pk = torch.full((h, owp), -1, dtype=torch.int64, device=dev)
+    count = dict(runs=0, runs_skipped=0, warp_steps=0, lane_reads=0,
+                 refreshes=0, after_skip=0)
+    prev_skip = torch.zeros((h, nw), dtype=torch.bool, device=dev)
+    big = 1 << 40
+    kw0 = warps(torch.where(active, k_lo, n_k)).amin(-1)
+    kw1 = warps(torch.where(active, k_hi, 0)).amax(-1)
+    for kb in range(0, n_k, run):
+        ke = min(kb + run, n_k)
+        active = active & (k_hi > kb)
+        live = warps(active).any(-1) & (kw0 < kb + run) & (kw1 > kb)
+        if not bool(live.any()):
+            if bool((kw1 > kb).any()):
+                continue
+            break
+        seg = ixl[kb:ke]
+        tmin = min((t for t in izt[kb:ke].tolist() if t == t),
+                   default=math.inf)
+        jw = j[None, :].expand(h, owp)
+        jlo = warps(torch.where(active, jw, big)).amin(-1)
+        jhi = warps(torch.where(active, jw, -big)).amax(-1)
+        xa = (jlo - pad_lo_x + min(seg)).clamp(0, w - 1)
+        xb = (jhi - pad_lo_x + max(seg)).clamp(0, w - 1)
+        m = row_window_bound(r8[:, None, :].expand(h, nw, -1),
+                             r32[:, None, :].expand(h, nw, -1), xa, xb)
+        mv = -m if down else m
+        walk = (m == math.inf) | (((mv * dsc + float(izmax)) - tmin) > 0.0)
+        skip = live & ~walk
+        count["runs"] += int(live.sum())
+        count["runs_skipped"] += int(skip.sum())
+        after_skip = prev_skip[..., None].expand(h, nw, WARP).reshape(h, owp)
+        prev_skip = skip
+        lane_walk = (live & walk)[..., None].expand(h, nw, WARP).reshape(
+            h, owp)
+        for c in range(kb, ke, LATERAL_GROUP):
+            # a warp's first group is the one that holds its first plane
+            searching = warps(active & lane_walk).any(-1)
+            if not bool(searching.any()):
+                break
+            going = searching & (kw0 < c + LATERAL_GROUP)
+            count["warp_steps"] += int(going.sum()) * min(LATERAL_GROUP,
+                                                          ke - c)
+            on = going[..., None].expand(h, nw, WARP).reshape(h, owp)
+            for cc in range(c, min(c + LATERAL_GROUP, ke)):
+                lane = active & lane_walk & on
+                active = active & ~(lane & (cc >= k_hi))
+                lane = lane & (cc < k_hi) & (cc >= k_lo)
+                if not bool(lane.any()):
+                    continue
+                count["lane_reads"] += int(lane.sum())
+                d = diff_at(cc)
+                crossed = lane & (d > 0.0)
+                if bool(crossed.any()):
+                    fresh = crossed & (pk != cc - 1)
+                    count["refreshes"] += int(fresh.sum())
+                    if cc == kb:
+                        count["after_skip"] += int((crossed & after_skip)
+                                                   .sum())
+                    prev = diff_at(cc - 1) if cc > 0 else zeros
+                    pdc = torch.where(crossed, torch.where(fresh, prev, pd),
+                                      pdc)
+                    dc = torch.where(crossed, d, dc)
+                    kstar = torch.where(crossed, cc, kstar)
+                    active = active & ~crossed
+                keep = lane & ~crossed
+                pd = torch.where(keep, d, pd)
+                pk = torch.where(keep, cc, pk)
+    if stats is not None:
+        # the previous design: one thread per pixel from k_lo - 1 (its
+        # bracket seed) through the crossing or k_hi
+        seed = (k_lo > 0) & (k_lo < k_hi)
+        visits = torch.where(kstar >= 0, kstar - k_lo + 1,
+                             (k_hi - k_lo).clamp(min=0)) + seed
+        visits = torch.where(valid, visits, 0)
+        count["old_lane_visits"] = int(visits.sum())
+        count["old_warp_visits"] = int(warps(visits).amax(-1).sum()) * WARP
+        for key, val in count.items():
+            stats[key] = stats.get(key, 0) + val
+    return kstar[:, :ow], pdc[:, :ow], dc[:, :ow]
+
+
+def _secant(pd, d):
+    """pd / min(pd - d, -1e-12), clipped to [0, 1]."""
+    return torch.clamp(pd / torch.clamp(pd - d, max=-1e-12), 0.0, 1.0)
+
+
+def lateral_bracket(src, ix, fx, izt, kstar, pdc, dc, izmin, izmax,
+                    pad_lo_x, refine=0):
+    """found, invz* and rgba* of every pixel of ONE pose from its first
+    crossing k* (-1 where none) and secant bracket (pdc, dc), with the
+    lateral kernel's arithmetic, which is march_translation_plain's: the
+    secant (or, with refine > 0, the in-bracket sub-planes at exactly
+    lerped shifts and depths, then the secant in the sub-bracket of their
+    first crossing) and the colour lerp between the bracket's warps; a
+    crossing at plane 0 takes that plane."""
+    dev = src.device
+    _, h, w = src.shape
+    ow = kstar.shape[1]
+    dsc = float(np.float32(izmin) - np.float32(izmax))
+    x0 = (torch.arange(ow, device=dev) - pad_lo_x)[None, :].expand(h, ow)
+    found = kstar >= 0
+    k1 = kstar.clamp(min=0)
+    k0 = (kstar - 1).clamp(min=0)
+    tx = ix.to(torch.float32) + fx  # the warp shifts, exactly
+
+    def lerp_at(t):
+        """(5, h, ow): every channel of src lerped at the per-pixel
+        shifts t."""
+        i = torch.floor(t)
+        f = t - i
+        a = (x0 + i.long()).clamp(0, w - 1)[None].expand(5, h, ow)
+        b = (x0 + i.long() + 1).clamp(0, w - 1)[None].expand(5, h, ow)
+        return src.gather(2, a) * (1.0 - f) + src.gather(2, b) * f
+
+    cur = lerp_at(tx[k1])[:4]
+    prev = torch.where(kstar > 0, lerp_at(tx[k0])[:4], 0.0)
+    iz0, iz1 = izt[k0], izt[k1]
+    if refine == 0:
+        t = _secant(pdc, dc)
+        s_star = torch.where(kstar > 0, t, 1.0)
+        rgba = prev + s_star * (cur - prev)
+    else:
+        step = 1.0 / (refine + 1)
+        zeros = torch.zeros((h, ow), dtype=torch.float32, device=dev)
+        slo, pd2, d2, c_lo, c_hi = zeros, pdc, dc, prev, cur
+        sfound = torch.zeros((h, ow), dtype=torch.bool, device=dev)
+        prev_g, prev_c, prev_s = pdc, prev, 0.0
+        for jj in range(1, refine + 2):
+            s = float(np.float32(jj * step))
+            if jj <= refine:
+                sub = lerp_at(tx[k0] + s * (tx[k1] - tx[k0]))
+                g = (sub[4] * dsc + float(np.float32(izmax))) - (
+                    iz0 + s * (iz1 - iz0))
+                c_s = sub[:4]
+            else:
+                g, c_s = dc, cur
+            csub = ~sfound & (g > 0.0)
+            slo = torch.where(csub, prev_s, slo)
+            pd2 = torch.where(csub, prev_g, pd2)
+            d2 = torch.where(csub, g, d2)
+            c_lo = torch.where(csub[None], prev_c, c_lo)
+            c_hi = torch.where(csub[None], c_s, c_hi)
+            sfound = sfound | csub
+            prev_g, prev_c, prev_s = g, c_s, s
+        slo = torch.where(sfound, slo, prev_s)
+        pd2 = torch.where(sfound, pd2, prev_g)
+        t2 = _secant(pd2, d2)
+        s_star = torch.where(kstar > 0, slo + float(np.float32(step)) * t2,
+                             1.0)
+        rgba = torch.where(kstar[None] > 0, c_lo + t2 * (c_hi - c_lo), cur)
+    invz = iz0 + s_star * (iz1 - iz0)
+    return (found.to(torch.float32), torch.where(found, invz, 0.0),
+            torch.where(found[None], rgba, 0.0).permute(1, 2, 0))
+
+
+def march_translation_skip_plain(
+    rgb,
+    disp,
+    mask,
+    invz_min: float,
+    invz_max: float,
+    c1,
+    f1: float,
+    plane_invz,
+    plan: TranslationPlan,
+    num_planes: int,
+    refine: int = 0,
+    offset=(0.0, 0.0),
+    run: int = LATERAL_RUN,
+    stats: dict | None = None,
+):
+    """The lateral CUDA kernel's walk for ONE pose, in plain torch:
+    march_translation_plain's found, invz* and rgba*, bit for bit,
+    reached through the kernel's inputs (ops.cuda.sweep_march's source
+    stack, warp shifts and plane-range tables) and its exact skips
+    (lateral_skip_walk, lateral_bracket). The source must have the
+    output's height; c1 is x-only. An oracle and a counter (`stats`, see
+    lateral_skip_walk), never on a render path."""
+    from .cuda.sweep_march import (
+        _pick_tw,
+        lateral_kernel_inputs,
+        prepare_translation_src,
+    )
+
+    plane = torch.as_tensor(plane_invz, dtype=torch.float32,
+                            device=disp.device)
+    src, ix, fx, izt, klo, khi, izmin, izmax, _ = lateral_kernel_inputs(
+        prepare_translation_src(rgb, disp, mask, plan), invz_min, invz_max,
+        np.asarray(c1, np.float32)[None], f1, plane[None], plan, num_planes,
+        offset=offset,
+    )
+    rows = row_skip_tables(src[4], izmin, izmax)[1:]
+    kstar, pdc, dc = lateral_skip_walk(
+        src, ix[0], fx[0], izt[0], klo[0], khi[0], izmin, izmax,
+        plan.pad_lo_x, _pick_tw(plan.out_w), rows, run=run, stats=stats)
+    return lateral_bracket(src, ix[0], fx[0], izt[0], kstar, pdc, dc, izmin,
+                           izmax, plan.pad_lo_x, refine=refine)
+
+
 def render_translation_plain(
     rgb,
     disp,
@@ -571,6 +896,7 @@ def render_translation_batch(
     offset=(0.0, 0.0),
     crop_y: int = 0,
     prepared=None,
+    skip_rows=None,
 ):
     """Pose-batched march, dispatched on the device of the textures: a
     CUDA tensor launches the lateral kernel (ONE launch for the batch),
@@ -579,7 +905,8 @@ def render_translation_batch(
     c1: (B, 3) per-pose positions (host array); the CUDA kernel serves
     the LATERAL case (x-only). plane_invz may be (K,) shared or (B, K)
     per-pose (snap grids). prepared: optional hoisted source pack from
-    ops.cuda.sweep_march.prepare_translation_src (CUDA path only).
+    ops.cuda.sweep_march.prepare_translation_src, skip_rows the kernel's
+    (r8, r32) row_skip_tables of the same rows (CUDA path only).
     Returns (B, H, W, 4), or the raw tuple with a leading B axis."""
     c1 = np.asarray(c1, np.float32)
     plane = torch.as_tensor(plane_invz, dtype=torch.float32)
@@ -592,7 +919,7 @@ def render_translation_batch(
             rgb, disp, mask, invz_min, invz_max, c1, f1, plane, background,
             plan, num_planes, feathering=feathering, mask_mode=mask_mode,
             to_srgb=to_srgb, refine=refine, raw=raw, offset=offset,
-            crop_y=crop_y, prepared=prepared,
+            crop_y=crop_y, prepared=prepared, rows=skip_rows,
         )
     if disp.device.type != "cpu":
         raise NotImplementedError(

@@ -54,7 +54,16 @@ import torch
 
 from . import composite as _composite
 from .sampling import bilinear_sample_packed, pack_rgbm
-from .sweep_target import _rgbm_stack, _secant, _tdiv
+from .sweep_march import decodes_down
+from .sweep_target import (
+    SKIP_TILE,
+    WARP,
+    _box_bound,
+    _rgbm_stack,
+    _secant,
+    _tdiv,
+    skip_tables,
+)
 
 __all__ = [
     "ScaledPlan",
@@ -64,6 +73,9 @@ __all__ = [
     "parallax_step_grid",
     "parallax_step_grids_batch",
     "march_scaled_plain",
+    "march_scaled_skip_plain",
+    "scaled_skip_tables",
+    "skip_pack",
     "render_scaled_plain",
     "render_scaled_batch",
     "render_scaled_fetch_batch",
@@ -365,19 +377,13 @@ def march_scaled_plain(disp, invz_min, invz_max, tables, plan: ScaledPlan,
     """
     dev = disp.device
     dd = disp.to(torch.float32)
-    izmin, izmax = np.float32(invz_min), np.float32(invz_max)
-    rng = float(izmin - izmax)
-    izmax = float(izmax)
-    xc, yc = _centered(plan, dev)
     tab = torch.as_tensor(tables, dtype=torch.float32, device=dev)
     rows = tab.tolist()
-    oh, ow = plan.out_h, plan.out_w
-
-    def diff_at(tx, ex, ty, ey, v):
-        return (_warp(dd, tx, ex, ty, ey, plan, xc, yc) * rng + izmax) - v
-
-    zeros = torch.zeros((oh, ow), dtype=torch.float32, device=dev)
-    kstar = torch.full((oh, ow), -1, dtype=torch.int64, device=dev)
+    diff_at = _decoded_diff(dd, invz_min, invz_max, plan)
+    zeros = torch.zeros((plan.out_h, plan.out_w), dtype=torch.float32,
+                        device=dev)
+    kstar = torch.full((plan.out_h, plan.out_w), -1, dtype=torch.int64,
+                       device=dev)
     pdiffc, diffc, pdiff = zeros, zeros, zeros
     for k in range(tab.shape[1]):
         diff = diff_at(*(r[k] for r in rows))
@@ -386,7 +392,33 @@ def march_scaled_plain(disp, invz_min, invz_max, tables, plan: ScaledPlan,
         pdiffc = torch.where(crossed, pdiff, pdiffc)
         diffc = torch.where(crossed, diff, diffc)
         pdiff = diff
+    return _bracket(dd, tab, kstar, pdiffc, diffc, diff_at, plan, refine,
+                    rgbm)
 
+
+def _decoded_diff(dd, invz_min, invz_max, plan: ScaledPlan):
+    """diff_at(tx, ex, ty, ey, v): the decoded inverse depth of the warp
+    of dd at those tables minus v, (warp * (izmin - izmax) + izmax) - v,
+    over the output pixels."""
+    izmin, izmax = np.float32(invz_min), np.float32(invz_max)
+    rng, izmax = float(izmin - izmax), float(izmax)
+    xc, yc = _centered(plan, dd.device)
+
+    def diff_at(tx, ex, ty, ey, v):
+        return (_warp(dd, tx, ex, ty, ey, plan, xc, yc) * rng + izmax) - v
+
+    return diff_at
+
+
+def _bracket(dd, tab, kstar, pdiffc, diffc, diff_at, plan: ScaledPlan,
+             refine: int, rgbm):
+    """The march's outputs from each pixel's first crossing k* (-1 where
+    none) and secant bracket (pdiffc at k* - 1, diffc at k*): found,
+    invz* (the secant, or the refine sub-sweep) and, with rgbm, rgba*."""
+    dev = dd.device
+    oh, ow = plan.out_h, plan.out_w
+    zeros = torch.zeros((oh, ow), dtype=torch.float32, device=dev)
+    xc, yc = _centered(plan, dev)
     found = kstar >= 0
     km1 = torch.clamp(kstar - 1, min=0)
     kc = torch.clamp(kstar, min=0)
@@ -420,6 +452,230 @@ def march_scaled_plain(disp, invz_min, invz_max, tables, plan: ScaledPlan,
     c0 = torch.where(kstar > 0, _warp(rgbm, *t0[:4], plan, xc, yc), 0.0)
     rgba = torch.where(found, c0 + s_star * (c1 - c0), 0.0)
     return found.to(torch.float32), vstar, rgba.permute(1, 2, 0)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's exact plane skip: its tables and its walk in plain torch
+# ---------------------------------------------------------------------------
+
+SCALED_RUN = 16  # planes a warp skips at once (csrc/sweep_scaled.cu kRun)
+
+
+def scaled_skip_tables(disp, invz_min, invz_max):
+    """The scaled kernel's skip bounds (b0, b8, b32): ops.sweep_target's
+    skip_tables, which bound every bilinear read with tap origin (x, y),
+    of disp, or of -disp where the decode texel * (izmin - izmax) + izmax
+    falls as the texel rises (the kernel then negates them). A scaled
+    read's taps clamp each index on its own, so its origin is its first
+    tap index clamped to [0, n - 2] and b0 there covers it."""
+    d = disp.to(torch.float32)
+    return skip_tables(-d if decodes_down(invz_min, invz_max) else d)
+
+
+def skip_pack(disp, invz_min, invz_max, target=None):
+    """What the scaled kernel reads besides the source and the pose
+    tables, built once per texture: (the skip tables flattened into one
+    float32 buffer, (2,) the smallest and largest disparity texel).
+    target: the target kernel's buffer of the same disparity
+    (ops.cuda.sweep_target.skip_table_buffer), where already built: it
+    is the scaled kernel's too unless the decode falls."""
+    d = disp.to(torch.float32)
+    flat = target
+    if flat is None or decodes_down(invz_min, invz_max):
+        flat = torch.cat([t.reshape(-1)
+                          for t in scaled_skip_tables(d, invz_min, invz_max)])
+    return flat, torch.stack(torch.aminmax(d)).contiguous()
+
+
+def _origin_at(p, dv, lo, hi, pad, n):
+    """One axis of the clipped separable warp (_warp, _tap_rows) at the
+    unclipped displacement dv: the bilinear tap origin, the first tap
+    index clamped to [0, n - 2], as int64."""
+    g = (p + torch.clamp(dv, lo, hi)) + float(pad)
+    return (torch.floor(g).to(torch.int64) - pad).clamp(0, n - 2)
+
+
+def _axis_taps(t, e, pc, p, lo, hi, pad, n):
+    """The tap origin along one axis at table entries (t, e)."""
+    return _origin_at(p, t + e * pc, lo, hi, pad, n)
+
+
+def run_box(run_tab, pc, p, lo, hi, pad, n):
+    """Per pixel, the tap origins (lowest, highest) along one axis over
+    every plane of a run, from the run's smallest and largest table
+    entries (tlo, thi, elo, ehi): each rounded step of the warp is
+    monotone in each of its arguments, so these bound the origins of any
+    tables in between, with no assumption on how they vary along the
+    run."""
+    tlo, thi, elo, ehi = run_tab
+    ea, eb = elo * pc, ehi * pc
+    return (_origin_at(p, tlo + torch.minimum(ea, eb), lo, hi, pad, n),
+            _origin_at(p, thi + torch.maximum(ea, eb), lo, hi, pad, n))
+
+
+def march_scaled_skip_plain(disp, invz_min, invz_max, tables,
+                            plan: ScaledPlan, refine: int = 0, rgbm=None,
+                            run: int = SCALED_RUN,
+                            stats: dict | None = None):
+    """The scaled CUDA kernel's walk for ONE pose, in plain torch:
+    march_scaled_plain's outputs, bit for bit, reached through the
+    kernel's exact skips (an oracle and a counter, never on a render path).
+
+    A warp (an 8 x 4 tile of output pixels) starts one plane before the
+    first plane whose depth any decoded texel can reach and walks the
+    ladder in runs of `run` planes. A run's tap origins lie, per lane,
+    within run_box of the run's table ranges; the box of the warp's
+    searching lanes is looked up in the coarse tables (scaled_skip_tables)
+    and where that bound, decoded with the kernel's rounded operations,
+    is not above the run's smallest plane depth no lane can cross in the
+    run, which is skipped whole (a run with a non-finite table entry
+    takes the whole source). Otherwise each searching lane tests each
+    plane with one read of b0 at its tap origin and reads the four taps
+    only where the decoded bound exceeds the plane (a candidate). A lane
+    stops at its first crossing; where the plane before it was skipped,
+    its difference is read afresh for the secant bracket.
+
+    `stats`, if given, gathers march_target_skip_plain's counts of the
+    walk (warp runs tested and skipped, planes walked per warp, candidate
+    rounds, lane b0 tests, bilinear reads, bracket refreshes, crossings
+    right after a skipped run) and the previous design's one-thread walk
+    from the start plane (per lane and as the slowest lane of a warp of
+    32 columns of a row)."""
+    dev = disp.device
+    dd = disp.to(torch.float32)
+    h_s, w_s = dd.shape
+    izmin, izmax = np.float32(invz_min), np.float32(invz_max)
+    rng = float(izmin - izmax)
+    down = rng < 0.0
+    tab = torch.as_tensor(tables, dtype=torch.float32, device=dev)
+    rows = tab.tolist()
+    n_k = tab.shape[1]
+    oh, ow = plan.out_h, plan.out_w
+    diff_at = _decoded_diff(dd, invz_min, invz_max, plan)
+    b0, b8, b32 = scaled_skip_tables(dd, invz_min, invz_max)
+    (xc, jx), (yc, iy) = _centered(plan, dev)
+    xc, jx = xc.expand(oh, ow), jx.expand(oh, ow)
+    yc, iy = yc.expand(oh, ow), iy.expand(oh, ow)
+    clip_x = (-float(plan.pad_lo_x), float(plan.tab_span_x - plan.pad_lo_x))
+    clip_y = (-float(plan.my_lo), float(plan.my_hi))
+
+    def origins(k):
+        return (_axis_taps(rows[0][k], rows[1][k], xc, jx, *clip_x,
+                           plan.pad_lo_x, w_s),
+                _axis_taps(rows[2][k], rows[3][k], yc, iy, *clip_y,
+                           plan.pad_lo_y, h_s))
+
+    def crosses(bound, v):
+        """Can a read bounded by `bound` (decoded with the kernel's
+        rounded operations) lie in front of plane depth v?"""
+        bv = -bound if down else bound
+        return (bound == math.inf) | (((bv * rng + float(izmax)) - v) > 0.0)
+
+    # the start skip (sweep_scaled.cu): one plane before the first plane
+    # whose depth is not above every decoded texel, with its slack
+    dlim = torch.stack(torch.aminmax(dd))
+    a, b = dlim[0] * rng, dlim[1] * rng
+    top = torch.maximum(a, b) + float(izmax)
+    bound = top + (torch.maximum(a.abs(), b.abs()) + abs(float(izmax))) * (
+        1.52587890625e-05) + 1e-30
+    reach = torch.nonzero(~(tab[4] > bound))
+    k_start = max(int(reach[0, 0]) - 1 if len(reach) else n_k - 1, 0)
+
+    tx, ty = SKIP_TILE
+    n_h, n_w = -(-oh // ty), -(-ow // tx)
+
+    def lanes(x, fill):
+        x = torch.nn.functional.pad(
+            x, (0, n_w * tx - ow, 0, n_h * ty - oh), value=fill)
+        return x.reshape(n_h, ty, n_w, tx).transpose(1, 2).reshape(
+            n_h, n_w, WARP)
+
+    def cols(x):
+        x = x.reshape(n_h, n_w, ty, tx).transpose(1, 2)
+        return x.reshape(n_h * ty, n_w * tx)[:oh, :ow]
+
+    active = torch.ones((oh, ow), dtype=torch.bool, device=dev)
+    kstar = torch.full((oh, ow), -1, dtype=torch.int64, device=dev)
+    zeros = torch.zeros((oh, ow), dtype=torch.float32, device=dev)
+    pd, pdc, dc = zeros, zeros, zeros
+    pk = torch.full((oh, ow), -1, dtype=torch.int64, device=dev)
+    vl = rows[4]
+    count = dict(runs=0, runs_skipped=0, warp_steps=0, warp_bil_steps=0,
+                 warp_bil_rounds=0, lane_tests=0, bil_reads=0, refreshes=0,
+                 after_skip=0)
+    prev_skip = torch.zeros((n_h, n_w), dtype=torch.bool, device=dev)
+    big = 1 << 40
+    for k in range(k_start, n_k, run):
+        ke = min(k + run, n_k) - 1
+        live = lanes(active, False).any(-1)
+        if not bool(live.any()):
+            break
+        seg = [r[k:ke + 1] for r in rows]
+        sane = all(math.isfinite(x) for r in seg[:4] for x in r)
+        vmin = min((v for v in seg[4] if v == v), default=math.inf)
+        if sane:
+            xa, xb = run_box((min(seg[0]), max(seg[0]), min(seg[1]),
+                              max(seg[1])), xc, jx, *clip_x, plan.pad_lo_x,
+                             w_s)
+            ya, yb = run_box((min(seg[2]), max(seg[2]), min(seg[3]),
+                              max(seg[3])), yc, iy, *clip_y, plan.pad_lo_y,
+                             h_s)
+        else:
+            xa, xb = torch.zeros_like(kstar), torch.full_like(kstar, w_s - 2)
+            ya, yb = torch.zeros_like(kstar), torch.full_like(kstar, h_s - 2)
+        box = [lanes(torch.where(active, v, fill), fill).amin(-1) if lo
+               else lanes(torch.where(active, v, fill), fill).amax(-1)
+               for v, lo, fill in zip((xa, xb, ya, yb),
+                                      (True, False, True, False),
+                                      (big, -1, big, -1))]
+        skip = live & ~crosses(_box_bound((b0, b8, b32), box), vmin)
+        count["runs"] += int(live.sum())
+        count["runs_skipped"] += int(skip.sum())
+        walk = cols((live & ~skip)[..., None].expand(n_h, n_w, WARP))
+        after_skip = cols(prev_skip[..., None].expand(n_h, n_w, WARP))
+        prev_skip = skip
+        candidates = torch.zeros((oh, ow), dtype=torch.int64, device=dev)
+        for kk in range(k, ke + 1):
+            lane = active & walk
+            steps = lanes(lane, False).any(-1)
+            if not bool(steps.any()):
+                break
+            count["warp_steps"] += int(steps.sum())
+            count["lane_tests"] += int(lane.sum())
+            ox, oy = origins(kk)
+            need = lane & crosses(b0[oy, ox], vl[kk])
+            count["bil_reads"] += int(need.sum())
+            count["warp_bil_steps"] += int(lanes(need, False).any(-1).sum())
+            candidates = candidates + need
+            d = diff_at(*(r[kk] for r in rows))
+            crossed = need & (d > 0.0)
+            if bool(crossed.any()):
+                fresh = crossed & (pk != kk - 1)
+                count["refreshes"] += int(fresh.sum())
+                count["bil_reads"] += int(fresh.sum())
+                if kk == k:
+                    count["after_skip"] += int((crossed & after_skip).sum())
+                prev = diff_at(*(r[kk - 1] for r in rows)) if kk > 0 \
+                    else zeros
+                pdc = torch.where(crossed, torch.where(fresh, prev, pd), pdc)
+                dc = torch.where(crossed, d, dc)
+                kstar = torch.where(crossed, kk, kstar)
+                active = active & ~crossed
+            keep = need & ~crossed
+            pd = torch.where(keep, d, pd)
+            pk = torch.where(keep, kk, pk)
+        count["warp_bil_rounds"] += int(lanes(candidates, 0).amax(-1).sum())
+    if stats is not None:
+        visits = torch.where(kstar >= 0, kstar - k_start + 1, n_k - k_start)
+        count["old_lane_visits"] = int(visits.sum())
+        # that walk's warps were 32 neighbouring columns of a row
+        rows_w = torch.nn.functional.pad(visits, (0, -ow % WARP))
+        count["old_warp_visits"] = int(
+            rows_w.reshape(oh, -1, WARP).amax(-1).sum()) * WARP
+        count["k_start"] = k_start
+        for key, val in count.items():
+            stats[key] = stats.get(key, 0) + val
+    return _bracket(dd, tab, kstar, pdc, dc, diff_at, plan, refine, rgbm)
 
 
 # ---------------------------------------------------------------------------
@@ -540,16 +796,18 @@ def render_scaled_plain(
 
 
 def _march_batch(disp, invz_min, invz_max, tabs, plan: ScaledPlan,
-                 refine: int, rgbm=None):
+                 refine: int, rgbm=None, skip_tables=None):
     """The pose-batched march, on the device of `disp`: a CUDA tensor
-    launches the kernel (one launch for the batch), a CPU tensor takes
-    the plain twin pose by pose. Returns found and invz* (B, H, W) and,
-    with rgbm, rgba* (B, H, W, 4)."""
+    launches the kernel (one launch for the batch; `skip_tables` its
+    skip_pack, cached with the textures), a CPU tensor takes the plain
+    twin pose by pose. Returns found and invz* (B, H, W) and, with rgbm,
+    rgba* (B, H, W, 4)."""
     if disp.device.type == "cuda":
         from .cuda.sweep_scaled import march_scaled_cuda
 
         return march_scaled_cuda(disp, invz_min, invz_max, tabs, plan,
-                                 refine=refine, rgbm=rgbm)
+                                 refine=refine, rgbm=rgbm,
+                                 skip_tables=skip_tables)
     if disp.device.type != "cpu":
         raise NotImplementedError(
             f"the scaled march runs on CUDA or CPU tensors, not "
@@ -585,9 +843,11 @@ def render_scaled_batch(
     dy_user: float = 0.0,
     crop_y: int = 0,
     depth_only: bool = False,
+    skip_tables=None,
 ):
     """The scaled march of a pose batch, dispatched on the device of the
-    textures (one kernel launch on CUDA). depth_only returns found and
+    textures (one kernel launch on CUDA, which needs skip_tables, the
+    kernel's skip_pack; the CPU ignores it). depth_only returns found and
     invz* (B, H, W); otherwise the in-kernel bracket color lerp is
     finalized into (B, H, W, 4), or the raw tuple with a leading pose
     axis."""
@@ -600,9 +860,11 @@ def render_scaled_batch(
     if tabs.shape[2] != num_planes:
         raise ValueError(f"{tabs.shape[2]} planes, expected {num_planes}")
     if depth_only:
-        return _march_batch(disp, invz_min, invz_max, tabs, plan, refine)
+        return _march_batch(disp, invz_min, invz_max, tabs, plan, refine,
+                            skip_tables=skip_tables)
     found, vstar, rgba = _march_batch(disp, invz_min, invz_max, tabs, plan,
-                                      refine, rgbm=_rgbm_stack(rgb, mask))
+                                      refine, rgbm=_rgbm_stack(rgb, mask),
+                                      skip_tables=skip_tables)
     return finalize_scaled(plan, found, vstar, rgba, c1_t, f1, fr,
                            background, feathering, mask_mode, to_srgb,
                            raw=raw, dx_user=dx_user, dy_user=dy_user,
@@ -630,18 +892,21 @@ def render_scaled_fetch_batch(
     dx_user: float = 0.0,
     dy_user: float = 0.0,
     crop_y: int = 0,
+    skip_tables=None,
 ):
     """PRODUCTION scaled tier: the depth-only march + ONE packed bilinear
     color fetch (10-bit color, 1-bit mask) at the solved position, then
     the epilogue. Fetching at the solved position is exact where the
-    bracket color lerp of the non-snap grid is only approximate. Returns
+    bracket color lerp of the non-snap grid is only approximate.
+    skip_tables: the kernel's skip_pack, cached with the textures (CUDA
+    only). Returns
     (B, H, W, 4), or raw (rgba, alpha, hit, invz) tuples."""
     h, w = disp.shape
     dev = disp.device
     found, izs = render_scaled_batch(
         rgb, disp, mask, invz_min, invz_max, c1_b, f1, fr, plane_invz,
         None, plan, num_planes, refine=refine, dx_user=dx_user,
-        dy_user=dy_user, depth_only=True,
+        dy_user=dy_user, depth_only=True, skip_tables=skip_tables,
     )
     invz_star = torch.where(found > 0.5, izs, 0.0)
     c1_t = _as_f32(c1_b, dev)

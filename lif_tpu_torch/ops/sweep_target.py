@@ -1016,11 +1016,13 @@ def render_target_plain(
 
 
 def _march_batch(disp, invz_min, invz_max, pose_b, plane_invz,
-                 plan: TargetPlan, num_planes: int, refine: int, rgbm=None):
+                 plan: TargetPlan, num_planes: int, refine: int, rgbm=None,
+                 skip_tables=None):
     """The pose-batched march, on the device of `disp`: a CUDA tensor
-    launches the kernel (one launch for the batch), a CPU tensor takes
-    the plain twin pose by pose. Returns found and invz* (B, H, W) and,
-    with rgbm, rgba* (B, H, W, 4)."""
+    launches the kernel (one launch for the batch; `skip_tables` its flat
+    skip tables, cached with the textures), a CPU tensor takes the plain twin
+    pose by pose. Returns found and invz* (B, H, W) and, with rgbm, rgba*
+    (B, H, W, 4)."""
     h, w = disp.shape
     if (plan.src_w, plan.src_h) != (w, h):
         raise ValueError(f"plan {plan} does not match a {w}x{h} source")
@@ -1036,7 +1038,8 @@ def _march_batch(disp, invz_min, invz_max, pose_b, plane_invz,
         from .cuda.sweep_target import march_target_cuda
 
         return march_target_cuda(disp, invz_min, invz_max, pose, plane,
-                                 plan, refine=refine, rgbm=rgbm)
+                                 plan, refine=refine, rgbm=rgbm,
+                                 tables=skip_tables)
     if disp.device.type != "cpu":
         raise NotImplementedError(
             f"the target march runs on CUDA or CPU tensors, not "
@@ -1066,15 +1069,17 @@ def render_target_batch(
     to_srgb: bool = True,
     refine: int = 0,
     raw: bool = False,
+    skip_tables=None,
 ):
     """Full-color target-ray march of a pose batch (the in-kernel bracket
-    color lerp), dispatched on the device of the textures. Returns
-    (B, out_h, out_w, 4), or the raw tuple with a leading pose axis.
-    lif_tpu's window tables (xlo, ylo) are TPU DMA origins and have no
-    counterpart here."""
+    color lerp), dispatched on the device of the textures (on CUDA with
+    skip_tables, the kernel's flat skip tables). Returns (B, out_h,
+    out_w, 4), or the raw tuple with a leading pose axis. lif_tpu's
+    window tables (xlo, ylo) are TPU DMA origins and have no counterpart
+    here."""
     found, vstar, rgba = _march_batch(
         disp, invz_min, invz_max, pose_b, plane_invz, plan, num_planes,
-        refine, rgbm=_rgbm_stack(rgb, mask),
+        refine, rgbm=_rgbm_stack(rgb, mask), skip_tables=skip_tables,
     )
     h, w = disp.shape
     return finalize_target(
@@ -1099,17 +1104,20 @@ def render_target_fetch_batch(
     to_srgb: bool = True,
     raw: bool = False,
     refine: int = 0,
+    skip_tables=None,
 ):
     """PRODUCTION target tier: depth-only target-ray march + ONE packed
     bilinear color fetch (10-bit color, 1-bit mask) at the solved
     position, then the epilogue. The bracket color lerp is only
     approximate off the snap grid; fetching at the solved position is
-    exact (lif_tpu measured +7..13 dB from it). Returns
+    exact (lif_tpu measured +7..13 dB from it). skip_tables: the kernel's
+    flat skip tables, cached with the textures (CUDA only). Returns
     (B, out_h, out_w, 4), or raw (rgba, alpha, hit, invz) tuples."""
     h, w = disp.shape
     izmin, izmax = np.float32(invz_min), np.float32(invz_max)
     found, vstar = _march_batch(disp, izmin, izmax, pose_b, plane_invz,
-                                plan, num_planes, refine)
+                                plan, num_planes, refine,
+                                skip_tables=skip_tables)
     pose = torch.as_tensor(pose_b, dtype=torch.float32, device=disp.device)
     u1, v1 = _solved_uv(pose, vstar, izmin, izmax, plan.out_w, plan.out_h,
                         w, h)

@@ -7,9 +7,12 @@ tests/test_torch_cuda.py``. The lateral kernel must reproduce the plain
 march bit for bit in `found` and to 3e-5 in invz*/rgba* (the
 kernel-vs-twin gate of tests/test_sweep_march.py): its arithmetic is the
 twin's, step by step, so only the plane-range bounds could differ — and
-they are exact. The target-ray kernel is held to the kernel-vs-twin gate
-of tests/test_sweep_target.py, and bit for bit to the plain march and
-the plain mirror of its skip walk on scenes where the skips fire. The
+they are exact; since its redesign it is held bit for bit to the plain
+march and the plain mirror of its skip walk, at refine 0, 1 and 2, on
+scenes where the skips fire. The target-ray and scaled kernels are held
+to the kernel-vs-twin gates of tests/test_sweep_target.py and
+tests/test_sweep_scaled.py, and bit for bit to their plain marches and
+the plain mirrors of their skip walks on scenes where the skips fire. The
 billboard kernel and the plain-torch mesh modes are held to the
 billboard's bound (tests/test_splat_march.py:106-115): hit disagreement,
 and colour mismatches > 1e-6 where both hit, each under 1e-3 of the
@@ -74,7 +77,8 @@ def test_kernel_matches_plain_march(cuda, w, h, snap):
     tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
     before = tcuda.sweep_lateral.launches
     found, invz, rgba = tcuda.march_translation_cuda(
-        *tex, izmin, izmax, c1, f1, torch.from_numpy(planes), plan, k
+        *tex, izmin, izmax, c1, f1, torch.from_numpy(planes), plan, k,
+        rows=tsm.row_skip_tables(tex[1], izmin, izmax)[1:],
     )
     torch.cuda.synchronize()
     assert tcuda.sweep_lateral.launches == before + 1
@@ -151,7 +155,8 @@ def test_target_kernel_matches_plain_march(cuda, mode, refine, step_px):
     before = tcuda_t.sweep_target.launches
     out = tcuda_t.march_target_cuda(
         tex[1], izmin, izmax, torch.from_numpy(poses).to(cuda),
-        torch.from_numpy(grids).to(cuda), plan, refine=refine, rgbm=rgbm)
+        torch.from_numpy(grids).to(cuda), plan, refine=refine, rgbm=rgbm,
+        tables=tcuda_t.skip_table_buffer(tex[1]))
     torch.cuda.synchronize()
     assert tcuda_t.sweep_target.launches == before + 1
     for i in range(3):
@@ -227,7 +232,8 @@ def test_target_kernel_exact_through_skipped_runs(cuda, scene, mode, refine):
     rgbm = tst._rgbm_stack(tex[0], tex[2]) if mode == "color" else None
     out = tcuda_t.march_target_cuda(
         tex[1], izmin, izmax, torch.from_numpy(poses).to(cuda),
-        torch.from_numpy(grids).to(cuda), plan, refine=refine, rgbm=rgbm)
+        torch.from_numpy(grids).to(cuda), plan, refine=refine, rgbm=rgbm,
+        tables=tcuda_t.skip_table_buffer(tex[1]))
     torch.cuda.synchronize()
     stats = [{} for _ in range(3)]
     for i in range(3):
@@ -246,16 +252,21 @@ def test_target_kernel_exact_through_skipped_runs(cuda, scene, mode, refine):
 
 
 def test_target_kernel_rejects_bad_inputs(cuda):
-    """The wrapper refuses CPU tensors and ladders beyond 1024 planes."""
+    """The wrapper refuses CPU tensors, ladders beyond 1024 planes and a
+    launch without the skip tables."""
     disp = torch.rand(16, 16, device=cuda)
     pose = torch.zeros(1, 16, device=cuda)
     vg = torch.zeros(1, 1100, device=cuda)
+    tables = tcuda_t.skip_table_buffer(disp)
     with pytest.raises(ValueError, match="1024"):
         tcuda_t.sweep_target(disp, pose, vg, vg.clone(), disp.amax()[None],
-                             16, 16)
+                             16, 16, tables=tables)
     with pytest.raises(ValueError, match="CUDA"):
         tcuda_t.sweep_target(disp.cpu(), pose, vg[:, :8], vg[:, :8],
-                             disp.amax()[None], 16, 16)
+                             disp.amax()[None], 16, 16, tables=tables)
+    with pytest.raises(ValueError, match="tables is required"):
+        tcuda_t.sweep_target(disp, pose, vg[:, :8], vg[:, :8],
+                             disp.amax()[None], 16, 16, tables=None)
 
 
 def test_orbit_fast_batch_on_cuda_matches_cpu(cuda):
@@ -323,8 +334,9 @@ def _scaled_vs_plain(cuda, inputs, c1s, refine, color, fr=1.0):
                                                   device=cuda), f1, fr)
     rgbm = tst._rgbm_stack(tex[0], tex[2]) if color else None
     before = tcuda_s.sweep_scaled.launches
-    out = tcuda_s.march_scaled_cuda(tex[1], izmin, izmax, tabs, plan,
-                                    refine=refine, rgbm=rgbm)
+    out = tcuda_s.march_scaled_cuda(
+        tex[1], izmin, izmax, tabs, plan, refine=refine, rgbm=rgbm,
+        skip_tables=tss.skip_pack(tex[1], izmin, izmax))
     torch.cuda.synchronize()
     assert tcuda_s.sweep_scaled.launches == before + 1
     err = 0.0
@@ -374,6 +386,73 @@ def test_scaled_kernel_saturated_clip_and_odd_block(cuda):
         _scaled_vs_plain(cuda, inputs, _SCALED_C1, 2, True, fr=1.08)
 
 
+def _scaled_exact(cuda, inputs, c1s, refine, color, fr=1.0):
+    """The scaled kernel against march_scaled_plain and its skip mirror
+    march_scaled_skip_plain, bit for bit; returns the mirror's counts."""
+    rgb, disp, mask, f1, izmin, izmax, plan, grids, k = inputs
+    tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
+    tabs = tss.scaled_table_stack(plan, torch.from_numpy(grids).to(cuda),
+                                  torch.as_tensor(np.asarray(c1s, np.float32),
+                                                  device=cuda), f1, fr)
+    rgbm = tst._rgbm_stack(tex[0], tex[2]) if color else None
+    tables, dlim = tss.skip_pack(tex[1], izmin, izmax)
+    out = tcuda_s.sweep_scaled(tex[1], tabs, dlim, plan, izmin, izmax,
+                               refine=refine, rgbm=rgbm, tables=tables)
+    torch.cuda.synchronize()
+    stats = {}
+    for i in range(len(c1s)):
+        want = tss.march_scaled_plain(tex[1], izmin, izmax, tabs[i], plan,
+                                      refine=refine, rgbm=rgbm)
+        mirror = tss.march_scaled_skip_plain(tex[1], izmin, izmax, tabs[i],
+                                             plan, refine=refine, rgbm=rgbm,
+                                             stats=stats)
+        for got, ref, mir in zip(out, want, mirror):
+            assert torch.equal(got[i], ref) and torch.equal(mir, ref)
+    return stats
+
+
+@pytest.mark.parametrize("scene", ["noise", "far", "down"])
+@pytest.mark.parametrize("refine,color", [(0, False), (2, False), (0, True),
+                                          (1, True)])
+def test_scaled_kernel_exact_through_skipped_runs(cuda, scene, refine, color):
+    """The scaled kernel equals march_scaled_plain bit for bit, as its
+    plain mirror does, depth only at refine 0, 1 and 2 and in full color;
+    on the far scene warps skip most runs; a range whose decode falls as
+    the texel rises reads the tables of -disp."""
+    c1s = _SCALED_C1
+    if scene == "far":
+        rgb, disp, mask = _far_scene(96, 128)
+        inputs = list(_scaled_inputs(11, c1s))
+        inputs[:3] = rgb, disp, mask
+    elif scene == "down":
+        inputs = list(_scaled_inputs(11, c1s))
+        inputs[4:6] = 0.1, 2.0  # izmin < izmax, the ladder kept
+    else:
+        inputs = _scaled_inputs(11, c1s)
+    stats = _scaled_exact(cuda, inputs, c1s, refine, color)
+    if scene == "far":
+        assert stats["runs_skipped"] > stats["runs"] // 4
+
+
+def test_scaled_kernel_exact_on_a_phase_a_ladder(cuda):
+    """Phase A of the two-phase rotated tier: the aligned positions and
+    per-pose ladders of plan_rotated on a wider intermediate than the
+    source, fr = 1, refine 2: exact against both plain versions."""
+    from lif_tpu_torch.ops import rotated_march as trm
+
+    h, w = 96, 128
+    rgb, disp, mask = _scene(16, h, w)
+    f1, izmin, izmax = 0.78 * w, 2.0, 0.1
+    rots = [_rotx(2.0) @ _roty(t) for t in (-6.0, 0.0, 5.0)]
+    cs = [np.array([0.05 * np.sin(np.deg2rad(t)), 0.0, 0.0])
+          for t in (-6.0, 0.0, 5.0)]
+    plan, wi, hi, aligned, grids, k, skip = trm.plan_rotated(
+        w, h, w, h, f1, f1, rots, cs, izmin, izmax)
+    assert not skip and (wi, hi) != (w, h)
+    inputs = (rgb, disp, mask, f1, izmin, izmax, plan, grids, k)
+    _scaled_exact(cuda, inputs, aligned, 2, False)
+
+
 def test_scaled_kernel_batch_equals_per_pose(cuda):
     """Each pose of a batched launch equals the same pose launched alone."""
     rgb, disp, mask, f1, izmin, izmax, plan, grids, k = _scaled_inputs(
@@ -382,10 +461,12 @@ def test_scaled_kernel_batch_equals_per_pose(cuda):
     tabs = tss.scaled_table_stack(plan, torch.from_numpy(grids).to(cuda),
                                   torch.tensor(_SCALED_C1, device=cuda),
                                   f1, 1.0)
-    whole = tcuda_s.march_scaled_cuda(d, izmin, izmax, tabs, plan, refine=2)
+    pack = tss.skip_pack(d, izmin, izmax)
+    whole = tcuda_s.march_scaled_cuda(d, izmin, izmax, tabs, plan, refine=2,
+                                      skip_tables=pack)
     for i in range(len(_SCALED_C1)):
         one = tcuda_s.march_scaled_cuda(d, izmin, izmax, tabs[i : i + 1],
-                                        plan, refine=2)
+                                        plan, refine=2, skip_tables=pack)
         assert torch.equal(one[0][0], whole[0][i])
         assert torch.equal(one[1][0], whole[1][i])
 
@@ -431,16 +512,125 @@ def test_scaled_and_rotated_fast_batch_on_cuda_matches_cpu(cuda, w):
 
 
 def test_refine_raises_on_cuda(cuda):
-    """The kernel has no refine pass: the CUDA path refuses it."""
+    """The lateral kernel computes refine > 0 since its redesign (it used
+    to raise here, which this test checked): render_fast_batch with
+    refine 1 and 2 on the card equals the same call on CPU tensors (the
+    plain twin), one kernel launch each."""
     rgb, disp, _ = _scene(3, 32, 64)
     proj = lif_tpu_torch.projector_from_arrays(
         rgb, disp, focal_px=0.78 * 64, invz_min=2.0, invz_max=0.1,
-        baseline=1.0, device=cuda,
+        baseline=1.0, device="cpu",
     )
-    cam = lif_tpu_torch.Camera.create(64, 32, focal_px=0.78 * 64,
-                                      position=[0.03, 0.0, 0.0])
-    with pytest.raises(NotImplementedError, match="refine"):
-        lif_tpu_torch.render_fast_batch(proj, [cam], refine=2)
+    cams = [lif_tpu_torch.Camera.create(64, 32, focal_px=0.78 * 64,
+                                        position=[x, 0.0, 0.0])
+            for x in (0.03, -0.05)]
+    for refine in (1, 2):
+        before = tcuda.sweep_lateral.launches
+        got, tiers = lif_tpu_torch.render_fast_batch(
+            proj.to(cuda), cams, refine=refine, return_tiers=True)
+        torch.cuda.synchronize()
+        assert tiers == ("march",)
+        assert tcuda.sweep_lateral.launches == before + 1
+        ref = lif_tpu_torch.render_fast_batch(proj, cams, refine=refine)
+        assert (got.cpu() - ref).abs().max().item() < 1e-5
+
+
+def _lateral_scene(kind, h, w):
+    """'noise': _scene's; 'far': a far background ramp behind a near box,
+    whose warps skip long runs of planes; 'down': the same read through a
+    decode that falls as the texel rises (the tables of -disp)."""
+    if kind == "noise":
+        return _scene(h * 3 + w, h, w)
+    return _far_scene(h, w)
+
+
+@pytest.mark.parametrize("kind", ["noise", "far", "down"])
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("w,h,snap", [(128, 160, True), (120, 96, False),
+                                      (97 + 31, 40, True)])
+def test_lateral_kernel_exact_through_skipped_runs(cuda, kind, refine, w, h,
+                                                   snap):
+    """The lateral kernel equals march_translation_plain bit for bit
+    (found, invz*, rgba*), and so does its plain mirror
+    march_translation_skip_plain, at refine 0, 1 and 2, on snap and dense
+    ladders, band widths 128 and 8, and through a decode that falls as the
+    texel rises; on the far scene's dense ladder most warp runs are
+    skipped."""
+    rgb, disp, mask = _lateral_scene(kind, h, w)
+    f1 = 0.78 * w
+    izmin, izmax = (0.1, 2.0) if kind == "down" else (2.0, 0.1)
+    cxs = [0.01, -0.035, 0.06]
+    c1 = np.stack([np.asarray(cxs, np.float32), np.zeros(3, np.float32),
+                   np.zeros(3, np.float32)], -1)
+    if snap:
+        planes, k = tsm.snap_plane_tables_batch(f1, cxs, max(izmin, izmax),
+                                                min(izmin, izmax))
+    else:
+        k = 48
+        planes = np.broadcast_to((0.1 + 1.9 * np.linspace(0.999, 0.001, k)
+                                  ).astype(np.float32), (3, k)).copy()
+    plan = tsm.translation_plan(w, h, w, h, f1 * 0.06 * 2.0, 0.0)
+    tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
+    prepared = tcuda.prepare_translation_src(*tex, plan)
+    args = tcuda.lateral_kernel_inputs(prepared, izmin, izmax, c1, f1,
+                                       torch.from_numpy(planes).to(cuda),
+                                       plan, k)
+    out = tcuda.sweep_lateral(
+        *args, refine=refine,
+        rows=tsm.row_skip_tables(prepared[0][4], izmin, izmax)[1:])
+    torch.cuda.synchronize()
+    stats = {}
+    for i in range(3):
+        want = tsm.march_translation_plain(*tex, izmin, izmax, c1[i], f1,
+                                           planes[i], plan, k, refine=refine)
+        mirror = tsm.march_translation_skip_plain(
+            *tex, izmin, izmax, c1[i], f1, planes[i], plan, k, refine=refine,
+            stats=stats)
+        for got, ref, mir in zip(out, want, mirror):
+            assert torch.equal(got[i], ref) and torch.equal(mir, ref)
+    if kind == "far" and not snap:
+        assert stats["runs_skipped"] > stats["runs"] // 4
+    assert out[0].mean().item() > 0.3
+
+
+def test_lateral_kernel_rejects_bad_inputs(cuda):
+    """The wrapper refuses ladders beyond 1024 planes and a launch
+    without the row skip tables."""
+    rgb, disp, mask = _scene(9, 16, 64)
+    plan = tsm.translation_plan(64, 16, 64, 16, 10.0, 0.0)
+    tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
+    src = tcuda.prepare_translation_src(*tex, plan)[0]
+    rows = tsm.row_skip_tables(src[4], 2.0, 0.1)[1:]
+    for k, r, match in ((1100, rows, "1024"), (8, None, "rows is required")):
+        ix = torch.zeros((1, k), dtype=torch.int32, device=cuda)
+        fx = torch.zeros((1, k), device=cuda)
+        klo = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match=match):
+            tcuda.sweep_lateral(src, ix, fx, fx, klo, klo, 2.0, 0.1, plan,
+                                rows=r)
+
+
+def test_texture_cache_holds_skip_tables_on_cuda(cuda):
+    """A CUDA layer of the texture cache carries each march kernel's skip
+    tables, equal to that kernel's builder on the layer's disparity, and
+    an in-place write to the disparity rebuilds them."""
+    from lif_tpu_torch.models import renderer as trenderer
+
+    rgb, disp, mask = _scene(23, 48, 64)
+    proj = lif_tpu_torch.projector_from_arrays(
+        rgb, disp, mask, focal_px=0.78 * 64, invz_min=2.0, invz_max=0.1,
+        baseline=1.0, device=cuda)
+    for scale in (1.0, 0.5):
+        proj.disp.mul_(scale)
+        lay = trenderer._prepared_textures(proj)[0]
+        d, izmin, izmax = lay["disp"], lay["izmin_host"], lay["izmax_host"]
+        assert torch.equal(lay["skip_target"], tcuda_t.skip_table_buffer(d))
+        for got, want in zip(lay["skip_scaled"],
+                             tss.skip_pack(d, izmin, izmax)):
+            assert torch.equal(got, want)
+        for got, want in zip(lay["skip_rows"],
+                             tsm.row_skip_tables(d, izmin, izmax)[1:]):
+            assert torch.equal(got, want)
 
 
 def _bb_disagreement(ref, got, channels=3):

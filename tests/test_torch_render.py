@@ -8,6 +8,8 @@ kernel-vs-twin gate of tests/test_sweep_march.py), < 1e-4 in sRGB (the
 gamma curve's slope near 0 magnifies float32 noise).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -232,3 +234,46 @@ def test_texture_cache_tracks_in_place_writes(rng):
     tp.disp.mul_(0.5)
     b = trenderer._prepared_textures(tp)
     assert b is not a
+
+
+def test_texture_cache_keys_on_host_fields(rng):
+    """A projector made with dataclasses.replace keeps the first one's
+    texture tensors; with invz_min doubled it must render as a freshly
+    built projector with that range does (the seeded 64x96 scene, one
+    lateral pose at x = 0.3), not as the cached first one: the texture
+    cache keys on the host fields its entries bake in."""
+    h, w = 64, 96
+    rgb, disp = _scene(rng, h, w)
+    kw = dict(focal_px=0.78 * w, invz_max=0.1, baseline=1.0, device="cpu")
+    first = lif_tpu_torch.projector_from_arrays(rgb, disp, invz_min=2.0, **kw)
+    cams = _cams(lif_tpu_torch, w, h, [0.3])
+    before = lif_tpu_torch.render_fast_batch(first, cams)
+    moved = dataclasses.replace(first, invz_min=first.invz_min * 2)
+    fresh = lif_tpu_torch.projector_from_arrays(rgb, disp, invz_min=4.0,
+                                                **kw)
+    got = lif_tpu_torch.render_fast_batch(moved, cams)
+    assert torch.equal(got, lif_tpu_torch.render_fast_batch(fresh, cams))
+    assert (got - before).abs().max().item() > 0.1
+
+
+def test_texture_cache_holds_the_kernels_skip_tables(rng):
+    """The march kernels' skip tables are cached per CUDA texture only: a
+    CPU layer carries none, since its plain marches read none. The cached
+    scaled pack reuses the target kernel's buffer, which equals the
+    scaled kernel's own build through a rising decode; through a falling
+    one skip_pack builds its own. On the card, tests/test_torch_cuda.py
+    holds the cache entry to each kernel's builder."""
+    from lif_tpu_torch.ops import sweep_scaled as tss
+    from lif_tpu_torch.ops.cuda import sweep_target as tct
+
+    _, tp = _projectors(rng, h=32, w=64)
+    lay = trenderer._prepared_textures(tp)[0]
+    assert not {"skip_target", "skip_scaled", "skip_rows"} & set(lay)
+    d = lay["disp"]
+    assert trenderer._layer_skip(d, 2.0, 0.1) == {}
+    for izmin, izmax in ((2.0, 0.1), (0.1, 2.0)):
+        target = tct.skip_table_buffer(d)
+        flat, dlim = tss.skip_pack(d, izmin, izmax, target=target)
+        want = tss.skip_pack(d, izmin, izmax)
+        assert torch.equal(flat, want[0]) and torch.equal(dlim, want[1])
+        assert (flat is target) == (izmin > izmax)

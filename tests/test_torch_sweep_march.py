@@ -5,7 +5,9 @@ kernel through interpret mode where a test needs it) and through
 lif_tpu_torch. Planning is host math and must match exactly; the plain
 twin must match lif_tpu's XLA oracle to the kernel-vs-twin gate of
 tests/test_sweep_march.py (max abs < 3e-5, < 1e-4 with refine). The
-CUDA kernel itself runs only on the card (tests/test_torch_cuda.py).
+plain mirror of the CUDA kernel's skip walk must equal the plain march
+bit for bit, and its row tables must bound every read. The CUDA kernel
+itself runs only on the card (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -13,6 +15,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from lif_tpu.ops import sweep_march as jsm
 from lif_tpu.ops.pallas import bounds as jbounds
@@ -265,9 +269,11 @@ def test_kernel_wrapper_rejects_cpu_tensors(rng):
     ix = torch.zeros((b, k), dtype=torch.int32)
     fx = torch.zeros((b, k))
     klo = torch.zeros((b, 1, 1), dtype=torch.int32)
+    rows = tsm.row_skip_tables(src[4], 2.0, 0.1)[1:]
     before = tcuda.sweep_lateral.launches
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tcuda.sweep_lateral(src, ix, fx, fx, klo, klo, 2.0, 0.1, plan)
+        tcuda.sweep_lateral(src, ix, fx, fx, klo, klo, 2.0, 0.1, plan,
+                            rows=rows)
     assert tcuda.sweep_lateral.launches == before
 
 
@@ -293,3 +299,147 @@ def test_batch_matches_pallas_kernel_in_interpret_mode(rng):
         mask_mode="multiply",
     )
     assert np.abs(j - t.numpy()).max() < 3e-5
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's skip walk, mirrored in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _skip_case(rng, h, w, out_w, cx, snap, scene="noise"):
+    """A scene, its pose and ladder and the plan: 'noise' the twin's
+    random disparity, 'far' a far background ramp behind a near box (long
+    skipped runs)."""
+    if scene == "far":
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        disp = 0.04 + 0.12 * xx / w + 0.01 * np.sin(yy / 7)
+        disp[h // 3 : h // 2, w // 4 : w // 2] = 0.95
+    else:
+        disp = rng.random((h, w), dtype=np.float32)
+    rgb = rng.random((h, w, 3), dtype=np.float32)
+    mask = (rng.random((h, w)) > 0.2).astype(np.float32)
+    izmin, izmax = 2.0, 0.1
+    f1 = 0.78 * w
+    if snap:
+        plane, k = jsm.snap_plane_table(f1, cx, izmin, izmax)
+    else:
+        k = 64
+        plane = (izmax + (izmin - izmax) * np.linspace(0.999, 0.001, k)
+                 ).astype(np.float32)
+    plan = tsm.translation_plan(w, h, out_w, h, f1 * abs(cx) * izmin + 1.0,
+                                0.0)
+    return (_t(rgb, disp.astype(np.float32), mask), izmin, izmax,
+            np.array([cx, 0.0, 0.0], np.float32), f1, plane, plan, k)
+
+
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("snap,scene,w,run", [
+    (True, "noise", 128, tsm.LATERAL_RUN), (False, "noise", 128, 8),
+    (False, "far", 128, 16), (True, "far", 127, 32),
+])
+def test_skip_walk_equals_plain_march(rng, refine, snap, scene, w, run):
+    """march_translation_skip_plain, the lateral CUDA kernel's walk with
+    its exact skips, gives march_translation_plain's found, invz* and
+    rgba* bit for bit: at refine 0, 1 and 2, on snap and non-snap ladders,
+    at an odd source width (127, rendered into a 128-column band with the
+    width pad's half-pixel offset), runs of 8, 16 and 32 planes; its skips
+    fire on the far scene's dense ladder and never read more planes than
+    the one-thread walk."""
+    out_w = -(-w // 8) * 8
+    offset = ((out_w - w) / 2.0, 0.0)
+    tex, izmin, izmax, c1, f1, plane, plan, k = _skip_case(
+        rng, 96, w, out_w, 0.05, snap, scene)
+    stats = {}
+    want = tsm.march_translation_plain(*tex, izmin, izmax, c1, f1, plane,
+                                       plan, k, refine=refine, offset=offset)
+    got = tsm.march_translation_skip_plain(
+        *tex, izmin, izmax, c1, f1, plane, plan, k, refine=refine,
+        offset=offset, run=run, stats=stats)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert stats["lane_reads"] <= stats["old_lane_visits"]
+    if scene == "far" and not snap:
+        assert stats["runs_skipped"] > stats["runs"] // 4
+    assert want[0].mean().item() > 0.5
+
+
+def test_skip_walk_crossing_right_after_a_skipped_run(rng):
+    """A flat background whose disparity lies halfway between the texel
+    thresholds of a run's first plane and the plane before: its pixels
+    cross at the first plane of a run after their warps skipped the run
+    before whole, so the bracket is read afresh there; still bit for bit
+    march_translation_plain's."""
+    tex, izmin, izmax, c1, f1, plane, plan, k = _skip_case(
+        rng, 96, 128, 128, 0.05, False, "far")
+    run = 8
+    tkt = (plane - np.float32(izmax)) / (np.float32(izmin) - np.float32(
+        izmax))
+    c = run * int(np.argmin(np.abs(tkt[run::run] - 0.3)) + 1)
+    disp = tex[1].clone()
+    disp[disp != np.float32(0.95)] = float((tkt[c - 1] + tkt[c]) / 2)
+    tex = [tex[0], disp, tex[2]]
+    stats = {}
+    for refine in (0, 2):
+        want = tsm.march_translation_plain(*tex, izmin, izmax, c1, f1, plane,
+                                           plan, k, refine=refine)
+        got = tsm.march_translation_skip_plain(
+            *tex, izmin, izmax, c1, f1, plane, plan, k, refine=refine,
+            run=run, stats=stats)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+    assert stats["after_skip"] > 96 * 128 // 4
+    assert stats["refreshes"] >= stats["after_skip"]
+
+
+def test_skip_walk_through_a_falling_decode(rng):
+    """izmin < izmax: the decode falls as the texel rises, so the row
+    tables are those of -disp and the plane-range scan runs on the
+    negated tables; the walk still equals the dense march."""
+    tex, _, _, c1, f1, plane, plan, k = _skip_case(
+        rng, 96, 128, 128, 0.05, False, "far")
+    for refine in (0, 1):
+        want = tsm.march_translation_plain(*tex, 0.1, 2.0, c1, f1, plane,
+                                           plan, k, refine=refine)
+        got = tsm.march_translation_skip_plain(*tex, 0.1, 2.0, c1, f1, plane,
+                                               plan, k, refine=refine)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+        assert 0.1 < want[0].mean().item()
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), h=st.integers(1, 12),
+       w=st.integers(1, 90), scale=st.sampled_from([1.0, 1e-3, 1e4]),
+       offset=st.sampled_from([0.0, -0.5, 0.7]), down=st.booleans())
+def test_row_tables_bound_every_lateral_read(seed, h, w, scale, offset, down):
+    """Every lateral lerp (the kernel's: taps x0 + ix and x0 + ix + 1
+    clamped to the row, weights 1 - f and f) is at most r0 at its origin
+    (the first tap clamped to [0, W - 1]), and r0 at most its r8 and r32
+    cells; r0 is the pair's max plus its max|tap| times 2^-16 plus 1e-30
+    (the stated slack, no looser). Through a falling decode the tables
+    bound -disp, i.e. disp from below. A NaN tap gives +inf."""
+    rng = np.random.default_rng(seed)
+    disp = ((rng.random((h, w)) + offset) * scale).astype(np.float32)
+    izmin, izmax = (0.1, 2.0) if down else (2.0, 0.1)
+    r0, r8, r32 = tsm.row_skip_tables(torch.from_numpy(disp), izmin, izmax)
+    d = -disp if down else disp
+    nxt = np.concatenate([d[:, 1:], d[:, -1:]], 1).astype(np.float64)
+    pair = np.stack([d.astype(np.float64), nxt])
+    hi, mag = pair.max(0), np.abs(pair).max(0)
+    r0n = r0.numpy().astype(np.float64)
+    assert (r0n >= hi).all()
+    assert (r0n <= hi + mag * 2.0 ** -16 * (1 + 2.0 ** -6) + 2e-30).all()
+    n = 3000
+    row = torch.from_numpy(rng.integers(0, h, n))
+    x = torch.from_numpy(rng.integers(-5, w + 5, n))
+    f = torch.from_numpy(rng.random(n).astype(np.float32))
+    f[:4] = torch.tensor([0.0, 0.5, 1e-7, 0.99999994])
+    dt = torch.from_numpy(d)
+    a, b = x.clamp(0, w - 1), (x + 1).clamp(0, w - 1)
+    reads = dt[row, a] * (1.0 - f) + dt[row, b] * f
+    assert (reads <= r0[row, a]).all()
+    assert (r0[row, a] <= r8[row, a // 8]).all()
+    assert (r8[row, a // 8] <= r32[row, a // 32]).all()
+    disp[h // 2, w // 2] = np.nan
+    r0, r8, _ = tsm.row_skip_tables(torch.from_numpy(disp), izmin, izmax)
+    assert r0[h // 2, w // 2] == np.inf and r8[h // 2, w // 2 // 8] == np.inf

@@ -9,14 +9,19 @@ decides routing. The march is held to the repo's kernel-vs-twin bounds
 max abs < 1e-4 with `found` equal — except that XLA contracts
 multiply-adds into FMAs on the CPU and the port does not, so an isolated
 grazing crossing can flip; such flips are counted and must stay under
-0.1% of pixels (the bound of tests/test_torch_sweep_target.py). The CUDA
-kernel runs only on the card (tests/test_torch_cuda.py).
+0.1% of pixels (the bound of tests/test_torch_sweep_target.py). The plain
+mirror of the CUDA kernel's skip walk must equal the plain march bit for
+bit, its run boxes must cover every plane of a run and its tables bound
+every read. The CUDA kernel runs only on the card
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import lif_tpu
 import lif_tpu_torch
@@ -291,3 +296,153 @@ def test_plain_march_rejects_other_devices(rng):
     with pytest.raises(NotImplementedError, match="CUDA or CPU"):
         tss.render_scaled_batch(*tex, IZMIN, IZMAX, [c1], f1, fr, grid,
                                 None, pb, k, depth_only=True)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's skip walk, mirrored in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _far(h, w):
+    """A far background ramp behind a near box (long skipped runs)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    disp = 0.04 + 0.12 * xx / w + 0.01 * np.sin(yy / 7)
+    disp[h // 3 : h // 2, w // 4 : w // 2] = 0.95
+    return disp.astype(np.float32)
+
+
+@pytest.mark.parametrize("family", ["dolly", "general", "zoom"])
+@pytest.mark.parametrize("scene", ["noise", "far"])
+@pytest.mark.parametrize("mode,refine,run", [
+    ("depth", 0, tss.SCALED_RUN), ("depth", 2, 8), ("color", 0, 32),
+    ("color", 1, tss.SCALED_RUN),
+])
+def test_skip_walk_equals_plain_march(rng, family, scene, mode, refine, run):
+    """march_scaled_skip_plain, the scaled CUDA kernel's walk with its
+    exact skips, gives march_scaled_plain's found, invz* (and rgba*) bit
+    for bit: depth only at refine 0 and 2, full colour, runs of 8, 16 and
+    32 planes, a dolly, a general pose and a zoom; its skips fire (b0
+    tests saving tap reads; on the far scene, skipped runs)."""
+    rgb, disp, mask, f1, fr, c1, _, plan, grid, _ = _setup(rng, family)
+    if scene == "far":
+        disp = _far(*disp.shape)
+    tex = _t(rgb, disp, mask)
+    tab = tss.scaled_table_stack(plan, torch.from_numpy(grid),
+                                 torch.tensor([c1], dtype=torch.float32),
+                                 f1, fr)[0]
+    rgbm = (torch.cat([tex[0].permute(2, 0, 1), tex[2][None]])
+            if mode == "color" else None)
+    stats = {}
+    want = tss.march_scaled_plain(tex[1], IZMIN, IZMAX, tab, plan,
+                                  refine=refine, rgbm=rgbm)
+    got = tss.march_scaled_skip_plain(tex[1], IZMIN, IZMAX, tab, plan,
+                                      refine=refine, rgbm=rgbm, run=run,
+                                      stats=stats)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert stats["bil_reads"] < stats["lane_tests"] <= stats["old_lane_visits"]
+    if scene == "far":
+        assert stats["runs_skipped"] > 0
+
+
+def test_skip_walk_on_a_phase_a_ladder(rng):
+    """Phase A of the two-phase rotated tier: plan_rotated's aligned
+    positions and per-pose ladders on its wider intermediate, fr = 1,
+    refine 2 (the production setting): bit for bit the plain march."""
+    from lif_tpu_torch.ops import rotated_march as trm
+
+    from .test_rotated_march import _rotx, _roty
+
+    h, w = 96, 128
+    rgb, disp, mask = _scene(rng, h=h, w=w)
+    f1 = 0.78 * w
+    thetas = (-6.0, 0.0, 5.0)
+    rots = [_rotx(2.0) @ _roty(t) for t in thetas]
+    cs = [np.array([0.05 * np.sin(np.deg2rad(t)), 0.0, 0.0]) for t in thetas]
+    plan, wi, hi, aligned, grids, k, skip = trm.plan_rotated(
+        w, h, w, h, f1, f1, rots, cs, IZMIN, IZMAX)
+    assert not skip and (wi, hi) != (w, h)
+    tabs = tss.scaled_table_stack(plan, torch.from_numpy(grids),
+                                  torch.as_tensor(aligned), f1, 1.0)
+    d = torch.from_numpy(disp)
+    for tab in tabs:
+        want = tss.march_scaled_plain(d, IZMIN, IZMAX, tab, plan, refine=2)
+        got = tss.march_scaled_skip_plain(d, IZMIN, IZMAX, tab, plan,
+                                          refine=2)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+
+
+def test_skip_walk_through_a_falling_decode(rng):
+    """izmin < izmax: the skip tables are those of -disp (negated in the
+    test) and the walk still equals the dense march; a ladder descending
+    from the top of the decoded range keeps early planes unreachable, so
+    runs are skipped."""
+    rgb, disp, mask, f1, fr, c1, _, plan, grid, _ = _setup(rng, "general")
+    disp = _far(*disp.shape)
+    tab = tss.scaled_table_stack(plan, torch.from_numpy(grid),
+                                 torch.tensor([c1], dtype=torch.float32),
+                                 f1, fr)[0]
+    d = torch.from_numpy(disp)
+    stats = {}
+    for refine in (0, 2):
+        want = tss.march_scaled_plain(d, IZMAX, IZMIN, tab, plan,
+                                      refine=refine)
+        got = tss.march_scaled_skip_plain(d, IZMAX, IZMIN, tab, plan,
+                                          refine=refine, stats=stats)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+    assert stats["runs_skipped"] > 0 and want[0].mean().item() > 0.5
+
+
+@settings(max_examples=80, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), n=st.integers(2, 300),
+       run=st.integers(1, 40), spread=st.sampled_from([1e-3, 0.5, 30.0]),
+       clip=st.booleans())
+def test_run_box_covers_every_plane_of_a_run(seed, n, run, spread, clip):
+    """The tap origins of every plane of a run lie within run_box of the
+    run's table ranges, for ANY tables (here random, neither affine nor
+    monotone along the run), any pixel offset, with and without the
+    displacement clip biting: each rounded step of the warp is monotone
+    in each argument."""
+    rng = np.random.default_rng(seed)
+    t = (rng.normal(0.0, spread, run) + rng.normal(0.0, 50.0)).astype(
+        np.float32)
+    e = (rng.normal(0.0, spread * 1e-3, run) + rng.normal(0.0, 0.05)).astype(
+        np.float32)
+    pc = torch.from_numpy(rng.uniform(-n, n, 500).astype(np.float32))
+    p = torch.from_numpy(rng.integers(0, n, 500).astype(np.float32))
+    lo, hi = (-5.0, 7.0) if clip else (-1e4, 1e4)
+    pad = int(rng.integers(0, 300))
+    box = tss.run_box((float(t.min()), float(t.max()), float(e.min()),
+                       float(e.max())), pc, p, lo, hi, pad, n)
+    for tk, ek in zip(t.tolist(), e.tolist()):
+        o = tss._axis_taps(tk, ek, pc, p, lo, hi, pad, n)
+        assert (box[0] <= o).all() and (o <= box[1]).all()
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), h=st.integers(2, 30),
+       w=st.integers(2, 50), scale=st.sampled_from([1.0, 1e-3, 1e4]),
+       offset=st.sampled_from([0.0, -0.5, 0.7]), down=st.booleans())
+def test_scaled_tables_bound_every_scaled_read(seed, h, w, scale, offset,
+                                               down):
+    """Every read of the scaled march's warp (_warp: each tap index
+    clamped on its own, summed top then bottom) at any table entries is at
+    most b0 of scaled_skip_tables at its tap origin (through a falling
+    decode, -disp's tables bound -disp's reads)."""
+    rng = np.random.default_rng(seed)
+    disp = ((rng.random((h, w)) + offset) * scale).astype(np.float32)
+    izmin, izmax = (IZMAX, IZMIN) if down else (IZMIN, IZMAX)
+    b0, _, _ = tss.scaled_skip_tables(torch.from_numpy(disp), izmin, izmax)
+    d = torch.from_numpy(-disp if down else disp)
+    plan = tss.ScaledPlan(w, h, w, h, 3, 9, 8, 2, 1, 1, 4, 5, 2)
+    xc, yc = tss._centered(plan, "cpu")
+    for _ in range(6):
+        t = rng.normal(0.0, 4.0, 4).astype(np.float32).tolist()
+        t[1], t[3] = t[1] * 0.01, t[3] * 0.01
+        reads = tss._warp(d, *t, plan, xc, yc)
+        ox = tss._axis_taps(t[0], t[1], xc[0], xc[1], -3.0, 6.0, 3, w)
+        oy = tss._axis_taps(t[2], t[3], yc[0], yc[1], -4.0, 5.0,
+                            plan.pad_lo_y, h)
+        assert (reads <= b0[oy.expand(h, w), ox.expand(h, w)]).all()
