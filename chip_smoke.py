@@ -7,8 +7,9 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 
 1. device: a CUDA device, and its name and power limit from nvidia-smi;
 2. build: compile csrc/sweep_march.cu, csrc/sweep_target.cu,
-   csrc/sweep_scaled.cu and csrc/splat_march.cu with nvcc (sm_90a) into
-   lif_tpu_torch/_build/, one nvcc per source, started together;
+   csrc/sweep_scaled.cu and csrc/splat_march.cu with nvcc (sm_90a) and
+   the LIF codec csrc/lif_container.cpp with g++ into
+   lif_tpu_torch/_build/, one compiler per source, started together;
 3. lateral kernel vs plain: a seeded 1280x800 scene (smooth noise plus a
    hard near box, SFMoMA's constants: focal 0.78*W, baseline 0.045 m,
    inverse depth 0.0001..0.09), 8 lateral poses; the kernel's found /
@@ -86,9 +87,34 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 17. billboard timing: CUDA events, median of 5 after a warm-up: main path
     6 frames/s, the kernel (beside its previous design's time) against
     both plain versions (8 poses), and render(mode='billboard') /
-    render(mode='mesh') per frame.
+    render(mode='mesh') per frame;
+18. main path 8 (a LIF file to frames): a LIF authored in memory from the
+    seed (make_lif, PNG payloads through the port's encode_png): view 0
+    the scene above as one layer with frustum_skew (0.012, -0.0037) (a
+    shift d = (-11.98, 3.69) px: a fractional y pre-shift), view 1 a
+    3-layer LDI in the legacy layered_depth_image_data form with 128 px
+    of outpainting (layers 1408x928), stereo_render_data.invd set. It is
+    written under lif_tpu_torch/_build/ and loaded with load_lif_file
+    (load time, native codec, textures on cuda); render(mode='fast') at
+    x = 0.135 on both views (BASELINE config 0) with PSNR against the
+    640-step march, ms/frame and a 20-pose sequential pass; render_fast_view
+    at a y-only pose and a dolly pose on view 0 and an orbit pose (8 deg
+    about orbit_center) on view 1, each with its tier; render_depth_fast at
+    the lateral pose, equal to the plain march's invz* * baseline; the
+    lateral kernel on view 0's skewed, pre-shifted source (8 poses, row
+    tables from that source) exact against the plain march and its skip
+    mirror at refine 0 and 2; the viewer's render_trajectory(mode='fast')
+    over 24 orbit frames about orbit_center, timed. Every PSNR at most 1
+    dB under lif_tpu's on the same LIF, pose and route
+    (tools/reference_lif_psnr.py); every step's launches counted exactly,
+    and every launch a step makes (view 1's cropped lateral layers and
+    its orbit's target launches, the skewed dolly's and the viewer's
+    phase-A scaled launches, ...) recorded and held, on its own inputs,
+    to the kernel's plain march (each pose) and the plain mirror of its
+    skip walk (the first N_MIRROR poses): no found flip, max abs 0.
 
-Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1). The
+Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1), main
+path 8 each step's against the tiers it took. The
 second-to-last line is the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, as the source note of its .cu file counts them, a march's
@@ -99,6 +125,8 @@ source pixel) and the last line
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import os
 import re
@@ -157,6 +185,27 @@ COVERAGE_TOL = 0.005
 # bound, 1e-3 of the pixels, is 1024 here). Against its plain version,
 # which follows the same float sequence, it must agree exactly.
 BB_ORACLE_MAX = 64
+# main path 8's LIF: view 0's frustum skew, view 1's outpainting (px), its
+# three layers' inverse-depth ranges (1/m, near to far) and the
+# convergence distance behind stereo_render_data.invd (m)
+LIF_SKEW = (0.012, -0.0037)
+LIF_OUTPAINT = 128
+LIF_LAYERS = ((0.09, 0.02), (0.05, 0.005), (0.02, 0.0001))
+LIF_CONVERGENCE = 1.0
+LIF_X = 0.135  # BASELINE config 0's fixed novel view, m
+N_SEQ = 20  # poses of the sequential pass (bench_configs.py:168-178)
+N_VIEWER = 24  # orbit frames of the viewer run
+ORBIT_LIF_DEG = 8.0  # main path 8's orbit pose
+VIEWER_SWEEP = 2 * ORBIT_LIF_DEG  # deg: the viewer's orbit, +-8
+# main path 8's renders: (view, pose of lif_cams)
+LIF_RENDERS = ((0, "lateral"), (1, "lateral"), (0, "y-only"), (0, "dolly"),
+               (1, "orbit"))
+# lif_tpu on main path 8's LIF (loaded with lif_tpu.load_lif_file, PIL
+# decode), render_fast_view against its own 640-step march, dB; JAX on
+# the CPU at full size (tools/reference_lif_psnr.py)
+LIF_TPU_LIF_PSNR = {(0, "lateral"): 41.311, (1, "lateral"): 41.952,
+                    (0, "y-only"): 49.600, (0, "dolly"): 53.965,
+                    (1, "orbit"): 36.965}
 # the H100 SXM's published peaks: HBM bytes/s and FP32 operations/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -247,6 +296,81 @@ def make_scene(seed: int = 0):
     return rgb.astype(np.float32), disp.astype(np.float32)
 
 
+def make_lif(seed: int = 0) -> bytes:
+    """Main path 8's LIF file, authored in memory from the seed with the
+    port's PNG encoder and container writer (numpy and the port's io
+    only). View 0: make_scene(seed) as one layer with frustum skew
+    LIF_SKEW. View 1: a 3-layer LDI in the legacy layered_depth_image_data
+    form, each layer LIF_OUTPAINT px wider and taller than the view, the
+    two front layers masked; its stored inverse-depth ranges are those
+    process_views divides by (1 + outpaint / width) and by
+    -focal_ratio_to_width, so the loaded ranges are LIF_LAYERS. Both views
+    at the origin; stereo_render_data.invd puts the convergence plane
+    LIF_CONVERGENCE m away."""
+    from lif_tpu_torch.io import container
+    from lif_tpu_torch.io.decode import encode_png
+    from tests.scenes import smooth_noise  # numpy only
+
+    ratio = 0.78
+    rgb, disp = make_scene(seed)
+    rng = np.random.default_rng(seed + 1)
+    hl, wl = H + LIF_OUTPAINT, W + LIF_OUTPAINT
+    blobs = {20: encode_png(disp)}
+    common = {
+        "image": {"blob_id": -1},
+        "inv_z_map": {"blob_id": 20, "min": INVZ_NEAR, "max": INVZ_FAR},
+        "width_px": W, "height_px": H, "focal_px": ratio * W,
+        "position": [0.0, 0.0, 0.0], "rotation": [0.0, 0.0, 0.0],
+    }
+    layers = []
+    scale = -(1.0 + LIF_OUTPAINT / W) * ratio
+    for i, (near, far) in enumerate(LIF_LAYERS):
+        l_disp = smooth_noise(rng, hl, wl, octaves=3, lo=0.1, hi=0.9)
+        l_rgb = np.stack([smooth_noise(rng, hl, wl, octaves=4)
+                          for _ in range(3)], -1)
+        mask = (np.ones((hl, wl)) if i == len(LIF_LAYERS) - 1 else
+                (smooth_noise(rng, hl, wl, octaves=2) > 0.45).astype(float))
+        ids = (30 + 3 * i, 31 + 3 * i, 32 + 3 * i)
+        for blob_id, arr in zip(ids, (l_rgb, l_disp, mask)):
+            blobs[blob_id] = encode_png(arr)
+        layers.append({
+            "image": {"blob_id": ids[0]},
+            "inv_z_map": {"blob_id": ids[1], "min": near * scale,
+                          "max": far * scale},
+            "mask": {"blob_id": ids[2]},
+        })
+    views = [
+        dict(common, frustum_skew=list(LIF_SKEW)),
+        dict(common, camera_data={"focal_ratio_to_width": ratio},
+             layered_depth_image_data={
+                 "outpainting_added_width_px": LIF_OUTPAINT,
+                 "outpainting_added_height_px": LIF_OUTPAINT,
+                 "layers_top_to_bottom": layers,
+             }),
+    ]
+    meta = {"views": views, "baseline_mm": BASELINE * 1e3,
+            "stereo_render_data": {"invd": BASELINE / LIF_CONVERGENCE}}
+    return container.write(encode_png(rgb), meta, blobs)
+
+
+def lif_cams(lt, proj, orbit_center):
+    """Main path 8's poses on a loaded view `proj`, {name: Camera}: the
+    fixed novel view (BASELINE config 0), a y-only pose, a dolly pose and
+    an orbit pose of ORBIT_LIF_DEG about orbit_center (the viewer's
+    radius: the view's distance to it)."""
+    focal = float(proj.focal[0])
+    radius = float(np.linalg.norm(np.asarray(proj.position) - orbit_center))
+    pos, rot = lt.orbit_pose(orbit_center, radius,
+                             float(np.deg2rad(ORBIT_LIF_DEG)))
+    poses = {"lateral": ([LIF_X, 0.0, 0.0], None),
+             "y-only": ([0.0, 0.05, 0.0], None),
+             "dolly": ([0.02, 0.01, 0.05], None),
+             "orbit": (pos, rot)}
+    return {name: lt.Camera.create(W, H, focal_px=focal, position=p,
+                                   rotation=r)
+            for name, (p, r) in poses.items()}
+
+
 def orbit_cams(lt, focal, thetas=(), phis=()):
     return [
         lt.Camera.create(W, H, focal_px=focal, position=p, rotation=r)
@@ -291,6 +415,7 @@ def run():
     try:
         import lif_tpu_torch
         from lif_tpu_torch.core.pose import relative_view_pose
+        from lif_tpu_torch.io import native
         from lif_tpu_torch.models import renderer
         from lif_tpu_torch.ops.cuda import build
         from lif_tpu_torch.ops.cuda import splat_march as kbb
@@ -316,13 +441,18 @@ def run():
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}", flush=True)
 
-    # 2. build, one nvcc per source, all started together
+    # 2. build, one nvcc per source and g++ for the LIF codec, all started
+    # together
     sources = ("sweep_march", "sweep_target", "sweep_scaled", "splat_march")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        codec = pool.submit(native.load_library)
         list(pool.map(build.load_library, sources))
-    print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
-          f"{time.perf_counter() - t0:.2f} s ({build.BUILD_DIR})", flush=True)
+        check(codec.result() is not None,
+              f"the LIF codec did not build: {native.build_error()}")
+    print(f"build: {', '.join(f'{n}.cu' for n in sources)} and "
+          f"lif_container.cpp in {time.perf_counter() - t0:.2f} s "
+          f"({build.BUILD_DIR})", flush=True)
     for name in sources:
         for log in build.BUILD_DIR.glob(f"lib{name}-*.log"):
             for line in log.read_text().splitlines():
@@ -471,6 +601,11 @@ def run():
     scaled = scaled_phases(proj, focal, lay, reset_counts, card)
     billboard = billboard_phases(proj, focal, lay, cams, reset_counts,
                                  launch_counts, card)
+    # main path 8 held each launch to the plain versions: its worst error
+    # joins each kernel's record
+    errs = lif_phase(reset_counts, launch_counts, card)
+    for rec in (lateral, target, scaled):
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs.get(rec["name"], 0.0))
     return {"kernels": [lateral, target, scaled, billboard]}, card
 
 
@@ -974,6 +1109,333 @@ def billboard_phases(proj, focal, lay, cams, reset_counts, launch_counts,
         "billboard_march", "lif_tpu_torch/csrc/splat_march.cu",
         "lif_tpu/ops/pallas/splat_march.py:99", launches, err,
         kernel_ms / N_CHECK, plain_ms["scatter plain"], bound)
+
+
+# the hand-written kernel each tier launches once per layer and pose chunk
+# ('rotated': the scaled kernel in its phase A)
+TIER_KERNEL = {"march": "lateral_march", "target": "target_march",
+               "scaled": "scaled_march", "rotated": "scaled_march"}
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Record every call of the march kernels' entry points made inside
+    (ops/cuda/*.py's march_translation_cuda, march_target_cuda and
+    march_scaled_cuda, which the renderer's dispatchers look up when they
+    run) as (kernel, the call's bound arguments, a copy of its outputs).
+    The calls run and launch as they would; hold_to_plain replays them."""
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+    from lif_tpu_torch.ops.cuda import sweep_scaled as kscaled
+    from lif_tpu_torch.ops.cuda import sweep_target as ktarget
+
+    calls = []
+    entries = ((kmarch, "march_translation_cuda", "lateral_march"),
+               (ktarget, "march_target_cuda", "target_march"),
+               (kscaled, "march_scaled_cuda", "scaled_march"))
+    saved = [getattr(mod, attr) for mod, attr, _ in entries]
+
+    def recorder(fn, kernel):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            calls.append((kernel, bound.arguments,
+                          tuple(t.clone() for t in out)))
+            return out
+
+        return call
+
+    for (mod, attr, kernel), fn in zip(entries, saved):
+        setattr(mod, attr, recorder(fn, kernel))
+    try:
+        yield calls
+    finally:
+        for (mod, attr, _), fn in zip(entries, saved):
+            setattr(mod, attr, fn)
+
+
+def hold_to_plain(calls, step):
+    """Each kernel call a main-path step made (recorded_calls), pose by
+    pose on that call's own inputs, against the kernel's plain version
+    (every pose) and the plain mirror of its skip walk (the first N_MIRROR
+    poses): no found flip and max abs 0 against both. Returns {kernel:
+    max abs}."""
+    import torch
+
+    from lif_tpu_torch.ops import sweep_march as smarch
+    from lif_tpu_torch.ops import sweep_scaled as sscaled
+    from lif_tpu_torch.ops import sweep_target as starget
+
+    torch.cuda.synchronize()
+    errs = {}
+    for kernel, a, out in calls:
+        kw = dict(refine=a["refine"])
+        if kernel == "lateral_march":
+            plains = (smarch.march_translation_plain,
+                      smarch.march_translation_skip_plain)
+            c1 = np.asarray(a["c1"], np.float32)
+            kw["offset"] = a["offset"]
+
+            def ref(plain, i):
+                return plain(a["rgb"], a["disp"], a["mask"], a["invz_min"],
+                             a["invz_max"], c1[i], a["f1"],
+                             a["plane_invz"][i], a["plan"], a["num_planes"],
+                             **kw)
+        elif kernel == "target_march":
+            plains = (starget.march_target_plain,
+                      starget.march_target_skip_plain)
+            kw["rgbm"] = a["rgbm"]
+
+            def ref(plain, i):
+                return plain(a["disp"], a["invz_min"], a["invz_max"],
+                             a["pose_b"][i], a["plane_invz"][i],
+                             a["plan"].out_w, a["plan"].out_h, **kw)
+        else:
+            plains = (sscaled.march_scaled_plain,
+                      sscaled.march_scaled_skip_plain)
+            kw["rgbm"] = a["rgbm"]
+
+            def ref(plain, i):
+                return plain(a["disp"], a["invz_min"], a["invz_max"],
+                             a["tabs"][i], a["plan"], **kw)
+        worst = [[0, 0.0], [0, 0.0]]
+        for i in range(out[0].shape[0]):
+            for j, plain in enumerate(plains):
+                if j and i >= N_MIRROR:
+                    continue
+                r = ref(plain, i)
+                worst[j][0] += int((out[0][i] != r[0]).sum())
+                worst[j][1] = max([worst[j][1]] + [
+                    float((got[i] - want).abs().max())
+                    for got, want in zip(out[1:], r[1:])])
+        h, w = out[0].shape[1:]
+        print(f"main path 8: {step}: {kernel} ({out[0].shape[0]} poses, "
+              f"{w}x{h}, refine {a['refine']}, colour "
+              f"{len(out) > 2}) on the launch's own inputs: vs plain found "
+              f"mismatches {worst[0][0]}, max abs {worst[0][1]:.3g}; vs its "
+              f"skip mirror ({min(N_MIRROR, out[0].shape[0])} poses) found "
+              f"mismatches {worst[1][0]}, max abs {worst[1][1]:.3g}",
+              flush=True)
+        check(worst == [[0, 0.0], [0, 0.0]],
+              f"{step}: the {kernel} kernel is not exact on its launch")
+        errs[kernel] = max(errs.get(kernel, 0.0), worst[0][1], worst[1][1])
+    return errs
+
+
+def lif_phase(reset_counts, launch_counts, card):
+    """Phase 18, main path 8: a LIF file to frames (see the module note).
+    Every step zeroes the launch counts just before it and checks them
+    just after, exactly, and holds each kernel launch it made to the
+    kernel's plain version on that launch's inputs (hold_to_plain).
+    Returns {kernel: max abs against its plain versions}."""
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.apps import viewer
+    from lif_tpu_torch.core.pose import relative_view_pose
+    from lif_tpu_torch.io import native
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops import sweep_march as smarch
+    from lif_tpu_torch.ops.cuda import build
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    def expect(tiers):
+        want = dict.fromkeys(launch_counts(), 0)
+        for tier in tiers:
+            want[TIER_KERNEL[tier]] += 1
+        return want
+
+    errs = {}
+
+    def counted(fn, *args, **kwargs):
+        """fn's result, the kernel launches it made and the recorded
+        kernel calls (recorded_calls)."""
+        reset_counts()
+        with recorded_calls() as calls:
+            out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, launch_counts(), calls
+
+    def held(calls, step):
+        for kernel, err in hold_to_plain(calls, step).items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+
+    # the file: authored, written, loaded onto the card
+    t0 = time.perf_counter()
+    data = make_lif(0)
+    path = build.BUILD_DIR / "chip_smoke.lif"
+    path.write_bytes(data)
+    author_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result, counts, _ = counted(lt.load_lif_file, str(path))
+    load_ms = (time.perf_counter() - t0) * 1e3
+    views = result.projectors
+    devices = sorted({p.disp.device.type for p in views})
+    center = result.orbit_center
+    print(f"main path 8: a {len(data) / 1e6:.2f} MB LIF authored in "
+          f"{author_s:.2f} s; load_lif_file {load_ms:.1f} ms (host clock; "
+          f"native codec {native.load_library() is not None}), "
+          f"{len(views)} views of {[p.num_layers for p in views]} layers, "
+          f"textures on {devices}, orbit_center "
+          f"{np.round(center, 6).tolist()}", flush=True)
+    check(devices == ["cuda"], f"textures on {devices}")
+    check(not any(counts.values()), f"loading launched kernels: {counts}")
+    check(center is not None, "no orbit_center from stereo_render_data")
+    check([p.num_layers for p in views] == [1, 3], "the views' layers")
+    res = np.asarray(views[1].layer_res)[:, :2]
+    check((res == [W + LIF_OUTPAINT, H + LIF_OUTPAINT]).all(),
+          f"view 1's layer dims {res.tolist()}")
+    check(np.allclose(views[1].invz_min, [n for n, _ in LIF_LAYERS])
+          and np.allclose(views[1].invz_max, [f for _, f in LIF_LAYERS]),
+          "view 1's inverse-depth ranges")
+    check(np.allclose(views[0].skew, LIF_SKEW), "view 0's frustum skew")
+    cams = {v: lif_cams(lt, views[v], center) for v in (0, 1)}
+
+    # the renders: render(mode='fast') at the fixed novel view, then
+    # render_fast_view at the other poses, each against the 640-step march
+    for v, pose in LIF_RENDERS:
+        proj, cam = views[v], cams[v][pose]
+        if pose == "lateral":
+            img, counts, calls = counted(lt.render, proj, cam, mode="fast")
+            tiers, route = ("march",) * proj.num_layers, "render(mode='fast')"
+        else:
+            img, counts, calls = counted(lt.render_fast_view, proj, cam)
+            route = "render_fast_view"
+            if pose == "y-only":  # the x<->y transpose onto the march
+                tiers = ("march",) * proj.num_layers
+            else:
+                tiers = tuple(lt.render_fast_batch(proj, [cam],
+                                                   return_tiers=True)[1])
+        exact = lt.render_mono_view(proj, cam, num_steps=640)
+        q, ref_db = psnr(img, exact), LIF_TPU_LIF_PSNR[(v, pose)]
+        print(f"main path 8: {route} on view {v} at the {pose} pose: tiers "
+              f"{tiers}, launches {counts}, {q:.3f} dB against the 640-step "
+              f"march (lif_tpu {ref_db:.3f}), alpha coverage "
+              f"{float(img[..., 3].mean()):.4f}", flush=True)
+        check(tuple(img.shape) == (H, W, 4), f"shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()), f"non-finite {pose} render")
+        check(counts == expect(tiers), f"view {v} {pose}: launches {counts}")
+        check(q >= ref_db - 1.0, f"view {v} {pose}: {q:.3f} dB, lif_tpu "
+                                 f"{ref_db}")
+        check(sum(counts.values()) == len(calls),
+              f"view {v} {pose}: {len(calls)} recorded calls")
+        held(calls, f"{route} on view {v} at the {pose} pose")
+
+    # render_depth_fast at the lateral pose: the plain march's raw invz*
+    # times the baseline, exactly
+    v0, cam = views[0], cams[0]["lateral"]
+    depth, counts, calls = counted(lt.render_depth_fast, v0, cam)
+    lay = renderer._prepared_textures(v0)[0]
+    izmin, izmax, f1 = lay["izmin_host"], lay["izmax_host"], lay["focal_host"]
+    c1 = relative_view_pose(v0.position, v0.rotation, cam.position,
+                            cam.rotation)[0]
+    plan = renderer._march_plan(lay, abs(float(c1[0])), W, H)
+    tab, k = smarch.snap_plane_tables_batch(f1, [float(c1[0])], izmin, izmax)
+    raw = smarch.render_translation_plain(
+        lay["rgb"], lay["disp"], lay["mask"], izmin, izmax, c1, f1,
+        torch.as_tensor(tab[0], device=depth.device), np.zeros(4, np.float32),
+        plan, k, mask_mode="none", to_srgb=False, raw=True)
+    want = raw[3] * float(np.float32(v0.baseline))
+    print(f"main path 8: render_depth_fast on view 0 at the lateral pose: "
+          f"launches {counts}, max abs against the plain march "
+          f"{float((depth - want).abs().max()):.3g}, hit share "
+          f"{float((depth > 0).float().mean()):.4f}", flush=True)
+    check(counts == expect(("march",)), f"render_depth_fast: {counts}")
+    check(torch.equal(depth, want), "render_depth_fast is not the plain "
+                                    "march's invz* times the baseline")
+    held(calls, "render_depth_fast on view 0 at the lateral pose")
+
+    # the lateral kernel on view 0's skewed source: the fold's y pre-shift,
+    # d[0] in the snap phase and the warp offset, row tables of the shifted
+    # source (not launches of the main path: the counts are not read)
+    cxs = [LIF_X + 0.02 * i / N_CHECK for i in range(N_CHECK)]
+    plan, crop, phase, doff = renderer._march_fold(
+        lay, v0.skew, cam.skew, max(cxs), W, H, 0.0)
+    lay = dict(lay, doff=doff)
+    srcs, _, rows = renderer._march_pack(lay, plan, crop)
+    stale = sum(int((a != b).any(-1).sum())
+                for a, b in zip(rows, lay["skip_rows"]))
+    planes, k = smarch.snap_plane_tables_batch(f1, cxs, izmin, izmax,
+                                               phase_px=phase)
+    c1 = np.zeros((N_CHECK, 3), np.float32)
+    c1[:, 0] = cxs
+    for refine in (0, LATERAL_REFINE):
+        out = kmarch.march_translation_cuda(
+            *srcs, izmin, izmax, c1, f1,
+            torch.as_tensor(planes).to(srcs[1].device), plan, k,
+            offset=(doff[0], 0.0), refine=refine, rows=rows)
+        torch.cuda.synchronize()
+        worst = {"plain": (0, 0.0), "skip mirror": (0, 0.0)}
+        for i in range(N_CHECK):
+            for label, plain in (
+                    ("plain", smarch.march_translation_plain),
+                    ("skip mirror", smarch.march_translation_skip_plain)):
+                ref = plain(*srcs, izmin, izmax, c1[i], f1, planes[i], plan,
+                            k, refine=refine, offset=doff)
+                flips = int((out[0][i] != ref[0]).sum())
+                err = max(float((got[i] - want).abs().max())
+                          for got, want in zip(out[1:], ref[1:]))
+                worst[label] = (worst[label][0] + flips,
+                                max(worst[label][1], err))
+        print(f"main path 8: lateral kernel on view 0's skewed source "
+              f"(d = ({doff[0]:.3f}, {doff[1]:.3f}) px, {N_CHECK} poses, "
+              f"K={k}, refine {refine}; its row tables differ from the "
+              f"unshifted texture's in {stale} rows): vs plain found "
+              f"mismatches "
+              f"{worst['plain'][0]}, max abs {worst['plain'][1]:.3g}; vs its "
+              f"skip mirror found mismatches {worst['skip mirror'][0]}, max "
+              f"abs {worst['skip mirror'][1]:.3g}; found share "
+              f"{float(out[0].mean()):.4f}", flush=True)
+        check(worst["plain"] == (0, 0.0) and worst["skip mirror"] == (0, 0.0),
+              f"refine {refine}: the lateral kernel is not exact on the "
+              "skewed source")
+        del out
+
+    # the viewer: an orbit trajectory about orbit_center in one chunk
+    radius = float(np.linalg.norm(np.asarray(v0.position) - center))
+    positions, rotations = viewer.orbit_trajectory(center, radius, N_VIEWER,
+                                                   VIEWER_SWEEP)
+    template = lt.Camera.create(W, H, focal_px=f1)
+    t0 = time.perf_counter()
+    frames, counts, calls = counted(viewer.render_trajectory, v0, positions,
+                                    rotations, template, mode="fast")
+    viewer_s = time.perf_counter() - t0
+    tiers = tuple(lt.render_fast_batch(v0, [
+        lt.Camera.create(W, H, focal_px=f1, position=p, rotation=r)
+        for p, r in zip(positions, rotations)], return_tiers=True)[1])
+    print(f"main path 8: viewer render_trajectory(mode='fast') of "
+          f"{N_VIEWER} orbit frames (+-{VIEWER_SWEEP / 2:g} deg about "
+          f"orbit_center) on view 0 -> {frames.shape}: tiers {tiers}, "
+          f"launches {counts}, {viewer_s * 1e3:.1f} ms = "
+          f"{N_VIEWER / viewer_s:.1f} frames/s (host clock, frames copied "
+          f"to the host) [{card}]", flush=True)
+    check(frames.shape == (N_VIEWER, H, W, 4), f"shape {frames.shape}")
+    check(bool(np.isfinite(frames).all()), "non-finite viewer frames")
+    check(counts == expect(tiers), f"viewer launches {counts}")
+    check(sum(counts.values()) == len(calls),
+          f"viewer: {len(calls)} recorded calls")
+    held(calls, "the viewer's orbit")
+
+    # timing on the card
+    for v in (0, 1):
+        proj, cam = views[v], cams[v]["lateral"]
+        frame_ms = device_timer(lt.render, proj, cam, mode="fast", iters=1,
+                                repeats=5)
+        seq = [lt.Camera.create(W, H, focal_px=float(proj.focal[0]),
+                                position=[LIF_X + 0.001 * i, 0.0, 0.0])
+               for i in range(N_SEQ)]
+        seq_ms = device_timer(
+            lambda: [lt.render_fast_view(proj, c) for c in seq], iters=1,
+            repeats=3)
+        print(f"main path 8: render(mode='fast') on view {v} "
+              f"({views[v].num_layers} layers) at x = {LIF_X}: "
+              f"{frame_ms:.3f} ms/frame; {N_SEQ}-pose sequential pass "
+              f"{seq_ms:.3f} ms = {N_SEQ / (seq_ms / 1e3):.1f} frames/s "
+              f"at {W}x{H} [{card}]", flush=True)
+    return errs
 
 
 def main() -> int:

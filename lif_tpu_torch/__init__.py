@@ -3,31 +3,53 @@
 A second package beside the JAX one (lif_tpu, the reference). It mirrors
 lif_tpu's layout and names; each TPU kernel of a ported path becomes a
 hand-written CUDA kernel (csrc/), compiled by nvcc at first use. Ported
-so far: the exact ray march, and four tiers of render_fast_batch: the
-lateral snap-plane march ('march'), the scaled march for other unrotated
-poses ('scaled'), the orbit's target-ray march ('target': yaw-family
-poses, and pitch-family poses through an x<->y transpose) and the
-two-phase fallback for other rotated poses ('rotated'); and the mesh
-modes, render(mode='billboard' | 'mesh') and, for lateral pose batches,
+so far: LIF files in (io/: the container codec, with its C++ copy built
+by g++ at first use, metadata normalization, and image decode, PNG
+without PIL) and the loaders (load_lif_file, LifLoader,
+projector_from_lif_view, resample_projector); the exact ray march;
+render_fast_view (render(mode='fast')) and render_depth_fast; four tiers
+of render_fast_batch: the lateral snap-plane march ('march', with the
+frustum-skew fold), the scaled march for other unrotated poses
+('scaled'), the orbit's target-ray march ('target': yaw-family poses,
+and pitch-family poses through an x<->y transpose) and the two-phase
+fallback for other rotated poses ('rotated'); the mesh modes,
+render(mode='billboard' | 'mesh') and, for lateral pose batches,
 render_billboard_fast_batch (the billboard splat as a row z-buffer
-scatter).
-As in lif_tpu, the top level exports the render entry points; the tiers'
-functions stay in lif_tpu_torch.ops. It imports neither jax nor lif_tpu.
+scatter); models.scene (LayerGroup, Scene) and apps.viewer.
+As in lif_tpu, the top level exports the render and load entry points;
+the tiers' functions stay in lif_tpu_torch.ops. It imports neither jax
+nor lif_tpu.
 """
 
 __version__ = "0.1.0"
 
 from .config import DEFAULT_CONFIG, RenderConfig  # noqa: F401
 from .core.camera import Camera  # noqa: F401
-from .core.pose import orbit_pose  # noqa: F401
+from .core.pose import (  # noqa: F401
+    lif_rotation_to_matrix,
+    lif_rotation_to_quaternion,
+    orbit_pose,
+)
+from .models.api import (  # noqa: F401
+    LifLoader,
+    LoadLifFileResult,
+    load_lif_file,
+    orbit_center_from_stereo_data,
+    synthesize_projector,
+)
 from .models.projector import (  # noqa: F401
     Projector,
     projector_from_arrays,
+    projector_from_lif_view,
     projector_from_reference,
+    resample_projector,
 )
 from .models.renderer import (  # noqa: F401
+    RenderMode,
     render,
     render_billboard_fast_batch,
+    render_depth_fast,
     render_fast_batch,
+    render_fast_view,
     render_mono_view,
 )

@@ -17,7 +17,16 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Projector", "projector_from_arrays", "projector_from_reference"]
+from ..core import pose as _pose
+from ..io import decode as _decode
+
+__all__ = [
+    "Projector",
+    "projector_from_arrays",
+    "projector_from_lif_view",
+    "projector_from_reference",
+    "resample_projector",
+]
 
 MAX_LAYERS = 4  # reference: RaycastPlane.ts:218
 
@@ -210,4 +219,141 @@ def projector_from_reference(obj, device=None) -> Projector:
         num_layers=int(obj.num_layers),
         width=int(obj.width),
         height=int(obj.height),
+    )
+
+
+def projector_from_lif_view(view: dict, baseline_meters: float = 0.063,
+                            device=None) -> Projector:
+    """Build a Projector from a normalized LIF view dict (io.schema), its
+    textures on `device` (None: the card).
+
+    Faithful to createHoloProjectorFromLifView (reference:
+    src/LifLoader.ts:100-208), as lif_tpu's:
+      * frustum_skew (array or {x,y} form) carried as sk1; the derived
+        principal point is cx = W/2 - skew.x*focal (exposed via
+        Projector.intrinsics);
+      * LIF positions are baseline-normalized -> scaled to meters;
+      * rotation converted via the LIF slant/roll encoding;
+      * LDI layers from layers_top_to_bottom with the per-layer
+        intrinsics fallback chain (HoloProjector.ts:294-376).
+    """
+    skew_raw = view.get("frustum_skew")
+    if skew_raw is None:
+        skew = (0.0, 0.0)
+    elif isinstance(skew_raw, dict):
+        skew = (float(skew_raw.get("x", 0.0)), float(skew_raw.get("y", 0.0)))
+    else:
+        skew = (float(skew_raw[0]), float(skew_raw[1]))
+
+    position = np.asarray(
+        [float(v) for v in (view.get("position") or (0.0, 0.0, 0.0))]
+    ) * baseline_meters  # LIF positions are baseline-normalized (:169-189)
+    rotation = (
+        _pose.lif_rotation_to_matrix(view["rotation"])
+        if view.get("rotation") is not None
+        else np.eye(3)
+    )
+
+    def layer_from(obj, fallback):
+        w = int(obj.get("width_px") or fallback["width_px"])
+        focal = float(obj.get("focal_px") or fallback["focal_px"])
+        cam = obj.get("camera_data")
+        if cam:  # per-layer intrinsics fallback (HoloProjector.ts:332-348)
+            focal = cam["focal_ratio_to_width"] * w
+        invz = obj.get("inv_z_map") or fallback["inv_z_map"]
+        rgb = _decode.decode_rgb(obj["image"]["bytes"])
+        disp_src = (obj.get("inv_z_map", {}).get("bytes")
+                    or fallback["inv_z_map"]["bytes"])
+        disp = _decode.decode_depth(disp_src)
+        mask_bytes = (obj.get("mask") or {}).get("bytes")
+        mask = (
+            None
+            if mask_bytes is None
+            else _decode.decode_mask(mask_bytes, disp.shape)
+        )
+        return dict(
+            rgb=rgb,
+            disp=disp,
+            mask=mask,
+            focal_px=focal,
+            invz_min=float(invz["min"]),
+            invz_max=float(invz["max"]),
+        )
+
+    ldi = view.get("layers_top_to_bottom")
+    if ldi:
+        layers = [layer_from(layer, view) for layer in ldi]
+    else:
+        layers = [layer_from(view, view)]
+
+    return _stack_layers(
+        layers,
+        skew=skew,
+        position=position,
+        rotation=rotation,
+        baseline=baseline_meters,
+        device=_device(device),
+    )
+
+
+def _resize_bilinear(tex: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """(H, W[, C]) -> (nh, nw[, C]) bilinear with half-pixel centers,
+    antialiased (a widened triangle filter) when it shrinks: the filter of
+    lif_tpu's jax.image.resize(..., "bilinear")."""
+    x = tex.to(torch.float32)
+    nchw = x.permute(2, 0, 1)[None] if x.ndim == 3 else x[None, None]
+    y = torch.nn.functional.interpolate(
+        nchw, size=(nh, nw), mode="bilinear", align_corners=False,
+        antialias=True,
+    )[0]
+    return y.permute(1, 2, 0) if x.ndim == 3 else y[0]
+
+
+def resample_projector(
+    projector: Projector,
+    scale: float,
+    out_w: int | None = None,
+    out_h: int | None = None,
+    device=None,
+) -> Projector:
+    """Bilinearly resample every layer by `scale` (focal scales with it),
+    optionally center-cropping to (out_w, out_h); the new textures on
+    `device` (None: the card).
+
+    The offline analog of the reference's viewport scaling
+    (textureUtils.ts:126-136 calculateViewportScale): rendering at an
+    output resolution other than the source's. A center crop keeps the
+    principal point centered, so the resampled projector stays valid for
+    the centered-pp fast paths; inverse-depth ranges and pose are
+    resolution-independent and unchanged. The resize runs on the
+    projector's device.
+    """
+    layers = []
+    for i in range(projector.num_layers):
+        w_i = int(projector.layer_res[i, 0])
+        h_i = int(projector.layer_res[i, 1])
+        nw, nh = round(w_i * scale), round(h_i * scale)
+        cw = min(out_w or nw, nw)
+        ch = min(out_h or nh, nh)
+        x0, y0 = (nw - cw) // 2, (nh - ch) // 2
+
+        def resized(tex):
+            out = _resize_bilinear(tex[i, :h_i, :w_i], nh, nw)
+            return out[y0 : y0 + ch, x0 : x0 + cw].cpu().numpy()
+
+        layers.append(dict(
+            rgb=resized(projector.rgb),
+            disp=resized(projector.disp),
+            mask=resized(projector.mask),
+            focal_px=float(projector.focal[i]) * scale,
+            invz_min=float(projector.invz_min[i]),
+            invz_max=float(projector.invz_max[i]),
+        ))
+    return _stack_layers(
+        layers,
+        skew=np.asarray(projector.skew),
+        position=np.asarray(projector.position),
+        rotation=np.asarray(projector.rotation),
+        baseline=float(projector.baseline),
+        device=_device(device),
     )

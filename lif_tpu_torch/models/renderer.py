@@ -1,8 +1,10 @@
 """Renderer: render-mode dispatch from (projector, camera) to images.
 
 The counterpart of lif_tpu.models.renderer for the slice the port has so
-far: the exact ray march (render_mono_view, render(mode='raycast')) and
-the production fast path render_fast_batch on four tiers —
+far: the exact ray march (render_mono_view, render(mode='raycast')), the
+single-view fast path (render_fast_view, render(mode='fast')) with its
+depth solve render_depth_fast, and the production fast path
+render_fast_batch on four tiers —
   * 'march': LATERAL pose batches, the snap-plane first-crossing march
     (on CUDA through csrc/sweep_march.cu);
   * 'scaled': other UNROTATED batches (y/z translation, dolly, zoom) and
@@ -20,8 +22,8 @@ renders a lateral pose batch in billboard mode through the row z-buffer
 scatter (on CUDA through csrc/splat_march.cu, one launch per batch; on
 the CPU its plain version billboard_scatter_plain).
 A pose, layer or option that needs what the port does not have yet (the
-'sweep' fallback, the skewed lateral fold, ...) raises
-NotImplementedError naming it; nothing falls back to an approximate tier.
+'sweep' fallback, the stereo modes, ...) raises NotImplementedError
+naming it; nothing falls back to an approximate tier.
 
 Host-side planning (relative poses, plane grids, pad plans, the tiers'
 extents and pose packs) runs in numpy; the textures and every per-pixel
@@ -32,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import NamedTuple, Sequence
+from typing import Literal, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -53,9 +55,14 @@ from ..ops.cuda.sweep_march import prepare_translation_src
 from ..ops.cuda.sweep_target import skip_table_buffer
 from .projector import Projector
 
-__all__ = ["BillboardPlan", "TierPlan", "plan_billboard", "plan_tiers",
-           "render", "render_billboard_fast_batch", "render_fast_batch",
+__all__ = ["BillboardPlan", "RenderMode", "TierPlan", "plan_billboard",
+           "plan_tiers", "render", "render_billboard_fast_batch",
+           "render_depth_fast", "render_fast_batch", "render_fast_view",
            "render_mono_view"]
+
+RenderMode = Literal[
+    "raycast", "stereo", "stereo_fast", "mesh", "billboard", "fast"
+]
 
 # Two caches for the fast path, both LRU. The TEXTURE cache holds the
 # pose-independent per-layer views, host scalars and the kernels' skip
@@ -87,6 +94,9 @@ _TARGET_OK_CACHE_MAX = 64
 # axis-swapped projectors of the pitch route (textures transposed once)
 _TRANSPOSED_CACHE: OrderedDict = OrderedDict()
 _TRANSPOSED_CACHE_MAX = 8
+# per CUDA layer: the lateral kernel's march packs (_march_pack), keyed on
+# the skew fold's y shift, the crop and the plan
+_MARCH_PACK_MAX = 4
 
 # x<->y axis swap: transposing every image conjugates all camera-space
 # quantities by this permutation. Applied by INDEXING, so it is exact.
@@ -136,8 +146,9 @@ def _layer_skip(disp, izmin, izmax):
     """The march kernels' skip tables of one layer's disparity, built once
     per CUDA texture by each kernel's builder: the target kernel's flat
     buffer, the scaled kernel's skip_pack (which reuses that buffer where
-    it can) and the lateral kernel's (r8, r32) row tables. A CPU texture
-    takes the plain marches, which read none of them."""
+    it can) and the lateral kernel's (r8, r32) row tables, with an LRU of
+    its march packs (_march_pack). A CPU texture takes the plain marches,
+    which read none of them."""
     if disp.device.type != "cuda":
         return {}
     target = skip_table_buffer(disp)
@@ -146,6 +157,7 @@ def _layer_skip(disp, izmin, izmax):
         skip_scaled=_sweep_scaled.skip_pack(disp, izmin, izmax,
                                             target=target),
         skip_rows=_sweep_march.row_skip_tables(disp, izmin, izmax)[1:],
+        march_packs=OrderedDict(),
     )
 
 
@@ -253,35 +265,74 @@ def _march_plan(lay, max_cx, out_w, out_h, phase_abs=0.0):
     )
 
 
+def _march_fold(lay, sk1, sk2, max_cx, out_w, out_h, dx_pad):
+    """One 'march' layer's setup with lif_tpu's skew fold: frustum skew
+    (sk1 source, sk2 camera) is the constant pixel shift d = -f1*(sk1 -
+    sk2); its x part rides the snap phase (so the total shift stays
+    integer at every plane) and, with the width pad's dx, the warp
+    offset; its y part the source pre-shift (_march_sources). Returns
+    (plan, crop_y, the snap phase d[0], doff = (d[0] + dx_pad, d[1]))."""
+    d = -lay["focal_host"] * (np.asarray(sk1, np.float64)
+                              - np.asarray(sk2, np.float64))
+    plan = _march_plan(dict(lay, h=out_h), max_cx, out_w, out_h,
+                       phase_abs=dx_pad - float(d[0]))
+    return (plan, (lay["h"] - out_h) // 2, float(d[0]),
+            (float(d[0]) + dx_pad, float(d[1])))
+
+
 def _march_sources(lay, plan, crop_y):
-    """The march tier's source pipeline: the center crop of a taller
-    (outpainted) layer to the output height."""
+    """The march tier's source pipeline: the frustum-skew y pre-lerp by
+    the layer's doff[1] (before the outpaint crop: the shift must read
+    the real outpaint texels, not crop-edge replicas), then the center
+    crop of a taller (outpainted) layer to the output height. A zero
+    shift is skipped: the lerp would return the texels unchanged."""
     rgb_l, disp_l, mask_l = lay["rgb"], lay["disp"], lay["mask"]
+    dy = lay["doff"][1]
+    if dy:
+        rgb_l, disp_l, mask_l = (
+            _sweep_march.preshift_source(t, 0.0, dy)
+            for t in (rgb_l, disp_l, mask_l)
+        )
     if crop_y:
         rows = slice(crop_y, crop_y + plan.out_h)
         rgb_l, disp_l, mask_l = rgb_l[rows], disp_l[rows], mask_l[rows]
     return rgb_l, disp_l, mask_l
 
 
+def _march_pack(lay, plan, crop_y):
+    """One CUDA 'march' layer's pose-independent kernel inputs: the source
+    it marches (_march_sources), prepare_translation_src's pack of it and
+    the (r8, r32) row skip tables of that source (for a y-preshifted,
+    skewed source its rows mix two texture rows, so the texture's own
+    tables would be stale). Built once and cached with the texture, per
+    (float32 y shift, crop, plan)."""
+    key = (float(np.float32(lay["doff"][1])), crop_y, plan)
+    cache = lay["march_packs"]
+    entry = cache.get(key)
+    if entry is not None:
+        cache.move_to_end(key)
+        return entry
+    srcs = _march_sources(lay, plan, crop_y)
+    entry = (srcs, prepare_translation_src(*srcs, plan),
+             _sweep_march.row_skip_tables(srcs[1], lay["izmin_host"],
+                                          lay["izmax_host"])[1:])
+    _lru_put(cache, _MARCH_PACK_MAX, key, entry)
+    return entry
+
+
 def _attach_march_prep(layers, modes, plans, crops):
-    """Hoist the march's pose-independent source prep (the kernel's source
-    stack + plane-range tables) out of the pose-chunk loop: computed ONCE
-    per call, for 'march' layers, with the rows of the cached row skip
-    tables the crop keeps. CUDA path only (the CPU twin reads the raw
-    textures)."""
+    """Hoist the march's pose-independent source prep out of the
+    pose-chunk loop: the cached _march_pack of each 'march' layer, whose
+    source, pack and row tables the kernel reads. CUDA path only (the CPU
+    twin reads the textures)."""
     out = []
     for lay, mode, plan, crop_y in zip(layers, modes, plans, crops):
         if mode != "march" or lay["disp"].device.type != "cuda":
             out.append(lay)
             continue
-        rows = slice(crop_y, crop_y + plan.out_h)
-        out.append(dict(
-            lay,
-            march_prep=prepare_translation_src(
-                *_march_sources(lay, plan, crop_y), plan
-            ),
-            march_rows=tuple(t[rows] for t in lay["skip_rows"]),
-        ))
+        srcs, prep, rows = _march_pack(lay, plan, crop_y)
+        out.append(dict(lay, march_src=srcs, march_prep=prep,
+                        march_rows=rows))
     return out
 
 
@@ -531,11 +582,12 @@ def _layer_tier_batch(
     t_refine,
     feathering,
     mask_mode,
-    base_offset=(0.0, 0.0),
 ):
     """ONE LDI layer's pose-batched render through its routed tier — the
     tier switch. c1_b (B, 3) and rot_b (B, 3, 3) are the host pose batch.
-    'march': the lateral snap translation; 'scaled': the aligned march
+    'march': the lateral snap translation, with the layer's constant
+    source shift `doff` (the width pad's dx and the skew fold; see
+    render_fast_batch); 'scaled': the aligned march
     with its setup (plan, K, fr, dx, dy) and per-pose ladders in `lay`;
     'target': the target-ray march with its setup (plan, K) and the
     per-pose pose packs and ladders in `lay`; 'rotated': the two-phase
@@ -573,12 +625,15 @@ def _layer_tier_batch(
         )
     if mode != "march":
         raise NotImplementedError(f"the '{mode}' tier is not ported yet")
-    rgb_l, disp_l, mask_l = _march_sources(lay, plan, crop_y)
+    if "march_src" in lay:  # hoisted (CUDA): the cached pack
+        rgb_l, disp_l, mask_l = lay["march_src"]
+    else:
+        rgb_l, disp_l, mask_l = _march_sources(lay, plan, crop_y)
     return _sweep_march.render_translation_batch(
         rgb_l, disp_l, mask_l, lay["izmin_host"], lay["izmax_host"],
         c1_b, lay["focal_host"], lay["plane_invz"], zero_bg,
         plan=plan, num_planes=k_l, refine=refine, feathering=feathering,
-        mask_mode=mask_mode, to_srgb=False, offset=base_offset,
+        mask_mode=mask_mode, to_srgb=False, offset=lay["doff"],
         crop_y=crop_y, prepared=lay.get("march_prep"),
         skip_rows=lay.get("march_rows"),
     )
@@ -605,7 +660,11 @@ def render_fast_batch(
     tier routing over the four tiers the port has:
       * 'march': LATERAL batches (no relative rotation, translation along
         x only) on march-eligible layers (matched focal, even outpaint
-        margins, plane_mode='snap', no frustum skew);
+        margins, plane_mode='snap'). Frustum skew (sk1 source, sk2
+        camera) is the constant pixel shift d = -f1*(sk1 - sk2) there:
+        its x part rides the snap phase and the warp tables, its y part
+        a one-time bilinear pre-shift of the source (before the
+        outpaint crop), lif_tpu's fold;
       * 'scaled': every other unrotated batch (y/z translation, dolly,
         zoom) and lateral layers that are not march-eligible;
       * 'target': rotated YAW-family batches (each layer plans with its
@@ -619,8 +678,8 @@ def render_fast_batch(
     slice the true width; the pad is dropped when a layer takes another
     tier. On CUDA each layer launches its kernel once per pose chunk; the
     layers are over-composited front to back. A batch no march tier
-    covers (lif_tpu's 'sweep' fallback), a skewed lateral batch and the
-    sweep method raise NotImplementedError naming what they need.
+    covers (lif_tpu's 'sweep' fallback) and the sweep method raise
+    NotImplementedError naming what they need.
 
     return_tiers=True returns (images, tiers) with the per-layer tier.
     Batches larger than config.pose_chunk render in balanced chunks (a
@@ -671,12 +730,12 @@ def render_fast_batch(
     for lay, (mode, setup, extra) in zip(tp.tex_layers, planned):
         plan, crop_y, k_l = None, 0, None
         if mode == "march":
-            plan = _march_plan(dict(lay, h=cam0.height), max_cx, out_w_eff,
-                               cam0.height, phase_abs=dx_pad)
-            crop_y = (lay["h"] - cam0.height) // 2
-            tab, k_l = _snap_tables(lay, pos_b[:, 0], num_planes, 0.0,
+            plan, crop_y, phase, doff = _march_fold(
+                lay, projector.skew, cam0.skew, max_cx, out_w_eff,
+                cam0.height, dx_pad)
+            tab, k_l = _snap_tables(lay, pos_b[:, 0], num_planes, phase,
                                     cfg.march_stride, projector.device)
-            extra = {"plane_invz": tab}
+            extra = {"plane_invz": tab, "doff": doff}
         layers.append(dict(lay, **extra))
         setups.append(setup)
         plans.append(plan)
@@ -686,7 +745,7 @@ def render_fast_batch(
         layers, modes, setups, pos_b, rot_b, background, plans=plans,
         nums=nums, crops=crops, refine=refine, rot_refine=cfg.rotated_refine,
         t_refine=cfg.target_refine, feathering=feathering,
-        mask_mode=mask_mode, to_srgb=to_srgb, pad_dx=dx_pad, f2=tp.f2_host,
+        mask_mode=mask_mode, to_srgb=to_srgb, f2=tp.f2_host,
         out_h=cam0.height, out_w_true=cam0.width, pose_chunk=cfg.pose_chunk,
     )
     return (out, tuple(modes)) if return_tiers else out
@@ -761,11 +820,6 @@ def plan_tiers(projector: Projector, cameras: Sequence[Camera],
             f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
             "ported"
         )
-    if lateral and skewed:
-        raise NotImplementedError(
-            "skewed frustums need the skewed lateral fold, which is not "
-            "ported yet"
-        )
 
     def layer_mode(lay, out_w_eff, dx_pad):
         """Per-layer tier: 'march' (lateral snap), else the non-lateral
@@ -836,17 +890,17 @@ _PP_KEYS = ("plane_invz", "grids", "aligned", "pose_sc")
 
 def _fast_batch_core(
     layers, modes, setups, c1_b, rot_b, background, *, plans, nums, crops,
-    refine, rot_refine, t_refine, feathering, mask_mode, to_srgb, pad_dx, f2,
+    refine, rot_refine, t_refine, feathering, mask_mode, to_srgb, f2,
     out_h, out_w_true, pose_chunk,
 ):
-    """The body of render_fast_batch: hoists the march's source prep, then
-    renders balanced pose chunks of at most `pose_chunk` poses (a bound
-    on the per-chunk intermediates) and slices the width pad off."""
+    """The body of render_fast_batch and of render_fast_view's lateral
+    path: hoists the march's source prep, then renders balanced pose
+    chunks of at most `pose_chunk` poses (a bound on the per-chunk
+    intermediates; None: one chunk) and slices the width pad off."""
     layers = _attach_march_prep(layers, modes, plans, crops)
     tier_kw = dict(
         refine=refine, rot_refine=rot_refine, t_refine=t_refine,
         feathering=feathering, mask_mode=mask_mode,
-        base_offset=(pad_dx, 0.0),
     )
     batch = len(c1_b)
     size = batch
@@ -934,7 +988,202 @@ def render_mono_view(
     )
 
 
-def render(projectors, camera: Camera, mode: str = "raycast", **kwargs):
+def render_fast_view(
+    projector: Projector,
+    camera: Camera,
+    background=None,
+    feathering: float | None = None,
+    to_srgb: bool | None = None,
+    num_planes: int | None = None,
+    chunk: int | None = None,
+    exact_color: bool = False,
+    method: str = "auto",
+    mask_mode: str | None = None,
+    refine: int | None = None,
+    config: RenderConfig | None = None,
+):
+    """Render ONE novel view on the fast march tiers — the production
+    single-view path, lif_tpu's render_fast_view. Returns (H, W, 4) on the
+    projector's device (GL-oriented, row 0 = bottom).
+
+    Routing by pose, as lif_tpu routes it:
+      * y-only translation (both world rotations identity, every layer at
+        the camera's focal and dims): an x<->y transpose of source and
+        camera onto the lateral march, the result swapped back;
+      * any other non-lateral pose: render_fast_batch with a batch of one
+        (the scaled, target and rotated tiers);
+      * a lateral pose: the snap-plane march (on CUDA the lateral kernel,
+        one launch per layer) on this pose's own snap_plane_table, with
+        the width pad of a non-8-divisible width, the skew fold, LDI
+        over-compositing and finish_over_background.
+
+    method: 'auto' or 'march' ('march' raises ValueError where a layer is
+    not march-eligible, as lif_tpu). The plane sweep is not ported:
+    method='sweep', exact_color=True (its exact colour fetch) and a layer
+    lif_tpu would send to the sweep raise NotImplementedError; `chunk`
+    (the sweep's matmul chunk) is accepted and not read. mask_mode: None
+    -> the reference default (multiply for LDI projectors, taper-only for
+    single-layer), or 'multiply' / 'none'."""
+    cfg = config or DEFAULT_CONFIG
+    if method not in ("auto", "march"):
+        raise NotImplementedError(
+            f"method={method!r}: the plane-sweep tier is not ported yet"
+        )
+    if exact_color:
+        raise NotImplementedError(
+            "exact_color=True: the plane sweep's exact colour fetch is not "
+            "ported yet"
+        )
+    background = cfg.background if background is None else background
+    feathering = cfg.feathering if feathering is None else feathering
+    to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
+    refine = cfg.march_refine if refine is None else refine
+    pos_np, rot_np = relative_view_pose(
+        projector.position, projector.rotation, camera.position,
+        camera.rotation,
+    )
+    rotated = not np.allclose(rot_np, np.eye(3), atol=1e-5)
+    tex_layers = _prepared_textures(projector)
+    f2_host = float(camera.focal_px)
+    kw = dict(background=background, feathering=feathering, to_srgb=to_srgb,
+              num_planes=num_planes, method=method, mask_mode=mask_mode,
+              refine=refine, config=config)
+
+    # y-only translation: a transpose maps it onto the x-only march. Both
+    # world rotations must be identity so the transposed world poses give
+    # the swapped relative pose; every layer must be march-eligible
+    if (
+        not rotated
+        and abs(pos_np[0]) < 1e-9
+        and abs(pos_np[2]) < 1e-9
+        and abs(pos_np[1]) > 1e-9
+        and np.allclose(projector.rotation, np.eye(3))
+        and np.allclose(camera.rotation, np.eye(3))
+        and all(
+            abs(lay["focal_host"] - f2_host) < 1e-6 * f2_host
+            and lay["w"] == camera.width
+            and lay["h"] == camera.height
+            for lay in tex_layers
+        )
+    ):
+        cam_t = Camera.create(
+            camera.height, camera.width, focal_px=f2_host,
+            position=np.asarray(camera.position)[[1, 0, 2]],
+            skew=np.asarray(camera.skew)[[1, 0]],
+        )
+        out = render_fast_view(_transposed_projector(projector), cam_t, **kw)
+        return out.transpose(0, 1).contiguous()
+
+    if rotated or abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9:
+        return render_fast_batch(projector, [camera], **kw)[0]
+
+    if cfg.plane_mode != "snap":
+        raise NotImplementedError(
+            f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
+            "ported"
+        )
+    if mask_mode is None:
+        mask_mode = "multiply" if projector.num_layers > 1 else "none"
+
+    # non-8-divisible widths: march a wpad-wider band carrying a constant
+    # wpad/2 x-offset and slice the true width, only when every layer
+    # marches
+    wpad = _width_pad(camera.width)
+    out_w_eff, dx_pad = camera.width + wpad, wpad / 2.0
+
+    def eligible(lay, w_eff):
+        return _march_eligible(lay, f2_host, w_eff, camera.height,
+                               out_w_true=camera.width)
+
+    if wpad and not all(eligible(lay, out_w_eff) for lay in tex_layers):
+        out_w_eff, dx_pad = camera.width, 0.0
+    layers, plans, crops, nums = [], [], [], []
+    for idx, lay in enumerate(tex_layers):
+        if not eligible(lay, out_w_eff):
+            if method == "march":
+                raise ValueError(
+                    "method='march' needs a lateral view (no rotation, "
+                    "x-only translation, matched focal, output dims == "
+                    "layer dims); use method='auto' to fall back "
+                    "automatically"
+                )
+            raise _TierNotPorted(
+                "sweep", f"layer {idx} is not march-eligible at this camera "
+                "(mismatched focal/dims or non-8-divisible width)"
+            )
+        # the skew fold, as in render_fast_batch, on this pose's own grid
+        plan, crop_y, phase, doff = _march_fold(
+            lay, projector.skew, camera.skew, abs(float(pos_np[0])),
+            out_w_eff, camera.height, dx_pad)
+        tab, k_l = _sweep_march.snap_plane_table(
+            lay["focal_host"], float(pos_np[0]), lay["izmin_host"],
+            lay["izmax_host"], num_planes=num_planes, phase_px=phase,
+        )
+        plans.append(plan)
+        crops.append(crop_y)
+        nums.append(k_l)
+        layers.append(dict(
+            lay, doff=doff,
+            plane_invz=torch.as_tensor(tab[None], device=projector.device),
+        ))
+    n = len(layers)
+    return _fast_batch_core(
+        layers, ["march"] * n, [None] * n, pos_np[None], rot_np[None],
+        background, plans=plans, nums=nums, crops=crops, refine=refine,
+        rot_refine=cfg.rotated_refine, t_refine=cfg.target_refine,
+        feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
+        f2=f2_host, out_h=camera.height, out_w_true=camera.width,
+        pose_chunk=None,
+    )[0]
+
+
+def render_depth_fast(
+    projector: Projector,
+    camera: Camera,
+    config: RenderConfig | None = None,
+):
+    """Solved surface inverse depth at a novel pose, in LIF units (1/m
+    when baseline is meters): the lateral march's raw invz* (layer 0, on
+    CUDA the lateral kernel) times the baseline, 0 where no surface was
+    hit. Returns (H, W) float32 on the projector's device.
+
+    The depth-map counterpart of render_fast_view (lif_tpu's
+    render_depth_fast), e.g. for authoring a synthesized view's
+    inv_z_map. Lateral poses only, at layer 0's focal and dims; as in
+    lif_tpu, frustum skew is not applied. `config` is accepted for
+    lif_tpu's signature."""
+    pos_np, rot_np = relative_view_pose(
+        projector.position, projector.rotation, camera.position,
+        camera.rotation,
+    )
+    if not np.allclose(rot_np, np.eye(3), atol=1e-5) or (
+        abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
+    ):
+        raise ValueError("render_depth_fast needs a lateral (x-only) pose")
+    lay = _prepared_textures(projector)[0]
+    if (
+        abs(lay["focal_host"] - float(camera.focal_px)) > 1e-6
+        or lay["w"] != camera.width
+        or lay["h"] != camera.height
+    ):
+        raise ValueError("render_depth_fast needs matched focal/dims")
+    cx = float(pos_np[0])
+    plan = _march_plan(lay, abs(cx), camera.width, camera.height)
+    tab, k = _sweep_march.snap_plane_tables_batch(
+        lay["focal_host"], [cx], lay["izmin_host"], lay["izmax_host"],
+    )
+    _, _, _, izs = _sweep_march.render_translation(
+        lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
+        lay["izmax_host"], pos_np, lay["focal_host"],
+        torch.as_tensor(tab[0], device=projector.device),
+        np.zeros(4, np.float32), plan=plan, num_planes=k, mask_mode="none",
+        to_srgb=False, raw=True, skip_rows=lay.get("skip_rows"),
+    )
+    return izs * float(np.float32(projector.baseline))
+
+
+def render(projectors, camera: Camera, mode: RenderMode = "raycast",
+           **kwargs):
     """Render-mode dispatch (the HoloRenderer.onBeforeRender analog,
     reference HoloRenderer.ts:139-204), on the first projector:
       * 'raycast': the per-pixel inverse-depth march;
@@ -942,16 +1191,19 @@ def render(projectors, camera: Camera, mode: str = "raycast", **kwargs):
         corner grid (ops.mesh; the reference's default mesh mode,
         holoVertex.glsl meshMode=1 + HoloRenderer.ts:809-858);
       * 'billboard': the per-pixel square-footprint splat (ops.splat; the
-        reference's billboard mode, holoVertex.glsl meshMode=0).
-    The stereo and fast modes are not ported yet."""
+        reference's billboard mode, holoVertex.glsl meshMode=0);
+      * 'fast': the production single-view path, render_fast_view.
+    The stereo modes are not ported yet and raise NotImplementedError."""
     plist = list(projectors) if isinstance(projectors, (list, tuple)) else [projectors]
     if mode == "raycast":
         return render_mono_view(plist[0], camera, **kwargs)
+    if mode == "fast":
+        return render_fast_view(plist[0], camera, **kwargs)
     if mode == "mesh":
         return _mesh.render_mesh_connected_view(plist[0], camera, **kwargs)
     if mode == "billboard":
         return _splat.render_mesh_view(plist[0], camera, **kwargs)
-    if mode in ("fast", "stereo", "stereo_fast"):
+    if mode in ("stereo", "stereo_fast"):
         raise NotImplementedError(f"render mode {mode!r} is not ported yet")
     raise ValueError(f"unknown render mode: {mode}")
 

@@ -8,7 +8,8 @@ column among equal texels), its disparity texel and its colour — but not
 the algorithm: lif_tpu walks each target pixel's integer-parallax ladder
 (the gather dual), the kernel scatters each source pixel into a row
 z-buffer in shared memory with an atomic min, one block per row and a
-few poses. The two agree while su_half < 1, which sweep_billboard checks.
+few poses. The two agree while su_half < 1, which sweep_billboard checks
+on the host (check_su_half).
 
 The kernel's plain version is ops.splat_march.billboard_scatter_plain (and
 the dual's, billboard_march_plain, computes the same); a CUDA tensor never
@@ -18,6 +19,7 @@ reaches either from here.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -57,15 +59,19 @@ def _check(t, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_su_half(abp):
-    """Raise ValueError unless every pose's su_half_max (abp[:, 2]) is
-    under 1: beyond it a footprint can reach two rungs of one row, and
+def check_su_half(half_ps: float, w: int, h: int, inv_f: float):
+    """Raise ValueError unless su/2 stays under 1 over a w x h image, on
+    the host: the kernel (and both plain versions) compute each pixel's
+    su/2 as half_ps * sqrt(x^2 + y^2 + 1) from half_ps and inv_f, and
+    this bounds it at the image's widest corner (su_half_bound's
+    formula). Beyond 1 a footprint can reach two rungs of one row, and
     neither the scatter nor the dual is the z-buffered splat any more."""
-    su = torch.as_tensor(abp)[:, 2]
-    if not bool((su < 1.0).all()):
+    su = half_ps * math.sqrt(((w + 1.0) / 2.0 * inv_f) ** 2
+                             + ((h + 1.0) / 2.0 * inv_f) ** 2 + 1.0)
+    if not su < 1.0:  # NaN fails too
         raise ValueError(
             f"the billboard splat needs su/2 < 1, got su/2 up to "
-            f"{float(su.max()):.4f}: use a smaller point size"
+            f"{su:.4f}: use a smaller point size"
         )
 
 
@@ -76,15 +82,16 @@ def sweep_billboard(disp, rgbm, ixs, mms, abp, pad_lo_x: int, cx0: float,
     disp: (H, W) float32 disparity; rgbm: (H, W, 4) float32 [r, g, b,
     mask]; ixs: (B, K) int32 window starts and mms: (B, K) float32 shifts
     from billboard_shift_tables; abp: (B, 3) float32 [A, Bc, su_half_max]
-    from billboard_pose_scalars; the host floats as
-    billboard_march_plain takes them (the arguments of both plain
-    versions; the scatter reads the ladder's shifts only, since ixs =
-    pad_lo_x - mms). Raises ValueError where su_half_max reaches 1, for W
-    over MAX_WIDTH and for K over MAX_PLANES. Returns
-    found (B, H, W), tex (B, H, W) and rgba (B, H, W, 4), float32.
+    from billboard_pose_scalars (the kernel reads A and Bc); the host
+    floats as billboard_march_plain takes them (the arguments of both
+    plain versions; the scatter reads the ladder's shifts only, since ixs
+    = pad_lo_x - mms). Raises ValueError where su/2 can reach 1
+    (check_su_half, from half_ps and inv_f, with no device read), for W
+    over MAX_WIDTH and for K over MAX_PLANES. Returns found (B, H, W),
+    tex (B, H, W) and rgba (B, H, W, 4), float32.
     `sweep_billboard.launches` counts the launches."""
-    check_su_half(abp)
     h, w = disp.shape
+    check_su_half(half_ps, w, h, inv_f)
     b, k = ixs.shape
     _check(disp, "disp", torch.float32, (h, w))
     _check(rgbm, "rgbm", torch.float32, (h, w, 4))

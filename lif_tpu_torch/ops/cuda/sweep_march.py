@@ -313,11 +313,15 @@ def render_translation_batch_cuda(
     rows,
 ):
     """The CUDA path of ops.sweep_march.render_translation_batch:
-    march_translation_cuda + _finalize (one kernel launch per batch)."""
+    march_translation_cuda + _finalize (one kernel launch per batch).
+    offset: the constant source shift; its x part rides the kernel's warp
+    tables, its y part (a skew fold's) must already be pre-applied to the
+    source (ops.sweep_march.preshift_source), and the full offset places
+    the hit test at the true source position in _finalize."""
     found, invz_star, rgba_star = march_translation_cuda(
         rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz, plan,
-        num_planes, offset=offset, prepared=prepared, refine=refine,
-        rows=rows,
+        num_planes, offset=(offset[0], 0.0), prepared=prepared,
+        refine=refine, rows=rows,
     )
     c1_t = torch.as_tensor(np.asarray(c1, np.float32), device=found.device)
     return _finalize(

@@ -330,7 +330,8 @@ def billboard_march_batch(disp, rgbm, ixs, mms, abp, *geo):
             f"the billboard splat runs on CUDA or CPU tensors, not "
             f"{disp.device.type}"
         )
-    check_su_half(abp)
+    inv_f, half_ps = geo[3], geo[4]
+    check_su_half(half_ps, disp.shape[1], disp.shape[0], inv_f)
     outs = [billboard_scatter_plain(disp, rgbm, ix, m, ab, *geo)
             for ix, m, ab in zip(ixs, mms, abp)]
     return tuple(torch.stack(parts) for parts in zip(*outs))

@@ -819,8 +819,10 @@ def march_translation_skip_plain(
     reached through the kernel's inputs (ops.cuda.sweep_march's source
     stack, warp shifts and plane-range tables) and its exact skips
     (lateral_skip_walk, lateral_bracket). The source must have the
-    output's height; c1 is x-only. An oracle and a counter (`stats`, see
-    lateral_skip_walk), never on a render path."""
+    output's height; c1 is x-only; offset[1] (a skew fold's y part, pre-
+    applied to the source) is not read, as in march_translation_plain.
+    An oracle and a counter (`stats`, see lateral_skip_walk), never on a
+    render path."""
     from .cuda.sweep_march import (
         _pick_tw,
         lateral_kernel_inputs,
@@ -832,7 +834,7 @@ def march_translation_skip_plain(
     src, ix, fx, izt, klo, khi, izmin, izmax, _ = lateral_kernel_inputs(
         prepare_translation_src(rgb, disp, mask, plan), invz_min, invz_max,
         np.asarray(c1, np.float32)[None], f1, plane[None], plan, num_planes,
-        offset=offset,
+        offset=(offset[0], 0.0),
     )
     rows = row_skip_tables(src[4], izmin, izmax)[1:]
     kstar, pdc, dc = lateral_skip_walk(
@@ -904,9 +906,12 @@ def render_translation_batch(
 
     c1: (B, 3) per-pose positions (host array); the CUDA kernel serves
     the LATERAL case (x-only). plane_invz may be (K,) shared or (B, K)
-    per-pose (snap grids). prepared: optional hoisted source pack from
+    per-pose (snap grids). offset: the constant source shift (x: the warp
+    tables; y: pre-applied to the source by the caller; both: the hit
+    test). prepared: optional hoisted source pack from
     ops.cuda.sweep_march.prepare_translation_src, skip_rows the kernel's
-    (r8, r32) row_skip_tables of the same rows (CUDA path only).
+    (r8, r32) row_skip_tables of the same (shifted, cropped) source rows
+    (CUDA path only).
     Returns (B, H, W, 4), or the raw tuple with a leading B axis."""
     c1 = np.asarray(c1, np.float32)
     plane = torch.as_tensor(plane_invz, dtype=torch.float32)

@@ -780,3 +780,105 @@ def test_splat_and_mesh_on_cuda_match_cpu(cuda):
             assert (hit_r != hit_g).float().mean().item() < 1e-3, mode
             err = (got - ref).abs().amax(-1)[hit_r & hit_g]
             assert (err > 1e-4).float().mean().item() < 1e-3, mode
+
+
+def _skewed_ldi_cpu(h=64, w=128):
+    """Two LDI layers, the back one outpainted by even margins, a
+    fractional frustum skew on both axes; CPU textures."""
+    rgb0, disp0, mask0 = _scene(31, h, w)
+    rgb1, disp1, _ = _scene(32, h + 16, w + 32)
+    return lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
+        baseline=1.0, skew=(0.021, -0.0137), device="cpu",
+        extra_layers=[dict(rgb=rgb1, disp=disp1, focal_px=0.78 * w,
+                           invz_min=0.5, invz_max=0.1)],
+    )
+
+
+@pytest.mark.parametrize("refine", [0, 2])
+def test_lateral_kernel_exact_on_a_preshifted_source(cuda, refine):
+    """The skew fold's source on the card: the outpainted layer y-shifted
+    by a fractional d[1] before its crop, d[0] in the snap phase and the
+    warp offset, and the row tables _march_pack builds from that source.
+    The kernel equals the plain march and its skip mirror bit for bit."""
+    from lif_tpu_torch.models import renderer as trenderer
+
+    proj = _skewed_ldi_cpu().to(cuda)
+    lay = dict(trenderer._prepared_textures(proj)[1])
+    h, w = 64, 128
+    f1, izmin, izmax = lay["focal_host"], lay["izmin_host"], lay["izmax_host"]
+    cxs = [0.03, -0.045, 0.06]
+    plan, crop, phase, lay["doff"] = trenderer._march_fold(
+        lay, proj.skew, (0.0, 0.0), 0.06, w, h, 0.0)
+    assert lay["doff"][1] % 1.0 != 0.0  # a fractional y pre-shift
+    srcs, _, rows = trenderer._march_pack(lay, plan, crop)
+    planes, k = tsm.snap_plane_tables_batch(f1, cxs, izmin, izmax,
+                                            phase_px=phase)
+    c1 = np.stack([np.asarray(cxs, np.float32), np.zeros(3, np.float32),
+                   np.zeros(3, np.float32)], -1)
+    before = tcuda.sweep_lateral.launches
+    found, invz, rgba = tcuda.march_translation_cuda(
+        *srcs, izmin, izmax, c1, f1, torch.from_numpy(planes).to(cuda), plan,
+        k, offset=(lay["doff"][0], 0.0), refine=refine, rows=rows)
+    assert tcuda.sweep_lateral.launches == before + 1
+    for i in range(3):
+        for plain in (tsm.march_translation_plain,
+                      tsm.march_translation_skip_plain):
+            ref = plain(*srcs, izmin, izmax, c1[i], f1, planes[i], plan, k,
+                        refine=refine, offset=lay["doff"])
+            for got, want in zip((found[i], invz[i], rgba[i]), ref):
+                assert torch.equal(got, want)
+    assert found.mean().item() > 0.3
+
+
+def test_fast_view_and_depth_on_cuda_match_cpu(cuda):
+    """render_fast_view (a skewed lateral pose of the outpainted LDI: one
+    lateral launch a layer; a y-only pose through the transpose),
+    render_depth_fast (one launch) and a skewed render_fast_batch on the
+    card equal the same calls on CPU tensors; load_lif_file puts the
+    textures on the card by default."""
+    from lif_tpu_torch.io import container, decode
+
+    proj = _skewed_ldi_cpu()
+    gpu = proj.to(cuda)
+    w, h = 128, 64
+    cam = lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                      position=[0.04, 0.0, 0.0],
+                                      skew=(0.004, 0.0061))
+    before = tcuda.sweep_lateral.launches
+    got = lif_tpu_torch.render_fast_view(gpu, cam, to_srgb=False)
+    assert tcuda.sweep_lateral.launches == before + 2
+    ref = lif_tpu_torch.render_fast_view(proj, cam, to_srgb=False)
+    assert got.device.type == "cuda"
+    assert (got.cpu() - ref).abs().max().item() < 1e-5
+    cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                        position=[x, 0.0, 0.0],
+                                        skew=(0.004, 0.0061))
+            for x in (-0.03, 0.05)]
+    got = lif_tpu_torch.render_fast_batch(gpu, cams, to_srgb=False)
+    ref = lif_tpu_torch.render_fast_batch(proj, cams, to_srgb=False)
+    assert (got.cpu() - ref).abs().max().item() < 1e-5
+    rgb, disp, mask = _scene(33, h, w)
+    single = lif_tpu_torch.projector_from_arrays(
+        rgb, disp, focal_px=0.78 * w, invz_min=2.0, invz_max=0.1,
+        baseline=0.5, device="cpu")
+    for pos in ([0.0, 0.03, 0.0], [0.05, 0.0, 0.0]):
+        c = lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                        position=pos)
+        got = lif_tpu_torch.render_fast_view(single.to(cuda), c,
+                                             to_srgb=False)
+        ref = lif_tpu_torch.render_fast_view(single, c, to_srgb=False)
+        assert (got.cpu() - ref).abs().max().item() < 1e-5
+    before = tcuda.sweep_lateral.launches
+    got = lif_tpu_torch.render_depth_fast(single.to(cuda), c)
+    assert tcuda.sweep_lateral.launches == before + 1
+    ref = lif_tpu_torch.render_depth_fast(single, c)
+    assert torch.equal(got.cpu(), ref)
+    view = {"image": {"blob_id": 20}, "width_px": w, "height_px": h,
+            "focal_px": 0.78 * w,
+            "inv_z_map": {"blob_id": 21, "min": 2.0, "max": 0.1}}
+    lif = container.write(b"", {"views": [view]},
+                          {20: decode.encode_png(rgb),
+                           21: decode.encode_png(disp)})
+    loaded = lif_tpu_torch.load_lif_file(lif)
+    assert loaded.projectors[0].disp.device.type == "cuda"

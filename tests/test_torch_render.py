@@ -174,11 +174,12 @@ def _case_camera(pkg, case, beyond=False):
 
 
 _FORMERLY_UNCOVERED = {"rotated": "rotated", "y_translation": "scaled",
-                       "z_translation": "scaled", "focal_mismatch": "scaled"}
+                       "z_translation": "scaled", "focal_mismatch": "scaled",
+                       "skewed": "march"}
 
 
 @pytest.mark.parametrize("case", [
-    "rotated", "y_translation", "z_translation", "skewed", "focal_mismatch",
+    "rotated", "y_translation", "z_translation", "focal_mismatch",
     "uniform_planes", "sweep_method", "stereo_mode",
 ])
 def test_uncovered_poses_raise_not_implemented(rng, case):
@@ -199,7 +200,7 @@ def test_uncovered_poses_raise_not_implemented(rng, case):
             jp, [_case_camera(lif_tpu, case, beyond)], return_tiers=True)
         assert tuple(jt) == ("sweep",)
     match = {
-        "skewed": "skew", "uniform_planes": "snap", "sweep_method": "sweep",
+        "uniform_planes": "snap", "sweep_method": "sweep",
         "stereo_mode": "stereo",
     }.get(case, "sweep")
     cam = _case_camera(lif_tpu_torch, case, beyond)
@@ -212,10 +213,11 @@ def test_uncovered_poses_raise_not_implemented(rng, case):
 
 @pytest.mark.parametrize("case", sorted(_FORMERLY_UNCOVERED))
 def test_formerly_uncovered_poses_match_lif_tpu(rng, case):
-    """The poses that raised before the scaled and rotated tiers were
-    ported (a rotation at a width the target tier rejects, y/z
-    translation, a mismatched focal) render on the tier lif_tpu picks,
-    with lif_tpu's image."""
+    """The poses that raised before the scaled and rotated tiers and the
+    skewed lateral fold were ported (a rotation at a width the target
+    tier rejects, y/z translation, a mismatched focal, a skewed camera at
+    a lateral pose) render on the tier lif_tpu picks, with lif_tpu's
+    image."""
     jp, tp = _projectors(rng, h=32, w=64)
     ref, jt = lif_tpu.render_fast_batch(jp, [_case_camera(lif_tpu, case)],
                                         return_tiers=True)

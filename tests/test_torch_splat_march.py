@@ -193,9 +193,14 @@ def test_scatter_plain_equals_dual(w, cxs, su, lo, hi):
         assert 0.3 < float(dual[0].mean()) <= 1.0
 
 
+# the 16x8 image's widest corner at inv_f = 0.1: su/2 = half_ps * this
+_CORNER = float(np.sqrt(0.85 ** 2 + 0.45 ** 2 + 1.0))
+
+
 def test_su_half_of_one_raises():
     """sweep_billboard (before any device check) and the CPU branch of
-    billboard_march_batch raise ValueError where a pose's su/2 reaches 1:
+    billboard_march_batch raise ValueError where su/2, which the kernel
+    computes from half_ps and inv_f, reaches 1 at the image's corner:
     there neither the scatter nor the dual is the z-buffered splat."""
     from lif_tpu_torch.ops.cuda import splat_march as kbb
 
@@ -203,18 +208,43 @@ def test_su_half_of_one_raises():
     rgbm = torch.rand(8, 16, 4)
     ix = torch.zeros(2, 8, dtype=torch.int32)
     m = torch.zeros(2, 8)
-    geo = (0, 8.0, 4.0, 0.1, 0.5)
+    ab = torch.tensor([[0.0, 0.0, 0.5], [0.0, 0.0, 0.5]])
     for su in (1.0, 1.5, float("nan")):
-        ab = torch.tensor([[0.0, 0.0, 0.5], [0.0, 0.0, su]])
+        geo = (0, 8.0, 4.0, 0.1, su / _CORNER)
         with pytest.raises(ValueError, match="su/2 < 1"):
             kbb.sweep_billboard(disp, rgbm, ix, m, ab, *geo)
         with pytest.raises(ValueError, match="su/2 < 1"):
             tbb.billboard_march_batch(disp, rgbm, ix, m, ab, *geo)
-    ab = torch.tensor([[0.0, 0.0, 0.5], [0.0, 0.0, 0.999]])
+    geo = (0, 8.0, 4.0, 0.1, 0.999 / _CORNER)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kbb.sweep_billboard(disp, rgbm, ix, m, ab, *geo)
     found, _, _ = tbb.billboard_march_batch(disp, rgbm, ix, m, ab, *geo)
     assert found.shape == (2, 8, 16)
+
+
+def test_su_gate_follows_half_ps_not_abp():
+    """The gate reads half_ps (what the kernel computes su from), never
+    the caller's abp[:, 2]: an abp claiming su/2 = 5 passes where half_ps
+    keeps su/2 under 1, and one claiming 0.1 raises where half_ps reaches
+    it; on the card the gate reads nothing back from the device."""
+    from lif_tpu_torch.ops.cuda import splat_march as kbb
+
+    disp = torch.rand(8, 16)
+    rgbm = torch.rand(8, 16, 4)
+    ix = torch.zeros(1, 8, dtype=torch.int32)
+    m = torch.zeros(1, 8)
+    small, large = 0.9 / _CORNER, 1.1 / _CORNER
+    found, _, _ = tbb.billboard_march_batch(
+        disp, rgbm, ix, m, torch.tensor([[0.0, 0.0, 5.0]]),
+        0, 8.0, 4.0, 0.1, small)
+    assert found.shape == (1, 8, 16)
+    with pytest.raises(ValueError, match="su/2 < 1"):
+        tbb.billboard_march_batch(disp, rgbm, ix, m,
+                                  torch.tensor([[0.0, 0.0, 0.1]]),
+                                  0, 8.0, 4.0, 0.1, large)
+    kbb.check_su_half(small, 16, 8, 0.1)
+    # su_half_bound, the planner's gate, is the same corner bound
+    assert abs(tbb.su_half_bound(2 * small, 16, 8, 10.0) - 0.9) < 1e-12
 
 
 def test_batch_equals_per_pose_and_show_depth(rng):

@@ -2,19 +2,23 @@
 """Where the time goes on one CUDA card, for the drives of chip_smoke.py.
 
 Run from the repository root: ``python3 tools/profile_paths.py [drive ...]``
-with drives from lateral, orbit, dolly, tilt and billboard (default: all
-five). Each drive renders chip_smoke.py's pose batch through
-render_fast_batch (billboard: render_billboard_fast_batch over the
-lateral drive's 96 poses) on chip_smoke.py's seeded 1280x800 scene and
-prints:
+with drives from lateral, orbit, dolly, tilt, billboard, view0 and view1
+(default: all seven). Each of the first five renders chip_smoke.py's pose
+batch through render_fast_batch (billboard: render_billboard_fast_batch
+over the lateral drive's 96 poses) on chip_smoke.py's seeded 1280x800
+scene; view0 and view1 render ONE frame with render(mode='fast') at
+BASELINE config 0's x = 0.135 m on view 0 (one skewed layer) and view 1
+(the 3-layer outpainted LDI) of chip_smoke.py's main-path-8 LIF, loaded
+with load_lif_file. Each drive prints:
 
 - the call's device time (CUDA events around the call, median of 5 after
   2 warm-up calls) and its host wall time;
 - stage times: CUDA events around each stage's function, median over the
   same 5 calls (the scaled and target marches with their kernel, the
   packed color fetch, the rotated tier's corner fetch and bracket march,
-  and the billboard's input stack, kernel and epilogue); the rest of the
-  call is the epilogue, planning and glue;
+  the billboard's input stack, kernel and epilogue, and the lateral
+  march's skew pre-shift, source stack, kernel with its tables and
+  _finalize); the rest of the call is the epilogue, planning and glue;
 - torch.profiler over 3 calls: the kernels' device time per call, the
   device's idle share (1 - kernel time / call time) and the kernels that
   take the most device time.
@@ -33,7 +37,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DRIVES = ("lateral", "orbit", "dolly", "tilt", "billboard")
+DRIVES = ("lateral", "orbit", "dolly", "tilt", "billboard", "view0",
+          "view1")
 
 
 def _events():
@@ -46,8 +51,10 @@ def _events():
 def instrument(stages: dict):
     """Wrap each stage's function (in every module that calls it) so that
     CUDA events bracket it; the event pairs collect in `stages`."""
-    from lif_tpu_torch.ops import (rotated_march, splat_march, sweep_scaled,
-                                   sweep_target)
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops import (rotated_march, splat_march, sweep_march,
+                                   sweep_scaled, sweep_target)
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
 
     def timed(label, fn):
         def wrap(*args, **kwargs):
@@ -70,6 +77,10 @@ def instrument(stages: dict):
         (splat_march, "billboard_inputs", "billboard input stack"),
         (splat_march, "billboard_march_batch", "billboard march (kernel)"),
         (splat_march, "finish_billboard", "billboard epilogue"),
+        (sweep_march, "preshift_source", "skew pre-shift"),
+        (renderer, "prepare_translation_src", "march source stack"),
+        (kmarch, "march_translation_cuda", "lateral march (kernel, tables)"),
+        (kmarch, "_finalize", "lateral _finalize"),
     ):
         setattr(mod, name, timed(label, getattr(mod, name)))
 
@@ -110,6 +121,8 @@ def drive_call(lt, drive):
     """The entry point a drive calls, as fn(proj, cams)."""
     if drive == "billboard":
         return lt.render_billboard_fast_batch
+    if drive.startswith("view"):
+        return lambda proj, cams: lt.render(proj, cams[0], mode="fast")
     method = "march" if drive == "lateral" else "auto"
     return lambda proj, cams: lt.render_fast_batch(proj, cams, method=method)
 
@@ -120,6 +133,8 @@ def profile_drive(lt, proj, cams, drive, card, stages):
     render = drive_call(lt, drive)
     if drive == "billboard":
         tiers = ("billboard",)
+    elif drive.startswith("view"):
+        tiers = ("march",) * proj.num_layers  # the lateral route
     else:
         _, tiers = lt.render_fast_batch(
             proj, cams, method="march" if drive == "lateral" else "auto",
@@ -198,11 +213,20 @@ def main(argv) -> int:
         device=torch.device("cuda", 0),
     )
     focal = float(proj.focal[0])
+    views = center = None
+    if any(d.startswith("view") for d in drives):
+        loaded = lt.load_lif_file(cs.make_lif(0))
+        views, center = loaded.projectors, loaded.orbit_center
     stages: dict = {}
     instrument(stages)
     for drive in drives:
-        profile_drive(lt, proj, drive_cameras(cs, lt, focal, drive), drive,
-                      card, stages)
+        if drive.startswith("view"):
+            view = views[int(drive[4:])]
+            cams = [cs.lif_cams(lt, view, center)["lateral"]]
+            profile_drive(lt, view, cams, drive, card, stages)
+        else:
+            profile_drive(lt, proj, drive_cameras(cs, lt, focal, drive),
+                          drive, card, stages)
     return 0
 
 
