@@ -112,15 +112,39 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     phase-A scaled launches, ...) recorded and held, on its own inputs,
     to the kernel's plain march (each pose) and the plain mirror of its
     skip walk (the first N_MIRROR poses): no found flip, max abs 0.
+19. main path 9 (stereo from a LIF file, BASELINE config 2): a stereo LIF
+    authored from the seed (make_stereo_lif: the left view make_scene(0)
+    at -baseline/2, the right eye synthesized from it at +baseline/2 by
+    the port on the CPU; its sha256 printed beside the reference tool's),
+    written under lif_tpu_torch/_build/ and loaded with load_lif_file;
+    render_stereo_fast_batch over 60 pairs (120 cameras at -+baseline/2
+    + 0.5 mm i): tiers ('march',) for both eyes, exactly 2 eyes x 3
+    balanced chunks = 6 lateral launches and no other kernel's, finite
+    output, coverage in (0.5, 1], pairs/s by CUDA events (median of 5
+    after a warm-up); against the exact 640-step render_stereo_view, at
+    most 1 dB under lif_tpu's value on the same file and pose
+    (tools/reference_stereo_psnr.py): the mid pose x = 4 mm (tiers
+    ('march',)), a 6-degree yaw head pose ('target', one launch per
+    eye), an off-axis head pose (4, 10, 20) mm ('scaled') and poses 0 and
+    15 of an 8-pair batch under the camera skew (0.01, -0.004) (the
+    lateral fold with a fractional y pre-shift); LDI stereo on main path
+    8's 3-layer view paired with a copy one baseline to its right (the
+    hard mode: eroded masks, three lateral launches per eye), run mono ->
+    stereo -> mono, each frame equal to its plain-version render (the
+    lateral tier's plain march on the same tensors, no cached march
+    pack), the second mono frame equal to the first and every layer's
+    march packs holding both masks. Every launch is held to the plain
+    versions on its own inputs (the pair batch's launches on 4 poses
+    each).
 
 Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1), main
-path 8 each step's against the tiers it took. The
+paths 8 and 9 each step's against the tiers it took. The
 second-to-last line is the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, as the source note of its .cu file counts them, a march's
 planes counted from this run's crossings, the billboard splat's O(1) per
-source pixel) and the last line
-``{"ok": true, "device": {...}}``.
+source pixel, and `launches_by_path`, each main path's launches of the
+kernel) and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -206,6 +230,29 @@ LIF_RENDERS = ((0, "lateral"), (1, "lateral"), (0, "y-only"), (0, "dolly"),
 LIF_TPU_LIF_PSNR = {(0, "lateral"): 41.311, (1, "lateral"): 41.952,
                     (0, "y-only"): 49.600, (0, "dolly"): 53.965,
                     (1, "orbit"): 36.965}
+# main path 9 (BASELINE config 2, bench_configs.py:407-485): the stereo
+# LIF of make_stereo_lif, 60 pairs (120 eye cameras) 0.5 mm apart, the
+# fidelity poses (the mid pose, a 6-degree yaw head pose, an off-axis
+# head pose) and an 8-pair batch under a shared camera skew
+N_PAIRS = 60
+STEREO_DX = 0.0005  # m between pairs
+STEREO_MID_X = 0.004  # m, bench_configs.py:447
+STEREO_YAW_DEG = 6.0  # bench_configs.py:452-461
+STEREO_OFFAXIS = (0.004, 0.01, 0.02)  # m
+STEREO_SKEW = (0.01, -0.004)
+N_SKEW_PAIRS = 8
+LDI_STEREO_X = 0.02  # m: the LDI stereo pose, between the two views
+# the checked (batch, pose) of main path 9 and lif_tpu's
+# render_stereo_fast_batch there against its own 640-step
+# render_stereo_view on the same file, dB; JAX on the CPU at full size
+# (tools/reference_stereo_psnr.py, which also prints the file's sha256)
+LIF_TPU_STEREO_PSNR = {("mid", 0): 43.224, ("yaw", 0): 43.956,
+                       ("offaxis", 0): 42.063, ("skewed", 0): 87.134,
+                       ("skewed", 2 * N_SKEW_PAIRS - 1): 43.205}
+STEREO_TIERS = {"pairs": "march", "mid": "march", "yaw": "target",
+                "offaxis": "scaled", "skewed": "march"}
+STEREO_LIF_SHA256 = (
+    "00bf3b14560350d8a1cab34073b639181a4e13d99d00b6996bbd3d729bf7251f")
 # the H100 SXM's published peaks: HBM bytes/s and FP32 operations/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -351,6 +398,68 @@ def make_lif(seed: int = 0) -> bytes:
     meta = {"views": views, "baseline_mm": BASELINE * 1e3,
             "stereo_render_data": {"invd": BASELINE / LIF_CONVERGENCE}}
     return container.write(encode_png(rgb), meta, blobs)
+
+
+def make_stereo_lif(seed: int = 0) -> bytes:
+    """Main path 9's stereo LIF, authored from the seed after
+    examples/multiview_demo.py:34-111 with PNG payloads: the left view is
+    make_scene(seed) at -baseline/2 (LIF position -0.5); the right view
+    at +baseline/2 is synthesized from the left alone by the port ON THE
+    CPU (render_fast_view with to_srgb=True, mask_mode='none',
+    feathering=0, and render_depth_fast), so the bytes do not depend on
+    the card. Both views 1280x800, focal 0.78 W, inverse depth
+    INVZ_FAR..INVZ_NEAR; stereo_render_data.invd puts the convergence
+    plane LIF_CONVERGENCE m away."""
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.io import container
+    from lif_tpu_torch.io.decode import encode_png
+
+    rgb, disp = make_scene(seed)
+    view = {"width_px": W, "height_px": H, "focal_px": 0.78 * W,
+            "rotation": [0.0, 0.0, 0.0]}
+    left = dict(view, position=[-0.5, 0.0, 0.0], image={"blob_id": -1},
+                inv_z_map={"blob_id": 20, "min": INVZ_NEAR,
+                           "max": INVZ_FAR})
+    image, blobs = encode_png(rgb), {20: encode_png(disp)}
+    mono = {"views": [left], "baseline_mm": BASELINE * 1e3}
+    proj = lt.load_lif_file(container.write(image, mono, blobs),
+                            device="cpu").projectors[0]
+    cam_r = lt.Camera.create(W, H, focal_px=float(proj.focal[0]),
+                             position=[BASELINE / 2, 0.0, 0.0])
+    rgb_r = lt.render_fast_view(proj, cam_r, to_srgb=True, mask_mode="none",
+                                feathering=0.0)[..., :3].numpy()
+    invz_r = lt.render_depth_fast(proj, cam_r).numpy()
+    blobs[30] = encode_png(rgb_r)
+    blobs[31] = encode_png(np.clip(
+        (invz_r - INVZ_FAR) / (INVZ_NEAR - INVZ_FAR), 0.0, 1.0))
+    right = dict(view, position=[0.5, 0.0, 0.0], image={"blob_id": 30},
+                 inv_z_map={"blob_id": 31, "min": INVZ_NEAR,
+                            "max": INVZ_FAR})
+    meta = {"views": [left, right], "baseline_mm": BASELINE * 1e3,
+            "stereo_render_data": {"invd": BASELINE / LIF_CONVERGENCE}}
+    return container.write(image, meta, blobs)
+
+
+def stereo_cams(lt, focal, eye):
+    """Main path 9's camera batches, {name: [Camera, ...]}: 'pairs', the
+    N_PAIRS pairs at (-+eye + STEREO_DX i, 0, 0) (bench_configs.py:416-424);
+    'mid', 'yaw' and 'offaxis', one camera each; 'skewed', N_SKEW_PAIRS
+    pairs under the camera skew STEREO_SKEW."""
+    def cam(pos, rot=None, skew=(0.0, 0.0)):
+        return lt.Camera.create(W, H, focal_px=focal, position=pos,
+                                rotation=rot, skew=skew)
+
+    def pairs(n, skew=(0.0, 0.0)):
+        return [cam([s * eye + STEREO_DX * i, 0.0, 0.0], skew=skew)
+                for i in range(n) for s in (-1.0, 1.0)]
+
+    th = np.deg2rad(STEREO_YAW_DEG)
+    yaw = np.array([[np.cos(th), 0.0, np.sin(th)], [0.0, 1.0, 0.0],
+                    [-np.sin(th), 0.0, np.cos(th)]])
+    return {"pairs": pairs(N_PAIRS), "mid": [cam([STEREO_MID_X, 0.0, 0.0])],
+            "yaw": [cam([STEREO_MID_X, 0.0, 0.0], yaw)],
+            "offaxis": [cam(list(STEREO_OFFAXIS))],
+            "skewed": pairs(N_SKEW_PAIRS, STEREO_SKEW)}
 
 
 def lif_cams(lt, proj, orbit_center):
@@ -548,6 +657,7 @@ def run():
     )
     torch.cuda.synchronize()
     launches = kmarch.sweep_lateral.launches
+    record_path("main path 1", launch_counts())
     coverage = float(out[..., 3].mean())
     print(f"main path: render_fast_batch({N_MAIN} poses) -> "
           f"{tuple(out.shape)}, tiers {tiers}, lateral_march launches "
@@ -601,12 +711,20 @@ def run():
     scaled = scaled_phases(proj, focal, lay, reset_counts, card)
     billboard = billboard_phases(proj, focal, lay, cams, reset_counts,
                                  launch_counts, card)
-    # main path 8 held each launch to the plain versions: its worst error
-    # joins each kernel's record
-    errs = lif_phase(reset_counts, launch_counts, card)
-    for rec in (lateral, target, scaled):
-        rec["max_abs_err"] = max(rec["max_abs_err"], errs.get(rec["name"], 0.0))
-    return {"kernels": [lateral, target, scaled, billboard]}, card
+    # main paths 8 and 9 held each launch to the plain versions: their
+    # worst errors join each kernel's record
+    errs, views = lif_phase(reset_counts, launch_counts, card)
+    errs9 = stereo_phase(reset_counts, launch_counts, card, views[1])
+    kernels = [lateral, target, scaled, billboard]
+    for rec in kernels:
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 errs.get(rec["name"], 0.0),
+                                 errs9.get(rec["name"], 0.0))
+        rec["launches_by_path"] = {
+            path: counts[rec["name"]]
+            for path, counts in LAUNCHES_BY_PATH.items()
+            if counts.get(rec["name"])}
+    return {"kernels": kernels}, card
 
 
 def orbit_phases(proj, focal, lay, reset_counts, card):
@@ -693,6 +811,7 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
     out, tiers = lt.render_fast_batch(proj, cams, return_tiers=True)
     torch.cuda.synchronize()
     launches = ktarget.sweep_target.launches
+    record_path("main path 2", {"target_march": launches})
     coverage = float(out[..., 3].mean())
     print(f"main path 2: render_fast_batch({N_ORBIT} orbit poses, +-"
           f"{ORBIT_DEG:g} deg) -> {tuple(out.shape)}, tiers {tiers}, "
@@ -722,6 +841,7 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
     pout, ptiers = lt.render_fast_batch(proj, pcams, return_tiers=True)
     torch.cuda.synchronize()
     plaunches = ktarget.sweep_target.launches
+    record_path("main path 3", {"target_march": plaunches})
     transposed = len(renderer._TRANSPOSED_CACHE) > n_transposed
     print(f"main path 3: render_fast_batch({N_CHECK} pitch poses, +-"
           f"{PITCH_DEG:g} deg) -> {tuple(pout.shape)}, tiers {ptiers}, "
@@ -859,6 +979,7 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
     out, tiers = lt.render_fast_batch(proj, cams, return_tiers=True)
     torch.cuda.synchronize()
     launches = kscaled.sweep_scaled.launches
+    record_path("main path 4", {"scaled_march": launches})
     coverage = float(out[..., 3].mean())
     print(f"main path 4: render_fast_batch({N_DOLLY} dolly poses) -> "
           f"{tuple(out.shape)}, tiers {tiers}, scaled_march launches "
@@ -883,6 +1004,7 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
     tout, ttiers = lt.render_fast_batch(proj, tcams, return_tiers=True)
     torch.cuda.synchronize()
     tlaunches = kscaled.sweep_scaled.launches
+    record_path("main path 5", {"scaled_march": tlaunches})
     coverage = float(tout[..., 3].mean())
     print(f"main path 5: render_fast_batch({N_TILT} tilted orbit poses, "
           f"+-{TILT_DEG:g} deg at {TILT_PHI:g} deg pitch) -> "
@@ -1035,6 +1157,7 @@ def billboard_phases(proj, focal, lay, cams, reset_counts, launch_counts,
     out = lt.render_billboard_fast_batch(proj, cams)
     torch.cuda.synchronize()
     counts = launch_counts()
+    record_path("main path 6", counts)
     launches = counts.pop("billboard_march")
     coverage = float(out[..., 3].mean())
     print(f"main path 6: render_billboard_fast_batch({len(cams)} lateral "
@@ -1156,12 +1279,12 @@ def recorded_calls():
             setattr(mod, attr, fn)
 
 
-def hold_to_plain(calls, step):
+def hold_to_plain(calls, step, poses=None):
     """Each kernel call a main-path step made (recorded_calls), pose by
     pose on that call's own inputs, against the kernel's plain version
-    (every pose) and the plain mirror of its skip walk (the first N_MIRROR
-    poses): no found flip and max abs 0 against both. Returns {kernel:
-    max abs}."""
+    (every pose, or `poses` of them spread evenly over each call) and the
+    plain mirror of its skip walk (the first N_MIRROR poses): no found
+    flip and max abs 0 against both. Returns {kernel: max abs}."""
     import torch
 
     from lif_tpu_torch.ops import sweep_march as smarch
@@ -1201,7 +1324,10 @@ def hold_to_plain(calls, step):
                 return plain(a["disp"], a["invz_min"], a["invz_max"],
                              a["tabs"][i], a["plan"], **kw)
         worst = [[0, 0.0], [0, 0.0]]
-        for i in range(out[0].shape[0]):
+        n = out[0].shape[0]
+        held = (range(n) if poses is None or poses >= n else
+                np.unique(np.linspace(0, n - 1, poses).round().astype(int)))
+        for i in held:
             for j, plain in enumerate(plains):
                 if j and i >= N_MIRROR:
                     continue
@@ -1211,9 +1337,9 @@ def hold_to_plain(calls, step):
                     float((got[i] - want).abs().max())
                     for got, want in zip(out[1:], r[1:])])
         h, w = out[0].shape[1:]
-        print(f"main path 8: {step}: {kernel} ({out[0].shape[0]} poses, "
-              f"{w}x{h}, refine {a['refine']}, colour "
-              f"{len(out) > 2}) on the launch's own inputs: vs plain found "
+        print(f"{step}: {kernel} ({n} poses, {w}x{h}, refine "
+              f"{a['refine']}, colour {len(out) > 2}) on the launch's own "
+              f"inputs, {len(held)} poses: vs plain found "
               f"mismatches {worst[0][0]}, max abs {worst[0][1]:.3g}; vs its "
               f"skip mirror ({min(N_MIRROR, out[0].shape[0])} poses) found "
               f"mismatches {worst[1][0]}, max abs {worst[1][1]:.3g}",
@@ -1224,12 +1350,65 @@ def hold_to_plain(calls, step):
     return errs
 
 
+# launches per main path, {path: {kernel: launches}}, for the kernels'
+# JSON line
+LAUNCHES_BY_PATH: dict = {}
+
+
+def record_path(path, counts):
+    """Add a main path's launches (a step's counts) to LAUNCHES_BY_PATH."""
+    tally = LAUNCHES_BY_PATH.setdefault(path, {})
+    for kernel, n in counts.items():
+        if n:
+            tally[kernel] = tally.get(kernel, 0) + n
+
+
+class MainPath:
+    """The steps of one main path: each zeroes the launch counts just
+    before it, records the kernel calls it makes (recorded_calls) and
+    reads its launches just after (added to LAUNCHES_BY_PATH); held()
+    replays the calls against the kernels' plain versions (hold_to_plain)
+    and keeps each kernel's worst error in `errs`."""
+
+    def __init__(self, name, reset_counts, launch_counts):
+        self.name = name
+        self.reset_counts = reset_counts
+        self.launch_counts = launch_counts
+        self.errs = {}
+
+    def counted(self, fn, *args, **kwargs):
+        """fn's result, the kernel launches it made and the recorded
+        kernel calls."""
+        import torch
+
+        self.reset_counts()
+        with recorded_calls() as calls:
+            out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        counts = self.launch_counts()
+        record_path(self.name, counts)
+        return out, counts, calls
+
+    def expect(self, tiers):
+        """The launch counts of one launch per tier named."""
+        want = dict.fromkeys(self.launch_counts(), 0)
+        for tier in tiers:
+            want[TIER_KERNEL[tier]] += 1
+        return want
+
+    def held(self, calls, step, poses=None):
+        for kernel, err in hold_to_plain(calls, f"{self.name}: {step}",
+                                         poses).items():
+            self.errs[kernel] = max(self.errs.get(kernel, 0.0), err)
+
+
 def lif_phase(reset_counts, launch_counts, card):
     """Phase 18, main path 8: a LIF file to frames (see the module note).
     Every step zeroes the launch counts just before it and checks them
     just after, exactly, and holds each kernel launch it made to the
     kernel's plain version on that launch's inputs (hold_to_plain).
-    Returns {kernel: max abs against its plain versions}."""
+    Returns ({kernel: max abs against its plain versions}, the loaded
+    views)."""
     import torch
 
     import lif_tpu_torch as lt
@@ -1242,26 +1421,8 @@ def lif_phase(reset_counts, launch_counts, card):
     from lif_tpu_torch.ops.cuda import sweep_march as kmarch
     from lif_tpu_torch.utils.profiling import device_timer
 
-    def expect(tiers):
-        want = dict.fromkeys(launch_counts(), 0)
-        for tier in tiers:
-            want[TIER_KERNEL[tier]] += 1
-        return want
-
-    errs = {}
-
-    def counted(fn, *args, **kwargs):
-        """fn's result, the kernel launches it made and the recorded
-        kernel calls (recorded_calls)."""
-        reset_counts()
-        with recorded_calls() as calls:
-            out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        return out, launch_counts(), calls
-
-    def held(calls, step):
-        for kernel, err in hold_to_plain(calls, step).items():
-            errs[kernel] = max(errs.get(kernel, 0.0), err)
+    path8 = MainPath("main path 8", reset_counts, launch_counts)
+    counted, expect, held = path8.counted, path8.expect, path8.held
 
     # the file: authored, written, loaded onto the card
     t0 = time.perf_counter()
@@ -1435,7 +1596,178 @@ def lif_phase(reset_counts, launch_counts, card):
               f"{frame_ms:.3f} ms/frame; {N_SEQ}-pose sequential pass "
               f"{seq_ms:.3f} ms = {N_SEQ / (seq_ms / 1e3):.1f} frames/s "
               f"at {W}x{H} [{card}]", flush=True)
-    return errs
+    return path8.errs, views
+
+
+@contextlib.contextmanager
+def plain_lateral():
+    """Inside, the renderer's lateral tier runs its plain version on the
+    card's tensors: no march pack is attached (each call cuts the source
+    from the layer's own textures and mask, _march_sources) and the plain
+    march and _finalize run pose by pose where the kernel would launch.
+    A render inside is the plain-version twin of the same render outside;
+    the kernel is exact against the plain march, so the two must be
+    equal."""
+    import torch
+
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops import sweep_march as smarch
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+
+    def plain_batch(rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz,
+                    background, plan, num_planes, prepared=None, rows=None,
+                    **kw):
+        outs = [smarch.render_translation_plain(
+            rgb, disp, mask, invz_min, invz_max, cc, f1, pp, background, plan,
+            num_planes, **kw) for cc, pp in zip(c1, plane_invz)]
+        if kw.get("raw"):
+            return tuple(torch.stack(parts) for parts in zip(*outs))
+        return torch.stack(outs)
+
+    saved = (kmarch.render_translation_batch_cuda,
+             renderer._attach_march_prep)
+    kmarch.render_translation_batch_cuda = plain_batch
+    renderer._attach_march_prep = lambda layers, *_: list(layers)
+    try:
+        yield
+    finally:
+        (kmarch.render_translation_batch_cuda,
+         renderer._attach_march_prep) = saved
+
+
+def stereo_phase(reset_counts, launch_counts, card, ldi):
+    """Phase 19, main path 9: stereo from a LIF file (see the module
+    note). `ldi` is main path 8's 3-layer view. Every step zeroes the
+    launch counts just before it and checks them just after, exactly, and
+    holds each launch it made to the kernel's plain versions on that
+    launch's inputs. Returns {kernel: max abs against its plain
+    versions}."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops.cuda import build
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    path9 = MainPath("main path 9", reset_counts, launch_counts)
+
+    # the file: authored (the right eye rendered on the CPU), written,
+    # loaded onto the card
+    t0 = time.perf_counter()
+    data = make_stereo_lif(0)
+    author_s = time.perf_counter() - t0
+    sha = hashlib.sha256(data).hexdigest()
+    path = build.BUILD_DIR / "chip_smoke_stereo.lif"
+    path.write_bytes(data)
+    result, counts, _ = path9.counted(lt.load_lif_file, str(path))
+    left, right = result.projectors[:2]
+    eye = float(left.baseline) / 2.0
+    print(f"main path 9: a {len(data) / 1e6:.2f} MB stereo LIF authored in "
+          f"{author_s:.2f} s (right eye on the CPU), sha256 {sha} (the "
+          f"reference tool's: {sha == STEREO_LIF_SHA256}); views at "
+          f"{[float(p.position[0]) for p in result.projectors]} m, textures "
+          f"on {sorted({p.disp.device.type for p in result.projectors})}",
+          flush=True)
+    check(len(result.projectors) == 2, "the stereo LIF's views")
+    check(all(p.disp.device.type == "cuda" for p in result.projectors),
+          "the stereo LIF's textures are not on the card")
+    check(np.allclose([left.position[0], right.position[0]], [-eye, eye]),
+          "the views' positions")
+    check(not any(counts.values()), f"loading launched kernels: {counts}")
+    cams = stereo_cams(lt, float(left.focal[0]), eye)
+
+    def stereo_batch(name):
+        return path9.counted(lt.render_stereo_fast_batch, left, right,
+                             cams[name], return_tiers=True)
+
+    # the pairs: 120 eye cameras, three balanced chunks of 40
+    (out, tiers), counts, calls = stereo_batch("pairs")
+    coverage = float(out[..., 3].mean())
+    print(f"main path 9: render_stereo_fast_batch({N_PAIRS} pairs = "
+          f"{len(cams['pairs'])} cameras) -> {tuple(out.shape)}, tiers "
+          f"{tiers}, launches {counts}, alpha coverage {coverage:.4f}",
+          flush=True)
+    check(tiers == (("march",), ("march",)), f"pair tiers {tiers}")
+    check(counts == dict(path9.expect(("march",) * 6)),
+          f"pair launches {counts}: 2 eyes x 3 chunks")
+    check(tuple(out.shape) == (2 * N_PAIRS, H, W, 4), "pair output shape")
+    check(bool(torch.isfinite(out).all()), "non-finite pair output")
+    check(0.5 < coverage <= 1.0, f"pair alpha coverage {coverage}")
+    del out
+    path9.held(calls, f"{N_PAIRS} pairs", poses=4)
+    pair_ms = device_timer(lt.render_stereo_fast_batch, left, right,
+                           cams["pairs"], iters=1, repeats=5)
+    print(f"main path 9: render_stereo_fast_batch: {pair_ms:.3f} ms per "
+          f"{N_PAIRS} pairs = {N_PAIRS / (pair_ms / 1e3):.1f} pairs/s at "
+          f"{W}x{H} [{card}]", flush=True)
+
+    # fidelity against the exact 640-step two-view march
+    for name in ("mid", "yaw", "offaxis", "skewed"):
+        (out, tiers), counts, calls = stereo_batch(name)
+        want = (STEREO_TIERS[name],)
+        chunks = -(-len(cams[name]) // lt.DEFAULT_CONFIG.pose_chunk)
+        check(tiers == (want, want), f"{name} tiers {tiers}")
+        check(counts == path9.expect(want * 2 * chunks),
+              f"{name} launches {counts}")
+        check(bool(torch.isfinite(out).all()), f"non-finite {name} output")
+        for (batch, pose), ref_db in LIF_TPU_STEREO_PSNR.items():
+            if batch != name:
+                continue
+            exact = lt.render_stereo_view(left, right, cams[name][pose],
+                                          num_steps=640)
+            q = psnr(out[pose], exact)
+            print(f"main path 9: {name} batch of {len(cams[name])}, pose "
+                  f"{pose}: tiers {tiers}, launches {counts}, {q:.3f} dB "
+                  f"against the 640-step render_stereo_view (lif_tpu "
+                  f"{ref_db:.3f})", flush=True)
+            check(q >= ref_db - 1.0, f"stereo {name} pose {pose}: {q:.3f} "
+                                     f"dB, lif_tpu {ref_db}")
+        path9.held(calls, f"the {name} batch")
+
+    # LDI stereo: the 3-layer view and a copy one baseline to its right,
+    # in the hard mode (eroded masks); mono -> stereo -> mono on that
+    # projector, each render equal to its plain-version twin
+    ldi_r = dataclasses.replace(
+        ldi, position=np.asarray(ldi.position) + [BASELINE, 0.0, 0.0])
+    cam = lt.Camera.create(W, H, focal_px=float(ldi.focal[0]),
+                           position=np.asarray(ldi.position)
+                           + [LDI_STEREO_X, 0.0, 0.0])
+    steps = (("mono", lambda: lt.render(ldi, cam, mode="fast"),
+              ("march",) * 3),
+             ("stereo", lambda: lt.render([ldi, ldi_r], cam,
+                                          mode="stereo_fast"),
+              ("march",) * 6),
+             ("mono again", lambda: lt.render(ldi, cam, mode="fast"),
+              ("march",) * 3))
+    frames = []
+    for step, fn, want in steps:
+        img, counts, calls = path9.counted(fn)
+        with plain_lateral():
+            twin = fn()
+        torch.cuda.synchronize()
+        err = float((img - twin).abs().max())
+        print(f"main path 9: LDI {step} (3 layers, 1408x928 outpainted, "
+              f"x = {LDI_STEREO_X} m): launches {counts}, max abs against "
+              f"its plain-version render {err:.3g}, alpha coverage "
+              f"{float(img[..., 3].mean()):.4f}", flush=True)
+        check(counts == path9.expect(want), f"LDI {step} launches {counts}")
+        check(torch.equal(img, twin),
+              f"LDI {step}: not its plain-version render")
+        path9.held(calls, f"LDI {step}")
+        frames.append(img)
+    check(torch.equal(frames[2], frames[0]),
+          "the second mono frame differs from the first")
+    tiers = renderer.render_stereo_fast_batch(ldi, ldi_r, [cam],
+                                              return_tiers=True)[1]
+    check(tiers == (("march",) * 3,) * 2, f"LDI stereo tiers {tiers}")
+    for lay in renderer._prepared_textures(ldi):
+        held = {id(mask) for mask, _ in lay["march_packs"].values()}
+        check(held == {id(lay["mask"]), id(lay["eroded_mask"])},
+              "the march packs do not hold both masks")
+    return path9.errs
 
 
 def main() -> int:

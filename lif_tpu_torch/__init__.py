@@ -15,7 +15,10 @@ and pitch-family poses through an x<->y transpose) and the two-phase
 fallback for other rotated poses ('rotated'); the mesh modes,
 render(mode='billboard' | 'mesh') and, for lateral pose batches,
 render_billboard_fast_batch (the billboard splat as a row z-buffer
-scatter); models.scene (LayerGroup, Scene) and apps.viewer.
+scatter); the stereo modes, render_stereo_view (render(mode='stereo'),
+the exact two-view march) and render_stereo_fast /
+render_stereo_fast_batch (render(mode='stereo_fast'), the same blend on
+the march tiers); models.scene (LayerGroup, Scene) and apps.viewer.
 As in lif_tpu, the top level exports the render and load entry points;
 the tiers' functions stay in lif_tpu_torch.ops. It imports neither jax
 nor lif_tpu.
@@ -52,4 +55,7 @@ from .models.renderer import (  # noqa: F401
     render_fast_batch,
     render_fast_view,
     render_mono_view,
+    render_stereo_fast,
+    render_stereo_fast_batch,
+    render_stereo_view,
 )

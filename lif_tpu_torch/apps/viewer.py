@@ -68,7 +68,8 @@ def render_trajectory(
 
     mode='fast' renders the trajectory in `chunk`-frame batches through
     render_fast_batch (one kernel launch per layer and chunk on CUDA);
-    any other mode renders frame by frame through render(mode=...)."""
+    any other mode renders frame by frame through render(mode=...), for
+    'stereo' with `projector` the (left, right) pair."""
     def _cam(i):
         return Camera.create(
             camera_template.width,
@@ -119,9 +120,6 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device of the textures (default: cuda)")
     args = parser.parse_args(argv)
-    if args.render == "stereo":
-        raise NotImplementedError("--render stereo: the stereo modes are not "
-                                  "ported yet")
 
     result = load_lif_file(args.lif, device=args.device)
     projector = result.projectors[args.view]
@@ -145,6 +143,9 @@ def main(argv=None):
             start, center * 0.3 + start * 0.7, args.frames
         )
 
+    # stereo blends the first two views along the first view's trajectory
+    if args.render == "stereo" and len(result.projectors) >= 2:
+        projector = result.projectors[:2]
     frames = render_trajectory(
         projector, positions, rotations, cam, mode=args.render, out_dir=args.out
     )

@@ -21,9 +21,16 @@ The mesh modes: render(mode='billboard') is the billboard scatter
 renders a lateral pose batch in billboard mode through the row z-buffer
 scatter (on CUDA through csrc/splat_march.cu, one launch per batch; on
 the CPU its plain version billboard_scatter_plain).
+The stereo modes: render_stereo_view (render(mode='stereo')) blends two
+projectors' exact marches (ops/stereo.py); render_stereo_fast_batch and
+render_stereo_fast (render(mode='stereo_fast')) route each eye's layers
+through the same tiers with their raw outputs (raw=True of
+_layer_tier_batch: colour, alpha, hit, invz*), add the stretch-mark
+confidence (_stretch_conf) and fill and blend the eyes as the exact
+kernel does; LDI eyes march the eroded stereo mask (_eroded_mask).
 A pose, layer or option that needs what the port does not have yet (the
-'sweep' fallback, the stereo modes, ...) raises NotImplementedError
-naming it; nothing falls back to an approximate tier.
+'sweep' fallback, ...) raises NotImplementedError naming it; nothing
+falls back to an approximate tier.
 
 Host-side planning (relative poses, plane grids, pad plans, the tiers'
 extents and pose packs) runs in numpy; the textures and every per-pixel
@@ -42,23 +49,27 @@ import torch
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..core.camera import Camera
 from ..core.pose import relative_view_pose
+from ..core.transforms import inv3, mat_from_focal, mm, shader_rotation
 from ..ops import composite as _composite
 from ..ops import mesh as _mesh
 from ..ops import raycast as _raycast
 from ..ops import rotated_march as _rotated_march
 from ..ops import splat as _splat
 from ..ops import splat_march as _splat_march
+from ..ops import stereo as _stereo
 from ..ops import sweep_march as _sweep_march
 from ..ops import sweep_scaled as _sweep_scaled
 from ..ops import sweep_target as _sweep_target
 from ..ops.cuda.sweep_march import prepare_translation_src
 from ..ops.cuda.sweep_target import skip_table_buffer
+from ..ops.sampling import read_disp
 from .projector import Projector
 
 __all__ = ["BillboardPlan", "RenderMode", "TierPlan", "plan_billboard",
            "plan_tiers", "render", "render_billboard_fast_batch",
            "render_depth_fast", "render_fast_batch", "render_fast_view",
-           "render_mono_view"]
+           "render_mono_view", "render_stereo_fast",
+           "render_stereo_fast_batch", "render_stereo_view"]
 
 RenderMode = Literal[
     "raycast", "stereo", "stereo_fast", "mesh", "billboard", "fast"
@@ -95,8 +106,11 @@ _TARGET_OK_CACHE_MAX = 64
 _TRANSPOSED_CACHE: OrderedDict = OrderedDict()
 _TRANSPOSED_CACHE_MAX = 8
 # per CUDA layer: the lateral kernel's march packs (_march_pack), keyed on
-# the skew fold's y shift, the crop and the plan
+# the mask marched (the texture's or the eroded stereo mask), the skew
+# fold's y shift, the crop and the plan
 _MARCH_PACK_MAX = 4
+
+_F32 = np.float32
 
 # x<->y axis swap: transposing every image conjugates all camera-space
 # quantities by this permutation. Applied by INDEXING, so it is exact.
@@ -305,19 +319,34 @@ def _march_pack(lay, plan, crop_y):
     the (r8, r32) row skip tables of that source (for a y-preshifted,
     skewed source its rows mix two texture rows, so the texture's own
     tables would be stale). Built once and cached with the texture, per
-    (float32 y shift, crop, plan)."""
-    key = (float(np.float32(lay["doff"][1])), crop_y, plan)
+    (mask, float32 y shift, crop, plan): the pack holds the mask, and a
+    stereo call marches the eroded one (_eroded_mask) through the same
+    cache as mono calls the texture's. The entry keeps the mask alive, so
+    its id cannot be reused while the key stands."""
+    mask = lay["mask"]
+    key = (id(mask), float(np.float32(lay["doff"][1])), crop_y, plan)
     cache = lay["march_packs"]
     entry = cache.get(key)
     if entry is not None:
         cache.move_to_end(key)
-        return entry
+        return entry[1]
     srcs = _march_sources(lay, plan, crop_y)
-    entry = (srcs, prepare_translation_src(*srcs, plan),
-             _sweep_march.row_skip_tables(srcs[1], lay["izmin_host"],
-                                          lay["izmax_host"])[1:])
-    _lru_put(cache, _MARCH_PACK_MAX, key, entry)
-    return entry
+    pack = (srcs, prepare_translation_src(*srcs, plan),
+            _sweep_march.row_skip_tables(srcs[1], lay["izmin_host"],
+                                         lay["izmax_host"])[1:])
+    _lru_put(cache, _MARCH_PACK_MAX, key, (mask, pack))
+    return pack
+
+
+def _eroded_mask(lay):
+    """The stereo discard mask of one cached texture layer
+    (erode_mask_for_stereo: erode + threshold replaces isMaskAround's 9
+    reads), computed lazily on the first stereo call and kept in the
+    layer's texture-cache entry, so it is keyed and evicted with the
+    texture it was eroded from and mono-only callers never pay for it."""
+    if "eroded_mask" not in lay:
+        lay["eroded_mask"] = _sweep_march.erode_mask_for_stereo(lay["mask"])
+    return lay["eroded_mask"]
 
 
 def _attach_march_prep(layers, modes, plans, crops):
@@ -344,6 +373,21 @@ def _balanced_chunk(batch, pose_chunk):
         return pose_chunk
     n_chunks = -(-batch // pose_chunk)
     return -(-batch // n_chunks)
+
+
+def _pose_chunks(batch, pose_chunk):
+    """The slices of a batch's balanced pose chunks of at most
+    `pose_chunk` poses (None or 0: one chunk), a bound on the per-chunk
+    intermediates."""
+    size = batch
+    if pose_chunk and batch > pose_chunk:
+        size = _balanced_chunk(batch, pose_chunk)
+    return [slice(s, s + size) for s in range(0, batch, size)]
+
+
+def _chunk_layer(lay, sl):
+    """A layer dict with its per-pose entries (_PP_KEYS) cut to a chunk."""
+    return dict(lay, **{k: lay[k][sl] for k in _PP_KEYS if k in lay})
 
 
 def _plan_target_entry(lay, f2_host, out_w, out_h, rot_list, pos_list, cfg,
@@ -582,9 +626,11 @@ def _layer_tier_batch(
     t_refine,
     feathering,
     mask_mode,
+    raw=False,
 ):
     """ONE LDI layer's pose-batched render through its routed tier — the
-    tier switch. c1_b (B, 3) and rot_b (B, 3, 3) are the host pose batch.
+    tier switch, shared by the mono batch and the stereo cores. c1_b
+    (B, 3) and rot_b (B, 3, 3) are the host pose batch.
     'march': the lateral snap translation, with the layer's constant
     source shift `doff` (the width pad's dx and the skew fold; see
     render_fast_batch); 'scaled': the aligned march
@@ -594,7 +640,9 @@ def _layer_tier_batch(
     march with its setup (plan, wi, hi, K, skip_phase_a, sk1, sk2) and the
     aligned positions and ladders in `lay`, rendered at the true width
     out_w. Returns the (B, H, W, 4) premultiplied RGBA over a zero
-    background."""
+    background, or with raw=True every tier's (rgba, alpha, hit, invz*)
+    tuple: straight colour, alpha, hit and the solved inverse depth,
+    each with a leading pose axis (the stereo blend consumes them)."""
     zero_bg = np.zeros(4, np.float32)
     if mode == "scaled":
         splan, k_s, fr, dxu, dyu = setup
@@ -602,8 +650,8 @@ def _layer_tier_batch(
             lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
             lay["izmax_host"], c1_b, lay["focal_host"], fr, lay["grids"],
             zero_bg, splan, k_s, feathering=feathering, mask_mode=mask_mode,
-            to_srgb=False, refine=rot_refine, dx_user=dxu, dy_user=dyu,
-            skip_tables=lay.get("skip_scaled"),
+            to_srgb=False, refine=rot_refine, raw=raw, dx_user=dxu,
+            dy_user=dyu, skip_tables=lay.get("skip_scaled"),
         )
     if mode == "rotated":
         rplan, wi, hi, k_r, skip_a, sk1_t, sk2_t = setup
@@ -612,8 +660,8 @@ def _layer_tier_batch(
             lay["izmax_host"], lay["focal_host"], c1_b, rot_b,
             lay["aligned"], f2, lay["grids"], zero_bg, rplan, k_r, out_w,
             out_h, wi, hi, feathering=feathering, mask_mode=mask_mode,
-            to_srgb=False, refine=rot_refine, skip_phase_a=skip_a, sk1=sk1_t,
-            sk2=sk2_t, skip_tables=lay.get("skip_scaled"),
+            to_srgb=False, refine=rot_refine, raw=raw, skip_phase_a=skip_a,
+            sk1=sk1_t, sk2=sk2_t, skip_tables=lay.get("skip_scaled"),
         )
     if mode == "target":
         tplan, k_t = setup
@@ -621,7 +669,7 @@ def _layer_tier_batch(
             lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
             lay["izmax_host"], lay["pose_sc"], lay["grids"], zero_bg, tplan,
             k_t, feathering=feathering, mask_mode=mask_mode, to_srgb=False,
-            refine=t_refine, skip_tables=lay.get("skip_target"),
+            raw=raw, refine=t_refine, skip_tables=lay.get("skip_target"),
         )
     if mode != "march":
         raise NotImplementedError(f"the '{mode}' tier is not ported yet")
@@ -633,7 +681,7 @@ def _layer_tier_batch(
         rgb_l, disp_l, mask_l, lay["izmin_host"], lay["izmax_host"],
         c1_b, lay["focal_host"], lay["plane_invz"], zero_bg,
         plan=plan, num_planes=k_l, refine=refine, feathering=feathering,
-        mask_mode=mask_mode, to_srgb=False, offset=lay["doff"],
+        mask_mode=mask_mode, to_srgb=False, raw=raw, offset=lay["doff"],
         crop_y=crop_y, prepared=lay.get("march_prep"),
         skip_rows=lay.get("march_rows"),
     )
@@ -902,22 +950,16 @@ def _fast_batch_core(
         refine=refine, rot_refine=rot_refine, t_refine=t_refine,
         feathering=feathering, mask_mode=mask_mode,
     )
-    batch = len(c1_b)
-    size = batch
-    if pose_chunk and batch > pose_chunk:
-        size = _balanced_chunk(batch, pose_chunk)
     outs = []
-    for s in range(0, batch, size):
+    for sl in _pose_chunks(len(c1_b), pose_chunk):
         # front-to-back LDI over-compositing of the chunk's layers
         result_rgb = result_a = None
         for lay, mode, setup, plan, k_l, crop_y in zip(
             layers, modes, setups, plans, nums, crops
         ):
-            lay = dict(lay, **{k: lay[k][s : s + size]
-                               for k in _PP_KEYS if k in lay})
             layer = _layer_tier_batch(
-                lay, mode, setup, plan, k_l, crop_y, c1_b[s : s + size],
-                rot_b[s : s + size], f2, out_w_true, out_h, **tier_kw,
+                _chunk_layer(lay, sl), mode, setup, plan, k_l, crop_y,
+                c1_b[sl], rot_b[sl], f2, out_w_true, out_h, **tier_kw,
             )  # (B, H, W, 4), premultiplied
             la = layer[..., 3]
             if result_rgb is None:
@@ -985,6 +1027,54 @@ def render_mono_view(
         num_steps=num_steps,
         mask_mode=mask_mode,
         to_srgb=to_srgb,
+    )
+
+
+def _stereo_view_args(projector: Projector, camera: Camera):
+    """render_stereo's arguments for one view: the textures and the host
+    fields, with the relative pose and the baseline-normalized ranges
+    (divided in float32, as lif_tpu does)."""
+    pos, rot = relative_view_pose(
+        projector.position, projector.rotation, camera.position,
+        camera.rotation,
+    )
+    baseline = np.float32(projector.baseline)
+    return (
+        projector.rgb, projector.disp, projector.mask, projector.layer_res,
+        np.asarray(projector.invz_min, np.float32) / baseline,
+        np.asarray(projector.invz_max, np.float32) / baseline,
+        projector.focal, projector.skew, np.asarray(pos, np.float32),
+        np.asarray(rot, np.float32),
+    )
+
+
+def render_stereo_view(
+    left: Projector,
+    right: Projector,
+    camera: Camera,
+    background=None,
+    feathering: float | None = None,
+    to_srgb: bool | None = None,
+    num_steps: int | None = None,
+    config: RenderConfig | None = None,
+):
+    """Render blending two projectors with the exact ray march (the stereo
+    mode, render(mode='stereo')): ops.stereo.render_stereo over the first
+    min(L_left, L_right) layers. Returns (H, W, 4) GL-oriented on the
+    projectors' device. reference: RaycastPlane.ts:812-843 +
+    rayCastStereoLDI.glsl. Unset keyword knobs resolve from `config`
+    (DEFAULT_CONFIG when None)."""
+    cfg = config or DEFAULT_CONFIG
+    background = cfg.background if background is None else background
+    feathering = cfg.feathering if feathering is None else feathering
+    to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
+    num_steps = cfg.num_steps if num_steps is None else num_steps
+    return _stereo.render_stereo(
+        *_stereo_view_args(left, camera), *_stereo_view_args(right, camera),
+        float(camera.focal_px), camera.skew, background,
+        out_w=camera.width, out_h=camera.height,
+        num_layers=min(left.num_layers, right.num_layers),
+        feathering=feathering, num_steps=num_steps, to_srgb=to_srgb,
     )
 
 
@@ -1182,6 +1272,265 @@ def render_depth_fast(
     return izs * float(np.float32(projector.baseline))
 
 
+class _Eye(NamedTuple):
+    """One eye of render_stereo_fast_batch, planned: its relative pose
+    batch and, per layer, the dict it renders with its tier, setup,
+    march plan, crop and plane count (_layer_tier_batch's arguments)."""
+
+    pos_b: np.ndarray  # (B, 3) relative projector positions
+    rot_b: np.ndarray  # (B, 3, 3) relative rotations
+    layers: list
+    modes: list
+    setups: list
+    plans: list
+    crops: list
+    nums: list
+
+
+def _stereo_eye(projector, cameras, num_layers, mask_mode, cfg, num_planes):
+    """Plan one eye as lif_tpu's stereo _eye_setup does: a lateral pose
+    batch takes the snap march on each march-eligible layer (the skew fold
+    of _march_fold, no width pad), every other layer the cascade of
+    _plan_march_tier (scaled, target, rotated); stereo has no sweep
+    fallback and no pitch transpose, and a batch no tier covers raises
+    ValueError naming render_stereo_view. Each layer dict carries the mask
+    it marches (the eroded stereo mask in the 'hard' mode) and the skew
+    fold's constant shift `doff`, which _stretch_conf reads on every
+    tier."""
+    cam0 = cameras[0]
+    f2_host = float(cam0.focal_px)
+    out_w, out_h = cam0.width, cam0.height
+    pos_list, rot_list = zip(*(
+        relative_view_pose(projector.position, projector.rotation,
+                           cam.position, cam.rotation)
+        for cam in cameras
+    ))
+    pos_b, rot_b = np.stack(pos_list), np.stack(rot_list)
+    rotated = not np.allclose(rot_b, np.eye(3), atol=1e-5)
+    lateral = (
+        not rotated
+        and np.abs(pos_b[:, 1]).max() < 1e-9
+        and np.abs(pos_b[:, 2]).max() < 1e-9
+    )
+    if lateral and cfg.plane_mode != "snap":
+        raise NotImplementedError(
+            f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
+            "ported"
+        )
+    sk1 = np.asarray(projector.skew, np.float64)
+    sk2 = np.asarray(cam0.skew, np.float64)
+    max_cx = float(np.abs(pos_b[:, 0]).max())
+    eye = _Eye(pos_b, rot_b, [], [], [], [], [], [])
+    for lay in _prepared_textures(projector)[:num_layers]:
+        mask = _eroded_mask(lay) if mask_mode == "hard" else lay["mask"]
+        plan, crop_y, k_l, setup = None, 0, None, None
+        if lateral and _march_eligible(lay, f2_host, out_w, out_h):
+            mode = "march"
+            plan, crop_y, phase, doff = _march_fold(
+                lay, sk1, sk2, max_cx, out_w, out_h, 0.0)
+            tab, k_l = _snap_tables(lay, pos_b[:, 0], num_planes, phase,
+                                    cfg.march_stride, projector.device)
+            extra = {"plane_invz": tab}
+        else:
+            try:
+                mode, setup, extra = _plan_march_tier(
+                    lay, f2_host, out_w, out_w, out_h, pos_b, rot_list,
+                    pos_list, rotated, cfg, num_planes, projector.device,
+                    sk1=sk1, sk2=sk2,
+                )
+            except ValueError as err:
+                raise ValueError(
+                    "render_stereo_fast: pose family outside the march "
+                    f"tiers ({err}); use render_stereo_view"
+                ) from err
+            d = -lay["focal_host"] * (sk1 - sk2)
+            doff = (float(d[0]), float(d[1]))
+        eye.layers.append(dict(lay, mask=mask, doff=doff, **extra))
+        eye.modes.append(mode)
+        eye.setups.append(setup)
+        eye.plans.append(plan)
+        eye.crops.append(crop_y)
+        eye.nums.append(k_l)
+    return eye
+
+
+def render_stereo_fast_batch(
+    left: Projector,
+    right: Projector,
+    cameras: Sequence[Camera],
+    background=None,
+    feathering: float | None = None,
+    to_srgb: bool | None = None,
+    num_planes: int | None = None,
+    refine: int | None = None,
+    config: RenderConfig | None = None,
+    return_tiers: bool = False,
+):
+    """Fast two-view (stereo) rendering of a camera batch: lif_tpu's
+    render_stereo_fast_batch. Returns (B, H, W, 4) on the projectors'
+    device (GL-oriented).
+
+    The exact stereo kernel's semantics (reference:
+    rayCastStereoLDI.glsl:165-170, 368-436) on the march tiers: per layer,
+    each eye's tier render with its raw outputs, the stretch-mark
+    confidence of each (_stretch_conf), ops.stereo.occlusion_blend with
+    the per-pose view_weight, then front-to-back LDI compositing, the
+    background and the gamma. Each eye routes as _stereo_eye says:
+    lateral poses on the snap march (on CUDA the lateral kernel, one
+    launch per eye, layer and pose chunk), other poses on the scaled,
+    target or rotated tier. Frustum skew (sk1 per eye, a shared sk2) rides
+    every tier as in render_fast_batch. LDI pairs (more than one layer)
+    take the dilated hard discard: each layer marches its eroded mask,
+    and a tier keeps a hit where that mask reads >= 0.5; single layers
+    take the taper only. All cameras must share width, height, focal and
+    skew. Batches beyond config.pose_chunk render in balanced chunks.
+    lif_tpu's uniform and hybrid plane modes raise NotImplementedError,
+    as the mono batch does.
+
+    return_tiers=True returns (images, (left tiers, right tiers)).
+    """
+    cfg = config or DEFAULT_CONFIG
+    background = cfg.background if background is None else background
+    feathering = cfg.feathering if feathering is None else feathering
+    to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
+    refine = cfg.march_refine if refine is None else refine
+    if len(cameras) == 0:
+        raise ValueError("render_stereo_fast_batch needs at least one camera")
+    cam0 = cameras[0]
+    for cam in cameras[1:]:
+        if (
+            cam.width != cam0.width
+            or cam.height != cam0.height
+            or abs(float(cam.focal_px) - float(cam0.focal_px)) > 1e-6
+        ):
+            raise ValueError(
+                "render_stereo_fast_batch cameras must share "
+                "width/height/focal"
+            )
+        if not np.allclose(np.asarray(cam.skew), np.asarray(cam0.skew)):
+            raise ValueError(
+                "render_stereo_fast_batch cameras must share skew; batch "
+                "per-eye frusta as separate calls"
+            )
+    num_layers = min(left.num_layers, right.num_layers)
+    # the dilated hard discard where LDI masks exist
+    # (rayCastStereoLDI.glsl:304-305); taper only for a single layer
+    mask_mode = "hard" if num_layers > 1 else "none"
+    eyes = [_stereo_eye(p, cameras, num_layers, mask_mode, cfg, num_planes)
+            for p in (left, right)]
+    # per-pose blend weight: the render camera at the origin of its frame
+    w_r = _stereo.view_weight(np.zeros(3), eyes[0].pos_b, eyes[1].pos_b)
+    out = _stereo_core(
+        eyes, w_r.to(left.device)[:, None, None, None], background,
+        refine=refine, rot_refine=cfg.rotated_refine,
+        t_refine=cfg.target_refine, feathering=feathering,
+        mask_mode=mask_mode, to_srgb=to_srgb, f2=float(cam0.focal_px),
+        out_w=cam0.width, out_h=cam0.height, pose_chunk=cfg.pose_chunk,
+    )
+    if return_tiers:
+        return out, tuple(tuple(eye.modes) for eye in eyes)
+    return out
+
+
+def render_stereo_fast(left: Projector, right: Projector, camera: Camera,
+                       **kw):
+    """Single-pose fast stereo: a batch of one (render_stereo_fast_batch)."""
+    return render_stereo_fast_batch(left, right, [camera], **kw)[0]
+
+
+def _stereo_core(eyes, w_r, background, *, refine, rot_refine, t_refine,
+                 feathering, mask_mode, to_srgb, f2, out_w, out_h,
+                 pose_chunk):
+    """The body of render_stereo_fast_batch: hoists each eye's march
+    source prep, then renders balanced pose chunks, each layer through
+    both eyes' tiers (raw outputs), the stretch-mark confidence and
+    occlusion_blend, over-composited front to back. w_r: (B, 1, 1, 1) on
+    the device."""
+    eyes = [
+        eye._replace(layers=_attach_march_prep(eye.layers, eye.modes,
+                                               eye.plans, eye.crops))
+        for eye in eyes
+    ]
+    tier_kw = dict(
+        refine=refine, rot_refine=rot_refine, t_refine=t_refine,
+        feathering=feathering, mask_mode=mask_mode, raw=True,
+    )
+    outs = []
+    for sl in _pose_chunks(len(w_r), pose_chunk):
+        acc = None
+        for i in range(len(eyes[0].layers)):
+            views, confs = [], []
+            for eye in eyes:
+                lay = _chunk_layer(eye.layers[i], sl)
+                rgba, alpha, hit, invz = _layer_tier_batch(
+                    lay, eye.modes[i], eye.setups[i], eye.plans[i],
+                    eye.nums[i], eye.crops[i], eye.pos_b[sl], eye.rot_b[sl],
+                    f2, out_w, out_h, **tier_kw,
+                )
+                views.append(torch.cat([rgba[..., :3], alpha[..., None]],
+                                       dim=-1))
+                confs.append(_stretch_conf(lay, eye.pos_b[sl], eye.rot_b[sl],
+                                           hit, invz, f2, out_w, out_h))
+            acc = _composite.over(acc, _stereo.occlusion_blend(
+                *views, *confs, w_r[sl]))
+        outs.append(_composite.finish_over_background(*acc, background,
+                                                      to_srgb))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _stretch_conf(lay, c1_b, rot_b, hit, invz, f2, out_w, out_h):
+    """The exact march's stretch-mark confidence for a fast tier's raw
+    solution (lif_tpu's _stretch_conf). The exact kernel's occlusion fill
+    keys on the march's confidence, zeroed where a crossing step saw a
+    disparity jump above grad_thr (rayCastMonoLDI.glsl:236, 265-267):
+    per production step (range / 40) that is a slope of 0.02 * 140 =
+    2.8. So the disparity is read at the solved crossing and one step dv
+    in front of it along the exact ray s1(v) = q + v (c - c_z q), and
+    confidence dies where the two differ by more than 2.8 dv, on hit
+    pixels. Evaluated on a coarse grid (every 4th, else 2nd, else every
+    pixel, as the output dims divide), at each block's first pixel, and
+    nearest-upsampled. The skew fold's constant shift `doff` moves the
+    probes. Returns (B, H, W) float32 confidence, 0 or 1."""
+    disp = lay["disp"]
+    hs, ws = disp.shape
+    dev = disp.device
+    izmin, izmax = _F32(lay["izmin_host"]), _F32(lay["izmax_host"])
+    f1, f2 = _F32(lay["focal_host"]), _F32(f2)
+    ds = 4 if (out_h % 4 == 0 and out_w % 4 == 0) else (
+        2 if (out_h % 2 == 0 and out_w % 2 == 0) else 1
+    )
+    jx = (torch.arange(out_w // ds, dtype=torch.float32, device=dev) * ds
+          + 0.5) / out_w - 0.5
+    iy = (torch.arange(out_h // ds, dtype=torch.float32, device=dev) * ds
+          + 0.5) / out_h - 0.5
+    s2x, s2y = jx[None, None, :], iy[None, :, None]
+    # per-pose source transforms, float32 on the host
+    fskr1 = mm(mat_from_focal(f1 / _F32(ws), f1 / _F32(hs)),
+               shader_rotation(np.asarray(rot_b, np.float32)))
+    p = mm(fskr1, inv3(mat_from_focal(f2 / _F32(out_w), f2 / _F32(out_h))))
+    c_vec = (fskr1 @ -torch.as_tensor(np.asarray(c1_b, np.float32))[..., None])
+    p, c_vec = p.to(dev)[..., None, None], c_vec[..., 0].to(dev)[..., None, None]
+    den = p[:, 2, 0] * s2x + p[:, 2, 1] * s2y + p[:, 2, 2]
+    qx = (p[:, 0, 0] * s2x + p[:, 0, 1] * s2y + p[:, 0, 2]) / den
+    qy = (p[:, 1, 0] * s2x + p[:, 1, 1] * s2y + p[:, 1, 2]) / den
+    dsx = c_vec[:, 0] - c_vec[:, 2] * qx
+    dsy = c_vec[:, 1] - c_vec[:, 2] * qy
+    dxp = float(_F32(lay["doff"][0]) / _F32(ws))
+    dyp = float(_F32(lay["doff"][1]) / _F32(hs))
+    dv = (izmin - izmax) / _F32(40.0)
+
+    def disp_at(v):
+        return read_disp(disp, qx + v * dsx + 0.5 + dxp,
+                         qy + v * dsy + 0.5 + dyp, float(izmin),
+                         float(izmax), ws, hs)
+
+    invz_c = invz[:, ::ds, ::ds]
+    kill = (torch.abs(disp_at(invz_c) - disp_at(invz_c + float(dv)))
+            > float(_F32(2.8) * dv))
+    kill = kill.repeat_interleave(ds, 1).repeat_interleave(ds, 2)
+    return torch.where(kill & (hit > 0.5), 0.0, 1.0)
+
+
 def render(projectors, camera: Camera, mode: RenderMode = "raycast",
            **kwargs):
     """Render-mode dispatch (the HoloRenderer.onBeforeRender analog,
@@ -1192,8 +1541,10 @@ def render(projectors, camera: Camera, mode: RenderMode = "raycast",
         holoVertex.glsl meshMode=1 + HoloRenderer.ts:809-858);
       * 'billboard': the per-pixel square-footprint splat (ops.splat; the
         reference's billboard mode, holoVertex.glsl meshMode=0);
-      * 'fast': the production single-view path, render_fast_view.
-    The stereo modes are not ported yet and raise NotImplementedError."""
+      * 'fast': the production single-view path, render_fast_view;
+      * 'stereo': the first two projectors blended by the exact march,
+        render_stereo_view;
+      * 'stereo_fast': the same on the march tiers, render_stereo_fast."""
     plist = list(projectors) if isinstance(projectors, (list, tuple)) else [projectors]
     if mode == "raycast":
         return render_mono_view(plist[0], camera, **kwargs)
@@ -1204,7 +1555,10 @@ def render(projectors, camera: Camera, mode: RenderMode = "raycast",
     if mode == "billboard":
         return _splat.render_mesh_view(plist[0], camera, **kwargs)
     if mode in ("stereo", "stereo_fast"):
-        raise NotImplementedError(f"render mode {mode!r} is not ported yet")
+        if len(plist) < 2:
+            raise ValueError(f"{mode} mode needs two projectors")
+        fn = render_stereo_view if mode == "stereo" else render_stereo_fast
+        return fn(plist[0], plist[1], camera, **kwargs)
     raise ValueError(f"unknown render mode: {mode}")
 
 

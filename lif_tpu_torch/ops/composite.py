@@ -12,7 +12,7 @@ import torch
 
 from ..core.color import linear_to_srgb
 
-__all__ = ["edge_alpha", "finish_over_background", "smoothstep"]
+__all__ = ["edge_alpha", "finish_over_background", "over", "smoothstep"]
 
 
 def smoothstep(e0, e1, x: torch.Tensor) -> torch.Tensor:
@@ -58,3 +58,15 @@ def finish_over_background(rgb_premult, alpha, background, to_srgb: bool):
     if to_srgb:
         out_rgb = linear_to_srgb(out_rgb)
     return torch.cat([out_rgb, out_a[..., None]], dim=-1)
+
+
+def over(acc, layer):
+    """Front-to-back over-compositing of one straight-alpha (…, 4) layer
+    onto acc = (premultiplied rgb, alpha), None before the first layer
+    (rayCastMonoLDI.glsl:338-358). Returns the new (rgb, alpha)."""
+    la = layer[..., 3]
+    if acc is None:
+        return layer[..., :3] * la[..., None], la
+    rgb, a = acc
+    return (rgb + (1.0 - a[..., None]) * la[..., None] * layer[..., :3],
+            la + a * (1.0 - la))

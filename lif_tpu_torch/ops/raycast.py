@@ -29,12 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.color import linear_to_srgb
 from ..core.transforms import inv3, mat_from_focal, mat_from_skew, mm, shader_rotation
+from . import composite as _composite
 from .composite import smoothstep
 from .sampling import bilinear_sample, read_disp
 
-__all__ = ["NUM_STEPS", "raycast_layer", "render_mono", "taper"]
+__all__ = ["NUM_STEPS", "cast_view", "raycast_layer", "render_mono", "taper",
+           "target_transform"]
 
 NUM_STEPS = 40  # reference: rayCastMonoLDI.glsl:223
 
@@ -82,16 +83,22 @@ def raycast_layer(
       res_w, res_h: logical layer resolution.
       background_rgb: (3,) returned in the miss branch (alpha 0).
       mask_mode: 'multiply' -> alpha *= bilinear mask (mono LDI,
-        rayCastMonoLDI.glsl:291); 'none' -> taper only (non-LDI,
-        rayCastMonoLDI.glsl:277-279).
+        rayCastMonoLDI.glsl:291); 'dilated_discard' -> the stereo march:
+        a hit needs invZ2 >= 0 (rayCastStereoLDI.glsl:298) and any of 9
+        bilinear mask reads on a 3x3 grid 1.5 texels apart below 0.5
+        discards it, colour included (isMaskAround, :147-158, :304-305);
+        'none' -> taper only (non-LDI, rayCastMonoLDI.glsl:277-279).
 
-    Returns (H, W, 4) rgba, premultiplication NOT applied.
+    Returns (rgba, invz2, confidence), each (H, W[, 4]): rgba with the
+    premultiplication NOT applied; invz2 the hit's inverse depth in
+    target space (0 on a miss); confidence the shader's out-param, 0
+    where a crossing step saw a disparity jump above grad_thr
+    (rayCastMonoLDI.glsl:236, :265-267). A miss zeroes confidence except
+    in the stereo mode, whose miss branch leaves it; a mono hit returns
+    the taper as confidence in the 'multiply' mode.
     """
-    if mask_mode not in ("multiply", "none"):
-        raise NotImplementedError(
-            f"mask_mode={mask_mode!r} belongs to the stereo march, which "
-            "the port does not have yet"
-        )
+    if mask_mode not in ("multiply", "dilated_discard", "none"):
+        raise ValueError(f"unknown mask_mode: {mask_mode}")
     (p00, p01, p02), (p10, p11, p12), (p20, p21, p22) = p.tolist()
     c_x, c_y, c_z = c.tolist()
 
@@ -103,12 +110,16 @@ def raycast_layer(
     dinvz0 = (izmin - izmax) / _F32(num_steps)
     invz = torch.full_like(denom, float(izmin + dinvz0))  # step back once
     dinvz = torch.full_like(denom, float(dinvz0))
+    grad_thr = float(_F32(0.02) * (izmin - izmax) * _F32(140.0)
+                     / _F32(num_steps))
 
     s1x = c_x * invz + (1.0 - c_z * invz) * qx
     s1y = c_y * invz + (1.0 - c_z * invz) * qy
     ds1x = (c_x - c_z * qx) * dinvz
     ds1y = (c_y - c_z * qy) * dinvz
     invz2 = torch.zeros_like(denom)
+    old_disp = torch.zeros_like(denom)
+    confidence = torch.ones_like(denom)
 
     for _ in range(num_steps):
         invz = invz - dinvz
@@ -117,8 +128,12 @@ def raycast_layer(
         disp_v = read_disp(
             disp, s1x + 0.5, s1y + 0.5, invz_min, invz_max, res_w, res_h
         )
+        grad_disp = disp_v - old_disp
+        old_disp = disp_v
         invz2 = invz * denom / (1.0 - c_z * invz)
         below = (disp_v > invz) & (invz2 > 0.0)
+        confidence = torch.where(below & (torch.abs(grad_disp) > grad_thr),
+                                 0.0, confidence)
         invz = torch.where(below, invz + dinvz, invz)
         s1x = torch.where(below, s1x + ds1x, s1x)
         s1y = torch.where(below, s1y + ds1y, s1y)
@@ -126,21 +141,40 @@ def raycast_layer(
         ds1x = torch.where(below, ds1x * 0.5, ds1x)
         ds1y = torch.where(below, ds1y * 0.5, ds1y)
 
-    # hit validity (rayCastMonoLDI.glsl:275); the animation gate
-    # invz > invz_min * (1 - t) is invz > 0 at t = 1
+    # hit validity (rayCastMonoLDI.glsl:275, rayCastStereoLDI.glsl:298);
+    # the animation gate invz > invz_min * (1 - t) is invz > 0 at t = 1
+    stereo = mask_mode == "dilated_discard"
     hit = (
         (torch.abs(s1x) < 0.5) & (torch.abs(s1y) < 0.5)
-        & (invz2 > 0.0) & (invz > 0.0)
+        & ((invz2 >= 0.0) if stereo else (invz2 > 0.0)) & (invz > 0.0)
     )
     u1 = s1x + 0.5
     v1 = s1y + 0.5
     color = bilinear_sample(rgb, u1, v1, res_w, res_h)
     alpha = taper(u1, v1, feathering)
+    hit_confidence = confidence
     if mask_mode == "multiply":
+        hit_confidence = alpha
         alpha = alpha * bilinear_sample(mask, u1, v1, res_w, res_h)
+    elif stereo:
+        masked = torch.zeros_like(hit)
+        for dy in (-1.0, 0.0, 1.0):
+            for dx in (-1.0, 0.0, 1.0):
+                # u1 + 1.5 * dx / res_w, the offset in float32 as lif_tpu
+                mv = bilinear_sample(
+                    mask, u1 + float(_F32(1.5 * dx) / _F32(res_w)),
+                    v1 + float(_F32(1.5 * dy) / _F32(res_h)), res_w, res_h,
+                )
+                masked = masked | (mv < 0.5)
+        alpha = torch.where(masked, 0.0, alpha)
+        color = torch.where(masked[..., None], 0.0, color)
     out_rgb = torch.where(hit[..., None], color, background_rgb)
     out_a = torch.where(hit, alpha, 0.0)
-    return torch.cat([out_rgb, out_a[..., None]], dim=-1)
+    out_invz2 = torch.where(hit, invz2, 0.0)
+    if not stereo:
+        hit_confidence = torch.where(hit, hit_confidence, 0.0)
+    return (torch.cat([out_rgb, out_a[..., None]], dim=-1), out_invz2,
+            hit_confidence)
 
 
 def _pixel_grid(out_w: int, out_h: int, device):
@@ -150,6 +184,39 @@ def _pixel_grid(out_w: int, out_h: int, device):
     s2x = u[None, :].expand(out_h, out_w) - 0.5
     s2y = v[:, None].expand(out_h, out_w) - 0.5
     return s2x, s2y
+
+
+def target_transform(f2: float, out_w: int, out_h: int, skew2):
+    """FSKR2 = focal(f2/oRes) @ skew(sk2), the render camera's transform
+    (rayCastMonoLDI.glsl:332), built on the host in float32."""
+    return mm(
+        mat_from_focal(_F32(f2) / _F32(out_w), _F32(f2) / _F32(out_h)),
+        mat_from_skew(skew2[0], skew2[1]),
+    )
+
+
+def cast_view(rgb, disp, mask, layer_res, invz_min, invz_max, focal, skew1,
+              c1, rot1, fskr2, s2x, s2y, background_rgb, num_layers: int,
+              feathering: float, num_steps: int, mask_mode: str):
+    """raycast_layer over the first num_layers layers of one projector,
+    front layer first: yields each layer's (rgba, invz2, confidence). The
+    per-layer source transform FSKR1 = focal(f1/iRes) @ skew(sk1) @
+    flipZ R1^T flipZ is built on the host (rayCastMonoLDI.glsl:316-326);
+    arguments as render_mono's, fskr2 from target_transform."""
+    skr1 = mm(mat_from_skew(skew1[0], skew1[1]), shader_rotation(rot1))
+    c_rel = -torch.as_tensor(np.asarray(c1, np.float32))  # c2 = 0
+    layer_res = np.asarray(layer_res, np.float32)
+    for i in range(num_layers):
+        res_w, res_h = float(layer_res[i, 0]), float(layer_res[i, 1])
+        fi = _F32(focal[i])
+        fskr1 = mm(mat_from_focal(fi / _F32(res_w), fi / _F32(res_h)), skr1)
+        yield raycast_layer(
+            s2x, s2y, mm(fskr1, inv3(fskr2)), fskr1 @ c_rel,
+            rgb[i], disp[i], mask[i],
+            float(invz_min[i]), float(invz_max[i]), res_w, res_h,
+            background_rgb, feathering,
+            num_steps=num_steps, mask_mode=mask_mode,
+        )
 
 
 def render_mono(
@@ -196,42 +263,14 @@ def render_mono(
     """
     device = rgb.device
     s2x, s2y = _pixel_grid(out_w, out_h, device)
-    skr1 = mm(mat_from_skew(skew1[0], skew1[1]), shader_rotation(rot1))
-    fskr2 = mm(
-        mat_from_focal(_F32(f2) / _F32(out_w), _F32(f2) / _F32(out_h)),
-        mat_from_skew(skew2[0], skew2[1]),
-    )
-    c_rel = -torch.as_tensor(np.asarray(c1, np.float32))  # c2 = 0
     background = torch.as_tensor(
         np.asarray(background, np.float32), device=device
     )
-    layer_res = np.asarray(layer_res, np.float32)
-
-    out_rgb = out_a = None
-    for i in range(num_layers):
-        res_w, res_h = float(layer_res[i, 0]), float(layer_res[i, 1])
-        fi = _F32(focal[i])
-        fskr1 = mm(mat_from_focal(fi / _F32(res_w), fi / _F32(res_h)), skr1)
-        layer = raycast_layer(
-            s2x, s2y, mm(fskr1, inv3(fskr2)), fskr1 @ c_rel,
-            rgb[i], disp[i], mask[i],
-            float(invz_min[i]), float(invz_max[i]), res_w, res_h,
-            background[:3], feathering,
-            num_steps=num_steps, mask_mode=mask_mode,
-        )
-        # front-to-back over-compositing (rayCastMonoLDI.glsl:338-358)
-        la = layer[..., 3]
-        if out_rgb is None:
-            out_rgb = layer[..., :3] * la[..., None]
-            out_a = la
-        else:
-            out_rgb = out_rgb + (1.0 - out_a[..., None]) * la[..., None] * layer[..., :3]
-            out_a = la + out_a * (1.0 - la)
-
-    # background blend (rayCastMonoLDI.glsl:361-362)
-    bg_rgb, bg_a = background[:3], background[3]
-    out_rgb = bg_rgb * bg_a * (1.0 - out_a[..., None]) + out_rgb
-    out_a = bg_a + out_a * (1.0 - bg_a)
-    if to_srgb:
-        out_rgb = linear_to_srgb(out_rgb)
-    return torch.cat([out_rgb, out_a[..., None]], dim=-1)
+    acc = None
+    for layer, _, _ in cast_view(
+        rgb, disp, mask, layer_res, invz_min, invz_max, focal, skew1, c1,
+        rot1, target_transform(f2, out_w, out_h, skew2), s2x, s2y,
+        background[:3], num_layers, feathering, num_steps, mask_mode,
+    ):
+        acc = _composite.over(acc, layer)
+    return _composite.finish_over_background(*acc, background, to_srgb)

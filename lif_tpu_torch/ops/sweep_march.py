@@ -42,6 +42,7 @@ from .sweep_target import SKIP_SLACK, WARP
 
 __all__ = [
     "TranslationPlan",
+    "erode_mask_for_stereo",
     "hit_and_alpha",
     "march_translation_plain",
     "march_translation_skip_plain",
@@ -314,6 +315,32 @@ def preshift_source(arr, dx: float, dy: float):
     ys1 = torch.clamp(ys + 1, 0, h - 1)
     g = a[:, xs] * (1.0 - fx) + a[:, xs1] * fx
     return g[ys] * (1.0 - fy) + g[ys1] * fy
+
+
+def erode_mask_for_stereo(mask):
+    """Stereo's discard mask, precomputed: the minimum of the 9 bilinear
+    mask reads at +-1.5-texel offsets of isMaskAround
+    (rayCastStereoLDI.glsl:147-158). A read 1.5 texels out along an axis
+    is the mean of the texels 1 and 2 out (lif_tpu takes the same mean
+    along each diagonal), so warping the eroded map and thresholding it at
+    0.5 reproduces the shader's any-read-below-0.5 discard, exactly on
+    binary masks away from the 1-texel bleed band. The shifts clamp at the
+    edges like the shader's reads; a wrap would bleed a masked top edge
+    into the bottom rows. mask: (H, W); returns (H, W) float32."""
+    m = mask.to(torch.float32)
+    h, w = m.shape
+    p = _edge_pad(m, (2, 2), (2, 2))
+
+    def shift(dy, dx):
+        return p[2 + dy : 2 + dy + h, 2 + dx : 2 + dx + w]
+
+    out = m
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                out = torch.minimum(
+                    out, 0.5 * (shift(dy, dx) + shift(2 * dy, 2 * dx)))
+    return out
 
 
 def hit_and_alpha(

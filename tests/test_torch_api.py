@@ -338,7 +338,8 @@ def test_render_trajectory_fast_matches_lif_tpu(rng, tmp_path):
 
 def test_viewer_main_on_cpu(rng, tmp_path):
     """The CLI loads a LIF, orbits about its orbit centre on the fast path
-    and writes the frames; --render stereo raises NotImplementedError."""
+    and writes the frames; --render stereo on this one-view LIF raises
+    lif_tpu's two-projector ValueError."""
     path = tmp_path / "scene.lif"
     path.write_bytes(make_lif(rng, w=32, h=24,
                               stereo_data={"invd": 0.1}))
@@ -346,8 +347,9 @@ def test_viewer_main_on_cpu(rng, tmp_path):
     assert viewer.main([str(path), "--frames", "3", "--sweep", "4",
                         "--out", str(out), "--device", "cpu"]) == 0
     assert len(list(out.glob("frame_*.png"))) == 3
-    with pytest.raises(NotImplementedError, match="stereo"):
-        viewer.main([str(path), "--render", "stereo", "--device", "cpu"])
+    with pytest.raises(ValueError, match="stereo mode needs two"):
+        viewer.main([str(path), "--render", "stereo", "--frames", "1",
+                     "--out", str(out), "--device", "cpu"])
 
 
 def test_synthesize_projector_matches_lif_tpu(rng):

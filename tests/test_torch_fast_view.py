@@ -111,7 +111,7 @@ def test_fast_view_matches_lif_tpu(rng, case, to_srgb, tol):
 def test_fast_mode_and_routes(rng, monkeypatch):
     """render(mode='fast') is render_fast_view; the y-only pose takes the
     transposed projector and the lateral march (one march per layer), a
-    dolly the batch path; the stereo modes still raise."""
+    dolly the batch path; the stereo modes need two projectors."""
     _, tp = _projectors(rng)
     cam = lif_tpu_torch.Camera.create(128, 64, focal_px=0.78 * 128,
                                       position=[0.0, 0.02, 0.0])
@@ -127,8 +127,8 @@ def test_fast_mode_and_routes(rng, monkeypatch):
     assert torch.equal(lif_tpu_torch.render_fast_view(tp, dolly),
                        lif_tpu_torch.render_fast_batch(tp, [dolly])[0])
     for mode in ("stereo", "stereo_fast"):
-        with pytest.raises(NotImplementedError, match=mode):
-            lif_tpu_torch.render([tp, tp], cam, mode=mode)
+        with pytest.raises(ValueError, match=f"{mode} mode needs two"):
+            lif_tpu_torch.render([tp], cam, mode=mode)
 
 
 def test_fast_view_unported_options_raise(rng):

@@ -186,10 +186,12 @@ def test_uncovered_poses_raise_not_implemented(rng, case):
     """Anything no ported tier covers raises NotImplementedError naming
     what it needs; it never returns a silent wrong image. A rotation, a
     y/z translation or a mismatched focal past every march tier's budget
-    is lif_tpu's 'sweep' fallback, which the port does not have."""
+    is lif_tpu's 'sweep' fallback, which the port does not have; the
+    stereo fast path, like the mono batch, has only the snap plane
+    mode."""
     jp, tp = _projectors(rng, h=32, w=64)
     kw = {}
-    if case == "uniform_planes":
+    if case in ("uniform_planes", "stereo_mode"):
         kw = dict(config=lif_tpu_torch.DEFAULT_CONFIG.replace(
             plane_mode="uniform"))
     elif case == "sweep_method":
@@ -201,12 +203,12 @@ def test_uncovered_poses_raise_not_implemented(rng, case):
         assert tuple(jt) == ("sweep",)
     match = {
         "uniform_planes": "snap", "sweep_method": "sweep",
-        "stereo_mode": "stereo",
+        "stereo_mode": "snap",
     }.get(case, "sweep")
     cam = _case_camera(lif_tpu_torch, case, beyond)
     with pytest.raises(NotImplementedError, match=match):
         if case == "stereo_mode":
-            lif_tpu_torch.render([tp, tp], cam, mode="stereo")
+            lif_tpu_torch.render([tp, tp], cam, mode="stereo_fast", **kw)
         else:
             lif_tpu_torch.render_fast_batch(tp, [cam], **kw)
 

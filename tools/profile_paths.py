@@ -2,23 +2,27 @@
 """Where the time goes on one CUDA card, for the drives of chip_smoke.py.
 
 Run from the repository root: ``python3 tools/profile_paths.py [drive ...]``
-with drives from lateral, orbit, dolly, tilt, billboard, view0 and view1
-(default: all seven). Each of the first five renders chip_smoke.py's pose
-batch through render_fast_batch (billboard: render_billboard_fast_batch
-over the lateral drive's 96 poses) on chip_smoke.py's seeded 1280x800
-scene; view0 and view1 render ONE frame with render(mode='fast') at
-BASELINE config 0's x = 0.135 m on view 0 (one skewed layer) and view 1
-(the 3-layer outpainted LDI) of chip_smoke.py's main-path-8 LIF, loaded
-with load_lif_file. Each drive prints:
+with drives from lateral, orbit, dolly, tilt, billboard, view0, view1 and
+stereo (default: all eight). Each of the first five renders
+chip_smoke.py's pose batch through render_fast_batch (billboard:
+render_billboard_fast_batch over the lateral drive's 96 poses) on
+chip_smoke.py's seeded 1280x800 scene; view0 and view1 render ONE frame
+with render(mode='fast') at BASELINE config 0's x = 0.135 m on view 0
+(one skewed layer) and view 1 (the 3-layer outpainted LDI) of
+chip_smoke.py's main-path-8 LIF, loaded with load_lif_file; stereo
+renders main path 9's 60 pairs (120 cameras) through
+render_stereo_fast_batch on chip_smoke.py's stereo LIF. Each drive
+prints:
 
 - the call's device time (CUDA events around the call, median of 5 after
   2 warm-up calls) and its host wall time;
 - stage times: CUDA events around each stage's function, median over the
   same 5 calls (the scaled and target marches with their kernel, the
   packed color fetch, the rotated tier's corner fetch and bracket march,
-  the billboard's input stack, kernel and epilogue, and the lateral
-  march's skew pre-shift, source stack, kernel with its tables and
-  _finalize); the rest of the call is the epilogue, planning and glue;
+  the billboard's input stack, kernel and epilogue, the lateral march's
+  skew pre-shift, source stack, kernel with its tables and _finalize,
+  the stereo eyes' stretch confidence and fill/blend, and the renderer's
+  compositing epilogue); the rest of the call is planning and glue;
 - torch.profiler over 3 calls: the kernels' device time per call, the
   device's idle share (1 - kernel time / call time) and the kernels that
   take the most device time.
@@ -38,7 +42,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRIVES = ("lateral", "orbit", "dolly", "tilt", "billboard", "view0",
-          "view1")
+          "view1", "stereo")
 
 
 def _events():
@@ -51,9 +55,12 @@ def _events():
 def instrument(stages: dict):
     """Wrap each stage's function (in every module that calls it) so that
     CUDA events bracket it; the event pairs collect in `stages`."""
+    import types
+
     from lif_tpu_torch.models import renderer
-    from lif_tpu_torch.ops import (rotated_march, splat_march, sweep_march,
-                                   sweep_scaled, sweep_target)
+    from lif_tpu_torch.ops import (composite, rotated_march, splat_march,
+                                   stereo, sweep_march, sweep_scaled,
+                                   sweep_target)
     from lif_tpu_torch.ops.cuda import sweep_march as kmarch
 
     def timed(label, fn):
@@ -81,8 +88,19 @@ def instrument(stages: dict):
         (renderer, "prepare_translation_src", "march source stack"),
         (kmarch, "march_translation_cuda", "lateral march (kernel, tables)"),
         (kmarch, "_finalize", "lateral _finalize"),
+        (renderer, "_stretch_conf", "stereo stretch confidence"),
+        (stereo, "occlusion_blend", "stereo fill/blend"),
     ):
         setattr(mod, name, timed(label, getattr(mod, name)))
+    # the renderer's own compositing epilogue: a copy of the composite
+    # module for the renderer alone, so the tiers' epilogues (inside the
+    # stages above) are not timed twice
+    renderer._composite = types.SimpleNamespace(
+        **{name: getattr(composite, name) for name in composite.__all__})
+    for name in ("over", "finish_over_background"):
+        setattr(renderer._composite, name,
+                timed("renderer epilogue (over, finish_over_background)",
+                      getattr(composite, name)))
 
 
 def drive_cameras(cs, lt, focal, drive):
@@ -121,6 +139,8 @@ def drive_call(lt, drive):
     """The entry point a drive calls, as fn(proj, cams)."""
     if drive == "billboard":
         return lt.render_billboard_fast_batch
+    if drive == "stereo":
+        return lambda pair, cams: lt.render_stereo_fast_batch(*pair, cams)
     if drive.startswith("view"):
         return lambda proj, cams: lt.render(proj, cams[0], mode="fast")
     method = "march" if drive == "lateral" else "auto"
@@ -133,6 +153,9 @@ def profile_drive(lt, proj, cams, drive, card, stages):
     render = drive_call(lt, drive)
     if drive == "billboard":
         tiers = ("billboard",)
+    elif drive == "stereo":
+        tiers = lt.render_stereo_fast_batch(*proj, cams,
+                                            return_tiers=True)[1]
     elif drive.startswith("view"):
         tiers = ("march",) * proj.num_layers  # the lateral route
     else:
@@ -213,10 +236,12 @@ def main(argv) -> int:
         device=torch.device("cuda", 0),
     )
     focal = float(proj.focal[0])
-    views = center = None
+    views = center = pair = None
     if any(d.startswith("view") for d in drives):
         loaded = lt.load_lif_file(cs.make_lif(0))
         views, center = loaded.projectors, loaded.orbit_center
+    if "stereo" in drives:
+        pair = lt.load_lif_file(cs.make_stereo_lif(0)).projectors[:2]
     stages: dict = {}
     instrument(stages)
     for drive in drives:
@@ -224,6 +249,10 @@ def main(argv) -> int:
             view = views[int(drive[4:])]
             cams = [cs.lif_cams(lt, view, center)["lateral"]]
             profile_drive(lt, view, cams, drive, card, stages)
+        elif drive == "stereo":
+            cams = cs.stereo_cams(lt, float(pair[0].focal[0]),
+                                  float(pair[0].baseline) / 2.0)["pairs"]
+            profile_drive(lt, pair, cams, drive, card, stages)
         else:
             profile_drive(lt, proj, drive_cameras(cs, lt, focal, drive),
                           drive, card, stages)
