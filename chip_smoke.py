@@ -136,9 +136,24 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     march packs holding both masks. Every launch is held to the plain
     versions on its own inputs (the pair batch's launches on 4 poses
     each).
+20. main path 10 (multi-projector fusion, BASELINE config 4): four
+    projectors synthesized from make_scene(0) at x = 0.02 i m by the port
+    on the CPU (make_fusion_projectors), moved to the card and resampled
+    there to 3840x2160 (scale 3, center crop); render_fused_fast_batch
+    at four cameras x = 0.05 + 0.002 j m, counts reset just before:
+    exactly 4 lateral launches (one per projector) and no other kernel's,
+    finite output, coverage in (0.5, 1], the peak device memory; each
+    launch held to the plain versions on its own inputs (2 poses each);
+    a second call reusing every texture entry and march pack, its frames
+    equal to the first; the frames equal to their plain-version render
+    (plain_lateral); fused frames/s by CUDA events (median of 5 after a
+    warm-up) at 4 cameras and at 1; at 1280x800, the fused frame at x =
+    0.05 m against the port's 640-step render_fused_projectors at the
+    default fuse_tol and at 0.1, each at most 1 dB under lif_tpu's value
+    on the same projectors (tools/reference_fused_psnr.py).
 
 Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1), main
-paths 8 and 9 each step's against the tiers it took. The
+paths 8, 9 and 10 each step's against the tiers it took. The
 second-to-last line is the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, as the source note of its .cu file counts them, a march's
@@ -253,6 +268,23 @@ STEREO_TIERS = {"pairs": "march", "mid": "march", "yaw": "target",
                 "offaxis": "scaled", "skewed": "march"}
 STEREO_LIF_SHA256 = (
     "00bf3b14560350d8a1cab34073b639181a4e13d99d00b6996bbd3d729bf7251f")
+# main path 10 (BASELINE config 4, bench_configs.py:540-600): four
+# projectors synthesized from make_scene(0) at x = FUSED_DX i, resampled
+# to 3840x2160, fused at four cameras x = FUSED_CAM_X + FUSED_CAM_DX j;
+# fidelity at 1280x800 against the FUSED_STEPS-step exact fused oracle at
+# each fuse_tol point (None: the config default)
+N_FUSED = 4
+FUSED_DX = 0.02  # m between projectors
+FUSED_CAM_X, FUSED_CAM_DX = 0.05, 0.002  # m
+W4, H4 = 3840, 2160
+FUSED_SCALE = W4 / W
+FUSED_STEPS = 640
+FUSE_TOLS = {"default": None, "0.1": 0.1}
+# lif_tpu's render_fused_fast_batch on the same four 1280x800 projectors
+# at x = FUSED_CAM_X against its own FUSED_STEPS-step
+# render_fused_projectors at the same fuse_tol, dB; JAX on the CPU
+# (tools/reference_fused_psnr.py)
+LIF_TPU_FUSED_PSNR = {"default": 50.165, "0.1": 52.919}
 # the H100 SXM's published peaks: HBM bytes/s and FP32 operations/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -438,6 +470,23 @@ def make_stereo_lif(seed: int = 0) -> bytes:
     meta = {"views": [left, right], "baseline_mm": BASELINE * 1e3,
             "stereo_render_data": {"invd": BASELINE / LIF_CONVERGENCE}}
     return container.write(image, meta, blobs)
+
+
+def make_fusion_projectors(seed: int = 0):
+    """Main path 10's four 1280x800 projectors: make_scene(seed) as a
+    projector at the origin (focal 0.78 W, INVZ_FAR..INVZ_NEAR, the
+    baseline), and from it one projector synthesized at x = FUSED_DX i
+    (synthesize_projector: the fast view and its solved depth there) by
+    the port ON THE CPU, so they do not depend on the card
+    (bench_configs.py:548-553). Returns the CPU projectors."""
+    import lif_tpu_torch as lt
+
+    rgb, disp = make_scene(seed)
+    base = lt.projector_from_arrays(
+        rgb, disp, focal_px=0.78 * W, invz_min=INVZ_NEAR, invz_max=INVZ_FAR,
+        baseline=BASELINE, device="cpu")
+    return [lt.synthesize_projector(base, [FUSED_DX * i, 0.0, 0.0])
+            for i in range(N_FUSED)]
 
 
 def stereo_cams(lt, focal, eye):
@@ -711,15 +760,16 @@ def run():
     scaled = scaled_phases(proj, focal, lay, reset_counts, card)
     billboard = billboard_phases(proj, focal, lay, cams, reset_counts,
                                  launch_counts, card)
-    # main paths 8 and 9 held each launch to the plain versions: their
+    # main paths 8, 9 and 10 held each launch to the plain versions: their
     # worst errors join each kernel's record
     errs, views = lif_phase(reset_counts, launch_counts, card)
     errs9 = stereo_phase(reset_counts, launch_counts, card, views[1])
+    errs10 = fusion_phase(reset_counts, launch_counts, card)
     kernels = [lateral, target, scaled, billboard]
     for rec in kernels:
         rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 errs.get(rec["name"], 0.0),
-                                 errs9.get(rec["name"], 0.0))
+                                 *(e.get(rec["name"], 0.0)
+                                   for e in (errs, errs9, errs10)))
         rec["launches_by_path"] = {
             path: counts[rec["name"]]
             for path, counts in LAUNCHES_BY_PATH.items()
@@ -1768,6 +1818,143 @@ def stereo_phase(reset_counts, launch_counts, card, ldi):
         check(held == {id(lay["mask"]), id(lay["eroded_mask"])},
               "the march packs do not hold both masks")
     return path9.errs
+
+
+def fusion_phase(reset_counts, launch_counts, card):
+    """Phase 20, main path 10: multi-projector fusion, BASELINE config 4
+    (see the module note). Every step zeroes the launch counts just
+    before it and checks them just after, exactly, and holds each launch
+    it made to the lateral kernel's plain versions on that launch's
+    inputs. Returns {kernel: max abs against its plain versions}."""
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.parallel.sharding import render_fused_projectors
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    path10 = MainPath("main path 10", reset_counts, launch_counts)
+    dev = torch.device("cuda", 0)
+
+    # the projectors: synthesized on the CPU, moved to the card, resampled
+    # there to 3840x2160 (bench_configs.py:548-557)
+    t0 = time.perf_counter()
+    projs1k = [p.to(dev) for p in make_fusion_projectors(0)]
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    projs4 = [lt.resample_projector(p, FUSED_SCALE, out_w=W4, out_h=H4,
+                                    device=dev) for p in projs1k]
+    torch.cuda.synchronize()
+    resample_s = time.perf_counter() - t0
+    focal4 = float(projs4[0].focal[0])
+    print(f"main path 10: {N_FUSED} projectors synthesized on the CPU at x "
+          f"= {[round(float(p.position[0]), 4) for p in projs1k]} m in "
+          f"{synth_s:.2f} s, resampled on the card to {W4}x{H4} in "
+          f"{resample_s:.2f} s (focal {focal4:.1f} px)", flush=True)
+    for p in projs4:
+        check(p.disp.device.type == "cuda", "4K textures not on the card")
+        check(tuple(np.asarray(p.layer_res)[0]) == (W4, H4),
+              f"4K layer dims {np.asarray(p.layer_res)[0].tolist()}")
+    cams4 = [lt.Camera.create(W4, H4, focal_px=focal4, position=[
+        FUSED_CAM_X + FUSED_CAM_DX * j, 0.0, 0.0]) for j in range(N_FUSED)]
+    want = path10.expect(("march",) * N_FUSED)
+
+    # the 4K batch, first call (cold caches), launches counted
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out, counts, calls = path10.counted(lt.render_fused_fast_batch, projs4,
+                                        cams4)
+    end.record()
+    torch.cuda.synchronize()
+    first_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    coverage = float(out[..., 3].mean())
+    plans = [(a["num_planes"], a["plan"].pad_lo_x, a["plan"].src_w)
+             for _, a, _ in calls]
+    print(f"main path 10: render_fused_fast_batch({N_FUSED} projectors, "
+          f"{len(cams4)} cameras at {W4}x{H4}) -> {tuple(out.shape)}, "
+          f"launches {counts}, alpha coverage {coverage:.4f}; first call "
+          f"{first_ms:.1f} ms (cold caches); peak device memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated; "
+          f"{resident / 2**30:.2f} GiB resident before the call); per launch "
+          f"(K, pad_lo_x, src_w) {plans}", flush=True)
+    check(counts == want, f"4K fused launches {counts}")
+    check(len(calls) == N_FUSED, f"{len(calls)} recorded calls")
+    check(tuple(out.shape) == (N_FUSED, H4, W4, 4), "4K fused output shape")
+    check(bool(torch.isfinite(out).all()), "non-finite 4K fused output")
+    check(0.5 < coverage <= 1.0, f"4K fused alpha coverage {coverage}")
+    path10.held(calls, "the 4K batch", poses=2)
+    del calls
+
+    # the second call reuses the texture cache entries and march packs
+    packs = [[dict(lay["march_packs"]) for lay in
+              renderer._prepared_textures(p)] for p in projs4]
+    start.record()
+    again, counts, _ = path10.counted(lt.render_fused_fast_batch, projs4,
+                                      cams4)
+    end.record()
+    torch.cuda.synchronize()
+    second_ms = start.elapsed_time(end)
+    reused = all(
+        lay["march_packs"].keys() == old.keys()
+        and all(lay["march_packs"][k][1] is v[1] for k, v in old.items())
+        for p, olds in zip(projs4, packs)
+        for lay, old in zip(renderer._prepared_textures(p), olds))
+    print(f"main path 10: second call {second_ms:.1f} ms (first "
+          f"{first_ms:.1f}), launches {counts}, texture entries and march "
+          f"packs reused {reused}, frames equal {torch.equal(again, out)}",
+          flush=True)
+    check(counts == want, f"second 4K fused call launches {counts}")
+    check(reused, "the second call rebuilt a texture entry or a march pack")
+    check(torch.equal(again, out), "the second 4K call differs")
+    del again, packs
+    with plain_lateral():
+        twin = lt.render_fused_fast_batch(projs4, cams4)
+    torch.cuda.synchronize()
+    err = float((out - twin).abs().max())
+    print(f"main path 10: the 4K batch against its plain-version render "
+          f"(the lateral tier's plain march, no cached pack): max abs "
+          f"{err:.3g}", flush=True)
+    check(torch.equal(out, twin), "the 4K fused frames are not their "
+                                  "plain-version render")
+    del out, twin
+    torch.cuda.empty_cache()
+
+    # timing: CUDA events, median of 5 after a warm-up
+    batch_ms = device_timer(lt.render_fused_fast_batch, projs4, cams4,
+                            iters=1, repeats=5)
+    one_ms = device_timer(lt.render_fused_fast_batch, projs4, cams4[:1],
+                          iters=1, repeats=5)
+    print(f"main path 10: render_fused_fast_batch at {W4}x{H4}: "
+          f"{batch_ms:.3f} ms per {len(cams4)} cameras = "
+          f"{len(cams4) / (batch_ms / 1e3):.2f} fused frames/s; batch of 1 "
+          f"{one_ms:.3f} ms = {1e3 / one_ms:.2f} frames/s; peak device "
+          f"memory {peak / 2**30:.2f} GiB [{card}]", flush=True)
+
+    # fidelity at 1280x800 against the exact fused oracle
+    cam = lt.Camera.create(W, H, focal_px=float(projs1k[0].focal[0]),
+                           position=[FUSED_CAM_X, 0.0, 0.0])
+    for name, tol in FUSE_TOLS.items():
+        cfg = lt.DEFAULT_CONFIG.replace(
+            fuse_tol=lt.DEFAULT_CONFIG.fuse_tol if tol is None else tol)
+        fast, counts, calls = path10.counted(
+            lt.render_fused_fast_batch, projs1k, [cam], config=cfg)
+        check(counts == want, f"fuse_tol {name}: launches {counts}")
+        check(bool(torch.isfinite(fast).all()), "non-finite fused frame")
+        path10.held(calls, f"the {W}x{H} fused frame at fuse_tol {name}")
+        exact = render_fused_projectors(projs1k, cam, num_steps=FUSED_STEPS,
+                                        fuse_tol=cfg.fuse_tol)
+        q, ref_db = psnr(fast[0], exact), LIF_TPU_FUSED_PSNR[name]
+        print(f"main path 10: {W}x{H} fused frame at x = {FUSED_CAM_X} m, "
+              f"fuse_tol {name} ({cfg.fuse_tol:g}): launches {counts}, "
+              f"{q:.3f} dB against the {FUSED_STEPS}-step "
+              f"render_fused_projectors (lif_tpu {ref_db:.3f}), alpha "
+              f"coverage {float(fast[..., 3].mean()):.4f}", flush=True)
+        check(q >= ref_db - 1.0, f"fused fuse_tol {name}: {q:.3f} dB, "
+                                 f"lif_tpu {ref_db}")
+    return path10.errs
 
 
 def main() -> int:

@@ -18,7 +18,10 @@ render_billboard_fast_batch (the billboard splat as a row z-buffer
 scatter); the stereo modes, render_stereo_view (render(mode='stereo'),
 the exact two-view march) and render_stereo_fast /
 render_stereo_fast_batch (render(mode='stereo_fast'), the same blend on
-the march tiers); models.scene (LayerGroup, Scene) and apps.viewer.
+the march tiers); multi-projector fusion, render_fused_fast /
+render_fused_fast_batch (the nearest-surface merge on the lateral march)
+and its exact oracle parallel.sharding.render_fused_projectors (one
+process); models.scene (LayerGroup, Scene) and apps.viewer.
 As in lif_tpu, the top level exports the render and load entry points;
 the tiers' functions stay in lif_tpu_torch.ops. It imports neither jax
 nor lif_tpu.
@@ -54,6 +57,8 @@ from .models.renderer import (  # noqa: F401
     render_depth_fast,
     render_fast_batch,
     render_fast_view,
+    render_fused_fast,
+    render_fused_fast_batch,
     render_mono_view,
     render_stereo_fast,
     render_stereo_fast_batch,

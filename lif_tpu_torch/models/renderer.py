@@ -28,6 +28,11 @@ through the same tiers with their raw outputs (raw=True of
 _layer_tier_batch: colour, alpha, hit, invz*), add the stretch-mark
 confidence (_stretch_conf) and fill and blend the eyes as the exact
 kernel does; LDI eyes march the eroded stereo mask (_eroded_mask).
+Multi-projector fusion: render_fused_fast_batch and render_fused_fast
+march every layer of every projector on the lateral tier with its raw
+outputs, composite each projector's LDI and merge the projectors at the
+frontmost surface (_fusion_weights, config.fuse_tol); the exact fused
+oracle is parallel.sharding.render_fused_projectors.
 A pose, layer or option that needs what the port does not have yet (the
 'sweep' fallback, ...) raises NotImplementedError naming it; nothing
 falls back to an approximate tier.
@@ -68,6 +73,7 @@ from .projector import Projector
 __all__ = ["BillboardPlan", "RenderMode", "TierPlan", "plan_billboard",
            "plan_tiers", "render", "render_billboard_fast_batch",
            "render_depth_fast", "render_fast_batch", "render_fast_view",
+           "render_fused_fast", "render_fused_fast_batch",
            "render_mono_view", "render_stereo_fast",
            "render_stereo_fast_batch", "render_stereo_view"]
 
@@ -1529,6 +1535,213 @@ def _stretch_conf(lay, c1_b, rot_b, hit, invz, f2, out_w, out_h):
             > float(_F32(2.8) * dv))
     kill = kill.repeat_interleave(ds, 1).repeat_interleave(ds, 2)
     return torch.where(kill & (hit > 0.5), 0.0, 1.0)
+
+
+def render_fused_fast(projectors: Sequence[Projector], camera: Camera, **kw):
+    """Multi-projector nearest-depth fusion at one pose: a batch of one
+    (render_fused_fast_batch)."""
+    return render_fused_fast_batch(projectors, [camera], **kw)[0]
+
+
+class _FusedView(NamedTuple):
+    """One projector of render_fused_fast_batch, planned: its relative
+    pose batch, its mask mode and, per layer, the march's layer dict (with
+    the per-pose snap grids and the skew fold's `doff`), plan and plane
+    count."""
+
+    pos_b: np.ndarray  # (B, 3) relative projector positions
+    mask_mode: str
+    layers: list
+    plans: list
+    nums: list
+
+
+def render_fused_fast_batch(
+    projectors: Sequence[Projector],
+    cameras: Sequence[Camera],
+    background=None,
+    feathering: float | None = None,
+    to_srgb: bool | None = None,
+    num_planes: int | None = None,
+    mask_mode: str | None = None,
+    config: RenderConfig | None = None,
+):
+    """Multi-projector nearest-depth fusion on the lateral march for a
+    batch of poses: lif_tpu's render_fused_fast_batch, the single-device
+    counterpart of parallel.sharding.render_fused_projectors (the same
+    merge on the exact march). Returns (B, H, W, 4) on the projectors'
+    device (GL-oriented).
+
+    Per projector: every LDI layer is marched with its raw outputs (on
+    CUDA the lateral kernel, one launch per projector, layer and pose
+    chunk), composited front to back with the reference mask semantics
+    (mask_mode None: 'multiply' for an LDI projector, else 'none'), and
+    the frontmost hit's ABSOLUTE inverse depth (the march's invz* on the
+    baseline-normalized range, comparable across projectors) is kept.
+    Across projectors: candidates within config.fuse_tol relative inverse
+    depth of the frontmost surface blend with triangular weights
+    (_fusion_weights; fuse_tol=0 is the hard nearest-wins merge with
+    exact ties averaged). Frustum skew (sk1 per projector, a shared sk2)
+    folds into each projector's march as in render_fast_batch.
+
+    Every projector must take every camera laterally (no relative
+    rotation, x-only translation) on march-eligible layers whose dims
+    equal the camera's with an 8-divisible width; the cameras must share
+    width, height, focal and skew. Other poses take
+    parallel.sharding.render_fused_projectors. Batches beyond
+    config.pose_chunk render in balanced chunks. lif_tpu's uniform and
+    hybrid plane modes raise NotImplementedError, as the mono and stereo
+    batches do."""
+    cfg = config or DEFAULT_CONFIG
+    background = cfg.background if background is None else background
+    feathering = cfg.feathering if feathering is None else feathering
+    to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
+    if len(cameras) == 0:
+        raise ValueError("render_fused_fast_batch needs at least one camera")
+    cam0 = cameras[0]
+    f2_host = float(cam0.focal_px)
+    sk2 = np.asarray(cam0.skew, np.float64)
+    for cam in cameras[1:]:
+        if (
+            cam.width != cam0.width
+            or cam.height != cam0.height
+            or abs(float(cam.focal_px) - f2_host) > 1e-6
+            or not np.allclose(np.asarray(cam.skew), sk2)
+        ):
+            raise ValueError(
+                "render_fused_fast_batch cameras must share "
+                "width/height/focal/skew"
+            )
+    if cfg.plane_mode != "snap":
+        raise NotImplementedError(
+            f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
+            "ported"
+        )
+
+    views = []
+    for proj in projectors:
+        pos_list = []
+        for cam in cameras:
+            pos_np, rot_np = relative_view_pose(
+                proj.position, proj.rotation, cam.position, cam.rotation,
+            )
+            if not np.allclose(rot_np, np.eye(3), atol=1e-5) or (
+                abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
+            ):
+                raise ValueError(
+                    "render_fused_fast needs lateral poses; use "
+                    "parallel.sharding.render_fused_projectors for "
+                    "arbitrary poses"
+                )
+            pos_list.append(pos_np)
+        pos_b = np.stack(pos_list)
+        max_cx = float(np.abs(pos_b[:, 0]).max())
+        view = _FusedView(
+            pos_b, mask_mode or ("multiply" if proj.num_layers > 1
+                                 else "none"), [], [], [])
+        for lay in _prepared_textures(proj):
+            if not _march_eligible(lay, f2_host, cam0.width, cam0.height) or (
+                lay["w"] != cam0.width or lay["h"] != cam0.height
+            ):
+                raise ValueError(
+                    "render_fused_fast needs matched focal/dims per layer "
+                    "and an 8-divisible width"
+                )
+            plan, _, phase, doff = _march_fold(
+                lay, proj.skew, sk2, max_cx, cam0.width, cam0.height, 0.0)
+            tab, k_l = _snap_tables(lay, pos_b[:, 0], num_planes, phase,
+                                    cfg.march_stride, proj.device)
+            view.layers.append(dict(lay, plane_invz=tab, doff=doff))
+            view.plans.append(plan)
+            view.nums.append(k_l)
+        views.append(view)
+    return _fused_fast_core(
+        views, background, refine=cfg.march_refine, feathering=feathering,
+        to_srgb=to_srgb, fuse_tol=float(cfg.fuse_tol),
+        pose_chunk=cfg.pose_chunk,
+    )
+
+
+def _fused_fast_core(views, background, *, refine, feathering, to_srgb,
+                     fuse_tol, pose_chunk):
+    """The body of render_fused_fast_batch: hoists each projector's march
+    source prep, then renders balanced pose chunks, each through every
+    projector's LDI composite on the raw march outputs and the
+    tolerance-blended nearest-surface merge, in lif_tpu's order of
+    operations. The (V, B, H, W, ...) merge intermediates never exceed a
+    chunk."""
+    views = [
+        view._replace(layers=_attach_march_prep(
+            view.layers, ["march"] * len(view.layers), view.plans,
+            [0] * len(view.layers)))
+        for view in views
+    ]
+    outs = []
+    for sl in _pose_chunks(len(views[0].pos_b), pose_chunk):
+        view_rgb, view_a, view_front = [], [], []
+        for view in views:
+            acc_rgb = acc_a = front = None
+            for lay, plan, k_l in zip(view.layers, view.plans, view.nums):
+                rgba, alpha, _, izs = _layer_tier_batch(
+                    _chunk_layer(lay, sl), "march", None, plan, k_l, 0,
+                    view.pos_b[sl], None, None, None, None, refine=refine,
+                    rot_refine=0, t_refine=0, feathering=feathering,
+                    mask_mode=view.mask_mode, raw=True,
+                )
+                if acc_rgb is None:
+                    acc_rgb = alpha[..., None] * rgba[..., :3]
+                    acc_a = alpha
+                    front = torch.where(alpha > 0.0, izs, 0.0)
+                else:
+                    acc_rgb = acc_rgb + (1.0 - acc_a[..., None]) * alpha[
+                        ..., None] * rgba[..., :3]
+                    new_hit = (alpha > 0.0) & (front == 0.0)
+                    front = torch.where(new_hit, izs, front)
+                    acc_a = acc_a + (1.0 - acc_a) * alpha
+            view_rgb.append(acc_rgb)
+            view_a.append(acc_a)
+            view_front.append(front)
+        color, alpha = _fuse_views(torch.stack(view_rgb),
+                                   torch.stack(view_a),
+                                   torch.stack(view_front), fuse_tol)
+        outs.append(_composite.finish_over_background(color, alpha,
+                                                      background, to_srgb))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _fuse_views(rgb_s, a_s, front_s, tol: float):
+    """The merge across a stacked view axis, shared by the fast and the
+    exact fusion (lif_tpu's, its pmax/psum as amax/sum over axis 0):
+    rgb_s (V, ..., 3) each view's premultiplied composite, a_s (V, ...)
+    its alpha, front_s (V, ...) its frontmost hit's absolute inverse
+    depth. Returns the merged (premultiplied colour, alpha), alpha 0 where
+    no view hit."""
+    hit = a_s > 0.0
+    key = torch.where(hit, front_s, -torch.inf)
+    best = key.amax(dim=0)
+    w = _fusion_weights(key, best, hit, tol)
+    wsum = torch.clamp(w.sum(dim=0), min=1e-12)
+    color = (w[..., None] * rgb_s).sum(dim=0) / wsum[..., None]
+    alpha = (w * a_s).sum(dim=0) / wsum
+    return color, torch.where(torch.isfinite(best), alpha, 0.0)
+
+
+def _fusion_weights(key, best, hit, tol: float):
+    """Per-candidate merge weights of multi-projector fusion (lif_tpu's
+    _fusion_weights, shared with parallel.sharding's merge). Triangular in
+    relative inverse-depth distance from the frontmost: w = 1 at key ==
+    best, 0 at key <= best*(1 - tol); non-hit candidates weigh 0. tol <= 0
+    is the hard nearest-wins merge (exact ties weigh 1 each). Where both
+    key and best are -inf the gap is NaN, which the clamp keeps and the
+    isfinite(key) guard removes."""
+    if tol <= 0.0:
+        return (hit & (key >= best)).to(torch.float32)
+    edge = torch.abs(best) * tol
+    gap = best - key  # >= 0; +inf for a non-hit
+    w = 1.0 - gap / torch.clamp(edge, min=1e-30)
+    w = torch.where(torch.isfinite(key), torch.clamp(w, 0.0, 1.0), 0.0)
+    # an exact tie at best == 0 (edge 0): gap 0 gives w = 1 - 0/eps = 1
+    return torch.where(hit, w, 0.0)
 
 
 def render(projectors, camera: Camera, mode: RenderMode = "raycast",

@@ -938,3 +938,47 @@ def test_mono_stereo_mono_marches_each_mask(cuda):
     for lay in trenderer._prepared_textures(pairs[1][0]):
         held = {id(mask) for mask, _ in lay["march_packs"].values()}
         assert held == {id(lay["mask"]), id(lay["eroded_mask"])}
+
+
+def test_fused_fast_on_cuda_matches_cpu(cuda):
+    """render_fused_fast_batch on the card, two 2-layer LDI projectors at
+    three poses: exactly one lateral launch per projector and layer (one
+    pose chunk), and the frames equal to the same call on CPU tensors to
+    max abs < 1e-4 outside the pixels where one projector's composited
+    alpha is > 0 on one device and 0 on the other (the merge can turn
+    such a rounding-level alpha into the winning hit), which may be at
+    most 0.1% of the pixels."""
+    h, w = 64, 128
+    cpu, card = [], []
+    for i, x in enumerate((-0.02, 0.02)):
+        rgb0, disp0, mask0 = _scene(10 + i, h, w)
+        rgb1, disp1, mask1 = _scene(20 + i, h, w)
+        proj = lif_tpu_torch.projector_from_arrays(
+            rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0,
+            invz_max=0.6, baseline=1.0, position=(x, 0.0, 0.0),
+            device="cpu",
+            extra_layers=[dict(rgb=rgb1, disp=disp1, mask=mask1,
+                               focal_px=0.78 * w, invz_min=0.5,
+                               invz_max=0.1)],
+        )
+        cpu.append(proj)
+        card.append(proj.to(cuda))
+    cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                        position=[x, 0.0, 0.0])
+            for x in (-0.01, 0.004, 0.015)]
+    ref = lif_tpu_torch.render_fused_fast_batch(cpu, cams)
+    before = tcuda.sweep_lateral.launches
+    got = lif_tpu_torch.render_fused_fast_batch(card, cams)
+    torch.cuda.synchronize()
+    assert tcuda.sweep_lateral.launches == before + 4
+    assert got.device.type == "cuda" and got.shape == ref.shape
+    flips = torch.zeros(ref.shape[:3], dtype=torch.bool)
+    for p_cpu, p_card in zip(cpu, card):
+        kw = dict(to_srgb=False, background=(0.0, 0.0, 0.0, 0.0),
+                  mask_mode="multiply")
+        a_cpu = lif_tpu_torch.render_fast_batch(p_cpu, cams, **kw)[..., 3]
+        a_card = lif_tpu_torch.render_fast_batch(p_card, cams, **kw)[..., 3]
+        flips |= (a_cpu > 0.0) != (a_card.cpu() > 0.0)
+    assert flips.float().mean().item() <= 1e-3
+    err = (got.cpu() - ref).abs().amax(-1)
+    assert err[~flips].max().item() < 1e-4

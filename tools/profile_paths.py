@@ -2,8 +2,8 @@
 """Where the time goes on one CUDA card, for the drives of chip_smoke.py.
 
 Run from the repository root: ``python3 tools/profile_paths.py [drive ...]``
-with drives from lateral, orbit, dolly, tilt, billboard, view0, view1 and
-stereo (default: all eight). Each of the first five renders
+with drives from lateral, orbit, dolly, tilt, billboard, view0, view1,
+stereo and fused (default: all nine). Each of the first five renders
 chip_smoke.py's pose batch through render_fast_batch (billboard:
 render_billboard_fast_batch over the lateral drive's 96 poses) on
 chip_smoke.py's seeded 1280x800 scene; view0 and view1 render ONE frame
@@ -11,8 +11,10 @@ with render(mode='fast') at BASELINE config 0's x = 0.135 m on view 0
 (one skewed layer) and view 1 (the 3-layer outpainted LDI) of
 chip_smoke.py's main-path-8 LIF, loaded with load_lif_file; stereo
 renders main path 9's 60 pairs (120 cameras) through
-render_stereo_fast_batch on chip_smoke.py's stereo LIF. Each drive
-prints:
+render_stereo_fast_batch on chip_smoke.py's stereo LIF; fused renders
+main path 10's 4K batch (four projectors synthesized by
+chip_smoke.make_fusion_projectors, resampled to 3840x2160, four cameras)
+through render_fused_fast_batch. Each drive prints:
 
 - the call's device time (CUDA events around the call, median of 5 after
   2 warm-up calls) and its host wall time;
@@ -21,8 +23,8 @@ prints:
   packed color fetch, the rotated tier's corner fetch and bracket march,
   the billboard's input stack, kernel and epilogue, the lateral march's
   skew pre-shift, source stack, kernel with its tables and _finalize,
-  the stereo eyes' stretch confidence and fill/blend, and the renderer's
-  compositing epilogue); the rest of the call is planning and glue;
+  the stereo eyes' stretch confidence and fill/blend, the fusion merge
+  across projectors, and the renderer's compositing epilogue); the rest of the call is planning and glue;
 - torch.profiler over 3 calls: the kernels' device time per call, the
   device's idle share (1 - kernel time / call time) and the kernels that
   take the most device time.
@@ -42,7 +44,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRIVES = ("lateral", "orbit", "dolly", "tilt", "billboard", "view0",
-          "view1", "stereo")
+          "view1", "stereo", "fused")
 
 
 def _events():
@@ -90,6 +92,7 @@ def instrument(stages: dict):
         (kmarch, "_finalize", "lateral _finalize"),
         (renderer, "_stretch_conf", "stereo stretch confidence"),
         (stereo, "occlusion_blend", "stereo fill/blend"),
+        (renderer, "_fuse_views", "fusion merge"),
     ):
         setattr(mod, name, timed(label, getattr(mod, name)))
     # the renderer's own compositing epilogue: a copy of the composite
@@ -141,6 +144,8 @@ def drive_call(lt, drive):
         return lt.render_billboard_fast_batch
     if drive == "stereo":
         return lambda pair, cams: lt.render_stereo_fast_batch(*pair, cams)
+    if drive == "fused":
+        return lt.render_fused_fast_batch
     if drive.startswith("view"):
         return lambda proj, cams: lt.render(proj, cams[0], mode="fast")
     method = "march" if drive == "lateral" else "auto"
@@ -158,6 +163,8 @@ def profile_drive(lt, proj, cams, drive, card, stages):
                                             return_tiers=True)[1]
     elif drive.startswith("view"):
         tiers = ("march",) * proj.num_layers  # the lateral route
+    elif drive == "fused":
+        tiers = ("march",) * sum(p.num_layers for p in proj)
     else:
         _, tiers = lt.render_fast_batch(
             proj, cams, method="march" if drive == "lateral" else "auto",
@@ -242,6 +249,14 @@ def main(argv) -> int:
         views, center = loaded.projectors, loaded.orbit_center
     if "stereo" in drives:
         pair = lt.load_lif_file(cs.make_stereo_lif(0)).projectors[:2]
+    if "fused" in drives:
+        projs4 = [lt.resample_projector(p.to(proj.device), cs.FUSED_SCALE,
+                                        out_w=cs.W4, out_h=cs.H4)
+                  for p in cs.make_fusion_projectors(0)]
+        focal4 = float(projs4[0].focal[0])
+        cams4 = [lt.Camera.create(cs.W4, cs.H4, focal_px=focal4, position=[
+            cs.FUSED_CAM_X + cs.FUSED_CAM_DX * j, 0.0, 0.0])
+            for j in range(cs.N_FUSED)]
     stages: dict = {}
     instrument(stages)
     for drive in drives:
@@ -253,6 +268,8 @@ def main(argv) -> int:
             cams = cs.stereo_cams(lt, float(pair[0].focal[0]),
                                   float(pair[0].baseline) / 2.0)["pairs"]
             profile_drive(lt, pair, cams, drive, card, stages)
+        elif drive == "fused":
+            profile_drive(lt, projs4, cams4, drive, card, stages)
         else:
             profile_drive(lt, proj, drive_cameras(cs, lt, focal, drive),
                           drive, card, stages)
