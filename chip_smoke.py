@@ -151,6 +151,31 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     0.05 m against the port's 640-step render_fused_projectors at the
     default fuse_tol and at 0.1, each at most 1 dB under lif_tpu's value
     on the same projectors (tools/reference_fused_psnr.py).
+21. main path 11 (the plane-sweep tier, plain torch: no kernel may
+    launch), on the scene of main paths 1-7, each drive with every launch
+    count reset just before it: render_fast_batch(method="sweep") over
+    the first 16 poses of main path 1 (40 hybrid planes, chunk 2), the
+    same with exact_color=True, render_fast_view at x = 0.135 m with a
+    zoomed camera (focal 0.9 W: the single view's per-layer fallback) and
+    render_fast_batch over 4 rotated poses no march tier covers
+    (render_rotated). Each: tiers ('sweep',) and lif_tpu's
+    TierFallbackWarnings (none for method='sweep', one each for the view
+    and the rotated batch), no launch, finite output, coverage in (0.5,
+    1], pose 0 against the 640-step march at most 1 dB under lif_tpu's
+    value (tools/reference_sweep_psnr.py), the card's pose-0 frame against
+    the CPU port's (>= 50 dB, at most 0.5% of the pixels off by > 2e-3),
+    frames/s by CUDA events (median of 5 after a warm-up) beside the
+    40-step exact march at pose 0 (its PSNR and ms: a measurement only,
+    ROADMAP item 6); then the solved invz* (solve_depth_aligned) on the
+    card against the CPU port's (at most 100 found flips, max abs 1e-4),
+    with TF32 off.
+22. main path 12 (scene fitting, no kernel): make_fit_problem's targets,
+    four poses rendered from the true disparity by the port's soft sweep
+    on the card; fit_projector from the clipped N(0, 0.15) start for
+    FIT_STEPS Adam steps (12 planes): min(last 5) < 0.85 x the first loss,
+    the fitted disparity closer to the truth than the start, the first
+    three losses within 1e-3 of lif_tpu's (tools/reference_fit.py), ms per
+    step by CUDA events and the peak device memory.
 
 Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1), main
 paths 8, 9 and 10 each step's against the tiers it took. The
@@ -285,6 +310,45 @@ FUSE_TOLS = {"default": None, "0.1": 0.1}
 # render_fused_projectors at the same fuse_tol, dB; JAX on the CPU
 # (tools/reference_fused_psnr.py)
 LIF_TPU_FUSED_PSNR = {"default": 50.165, "0.1": 52.919}
+# main path 11 (the plane-sweep tier, on the scene of main paths 1-7): the
+# first N_SWEEP poses of main path 1 with method='sweep' (the soft composite
+# and exact_color), the single view at x = SWEEP_VIEW_X with a zoomed
+# camera (focal SWEEP_VIEW_FOCAL * W: its layer is not march-eligible and
+# falls back to the sweep) and N_SWEEP_ROT rotated poses no march tier
+# covers (pitch SWEEP_ROT_DEG, yaw SWEEP_ROT_DEG * (1 + j / 4) deg at
+# (0.01 j, SWEEP_ROT_Y, 0) m: the rotated tier's phase A exceeds its y
+# window budget, and the transposed route is not yaw-family either)
+N_SWEEP = 16
+SWEEP_VIEW_X, SWEEP_VIEW_FOCAL = 0.135, 0.9  # m, x W
+SWEEP_ROT_Y, SWEEP_ROT_DEG, N_SWEEP_ROT = 0.12, 2.0, 4
+# each drive's TierFallbackWarnings (lif_tpu's counts, printed by
+# tools/reference_sweep_psnr.py): method='sweep' asked for the sweep
+SWEEP_WARNINGS = {"sweep": 0, "exact_color": 0, "view": 1, "rotated": 1}
+# lif_tpu at pose 0 of each drive against its own 640-step march, dB; JAX
+# on the CPU at full size (tools/reference_sweep_psnr.py)
+LIF_TPU_SWEEP_PSNR = {"sweep": 32.615, "exact_color": 33.218,
+                      "view": 32.024, "rotated": 33.130}
+# the card's pose-0 frame against the CPU port's on the same inputs (sRGB):
+# the bf16 colour product's rounding and the first crossings' grazing
+# pixels may differ, nothing else
+SWEEP_CPU_DB, SWEEP_CPU_OFF = 50.0, 5e-3  # min dB; max share off by > 2e-3
+# the solved invz* (solve_depth_aligned at pose 0, the hybrid table) on the
+# card against the CPU port's: found flips, max abs where both found (TF32
+# in the float32 products would miss it by ~1e-3)
+INVZ_CPU_FLIPS, INVZ_CPU_MAX = 100, 1e-4
+# main path 12 (scene fitting): make_fit_problem's 1280x800 scene, four
+# poses as tests/test_train.py::_setup places them, FIT_DY off the texel
+# lattice, Adam for FIT_STEPS steps at FIT_LR on FIT_PLANES sweep planes
+FIT_POSES, FIT_DY = 4, 0.001  # m
+FIT_INVZ = (2.0, 0.2)  # _setup's range, baseline 1
+FIT_NOISE, FIT_SEED = 0.15, 1  # the start: clip(truth + N(0, 0.15), 0, 1)
+FIT_STEPS, FIT_LR, FIT_PLANES = 30, 3e-3, 12
+FIT_DROP = 0.85  # min(last 5 losses) < FIT_DROP x the first (test_train.py)
+# lif_tpu's first three losses on the same problem, JAX on the CPU at full
+# size (tools/reference_fit.py), and the card's relative tolerance
+LIF_TPU_FIT_LOSSES = (0.003640431445091963, 0.006393398158252239,
+                      0.005992839112877846)
+FIT_LOSS_RTOL = 1e-3
 # the H100 SXM's published peaks: HBM bytes/s and FP32 operations/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -550,6 +614,57 @@ def dolly_cams(lt, focal):
     ]
 
 
+def rot_x(deg):
+    t = np.deg2rad(deg)
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]])
+
+
+def rot_y(deg):
+    t = np.deg2rad(deg)
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+
+
+def sweep_drives(lt, focal):
+    """Main path 11's drives, {name: (cameras, keyword arguments)}: 'sweep'
+    and 'exact_color' render_fast_batch the first N_SWEEP poses of main
+    path 1 with method='sweep'; 'view' is render_fast_view of its one
+    zoomed camera; 'rotated' render_fast_batch (method 'auto') of
+    N_SWEEP_ROT rotated poses."""
+    lateral = [lt.Camera.create(W, H, focal_px=focal, position=[
+        0.135 + 0.02 * i / N_MAIN, 0.0, 0.0]) for i in range(N_SWEEP)]
+    view = [lt.Camera.create(W, H, focal_px=SWEEP_VIEW_FOCAL * W,
+                             position=[SWEEP_VIEW_X, 0.0, 0.0])]
+    rotated = [lt.Camera.create(
+        W, H, focal_px=focal, position=[0.01 * j, SWEEP_ROT_Y, 0.0],
+        rotation=rot_x(SWEEP_ROT_DEG) @ rot_y(SWEEP_ROT_DEG * (1 + j / 4)))
+        for j in range(N_SWEEP_ROT)]
+    return {"sweep": (lateral, {"method": "sweep"}),
+            "exact_color": (lateral, {"method": "sweep",
+                                      "exact_color": True}),
+            "view": (view, {}), "rotated": (rotated, {})}
+
+
+def make_fit_problem(seed: int = 0):
+    """Main path 12's problem, numpy only: make_scene(seed)'s colour and
+    disparity (the truth), the start clip(truth + N(0, FIT_NOISE), 0, 1)
+    drawn from FIT_SEED, and FIT_POSES world poses placed as
+    tests/test_train.py::_setup places them, moved FIT_DY in y: _setup's
+    pose 0 (y = z = 0) reads the source exactly at texel centres, where a
+    bilinear read's derivative along y is one-sided and two float orders
+    pick different sides. Returns (rgb, truth, start, positions,
+    rotations)."""
+    rgb, truth = make_scene(seed)
+    rng = np.random.default_rng(FIT_SEED)
+    start = np.clip(truth + rng.normal(0.0, FIT_NOISE, truth.shape), 0.0,
+                    1.0).astype(np.float32)
+    b = FIT_POSES
+    positions = np.stack([[0.05 * (i - b / 2), 0.02 * i + FIT_DY, 0.0]
+                          for i in range(b)])
+    return rgb, truth, start, positions, np.stack([np.eye(3)] * b)
+
+
 def card_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -765,6 +880,8 @@ def run():
     errs, views = lif_phase(reset_counts, launch_counts, card)
     errs9 = stereo_phase(reset_counts, launch_counts, card, views[1])
     errs10 = fusion_phase(reset_counts, launch_counts, card)
+    sweep_phase(proj, focal, reset_counts, launch_counts, card)
+    fit_phase(reset_counts, launch_counts, card, dev)
     kernels = [lateral, target, scaled, billboard]
     for rec in kernels:
         rec["max_abs_err"] = max(rec["max_abs_err"],
@@ -1955,6 +2072,176 @@ def fusion_phase(reset_counts, launch_counts, card):
         check(q >= ref_db - 1.0, f"fused fuse_tol {name}: {q:.3f} dB, "
                                  f"lif_tpu {ref_db}")
     return path10.errs
+
+
+def sweep_phase(proj, focal, reset_counts, launch_counts, card):
+    """Phase 21, main path 11: the plane-sweep tier (see the module note).
+    The sweep is plain torch (matrix products and elementwise passes): each
+    drive zeroes the launch counts just before it and must launch no
+    kernel."""
+    import warnings
+
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.core.pose import relative_view_pose
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops.sweep_fast import solve_depth_aligned
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    path11 = MainPath("main path 11", reset_counts, launch_counts)
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 would reach the sweep's float32 disparity products")
+    cfg = lt.DEFAULT_CONFIG
+    proj_cpu = proj.to("cpu")
+
+    def render(p, name, cams, kw):
+        """(frames, tiers, TierFallbackWarnings fired) of one drive."""
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            if name == "view":
+                out, tiers = lt.render_fast_view(p, cams[0], **kw)[None], None
+            else:
+                out, tiers = lt.render_fast_batch(p, cams, return_tiers=True,
+                                                  **kw)
+        fired = [r for r in rec
+                 if issubclass(r.category, renderer.TierFallbackWarning)]
+        if tiers is None:  # the single view's one layer: its warning says
+            tiers = ("sweep",) if fired else ("march",)
+        return out, tuple(tiers), fired
+
+    for name, (cams, kw) in sweep_drives(lt, focal).items():
+        (out, tiers, fired), counts, _ = path11.counted(render, proj, name,
+                                                        cams, kw)
+        coverage = float(out[..., 3].mean())
+        print(f"main path 11 ({name}): {len(cams)} poses {kw} -> "
+              f"{tuple(out.shape)}, tiers {tiers}, launches {counts}, "
+              f"TierFallbackWarnings {len(fired)}, alpha coverage "
+              f"{coverage:.4f}", flush=True)
+        check(counts == path11.expect(()), f"{name}: launches {counts}")
+        check(tiers == ("sweep",), f"{name}: tiers {tiers}")
+        check(len(fired) == SWEEP_WARNINGS[name],
+              f"{name}: {len(fired)} TierFallbackWarnings")
+        check(tuple(out.shape) == (len(cams), H, W, 4), f"{name}: shape")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        check(0.5 < coverage <= 1.0, f"{name}: alpha coverage {coverage}")
+        exact = lt.render_mono_view(proj, cams[0], mask_mode="none",
+                                    num_steps=640)
+        q, ref_db = psnr(out[0], exact), LIF_TPU_SWEEP_PSNR[name]
+        # ROADMAP item 6's question, measured only: the reference's 40-step
+        # exact march on the same pose
+        q40 = psnr(lt.render_mono_view(proj, cams[0], mask_mode="none"),
+                   exact)
+        ms40 = device_timer(lt.render_mono_view, proj, cams[0],
+                            mask_mode="none", iters=1, repeats=5)
+        # pose 0 alone: a sweep frame does not depend on its batch, but
+        # the routing of the rotated batch does, so that drive asks for
+        # the sweep by name
+        cpu = render(proj_cpu, name, cams[:1], dict(kw, method="sweep")
+                     if name == "rotated" else kw)[0][0]
+        q_cpu = psnr(out[0].cpu(), cpu)
+        off = float(((out[0].cpu() - cpu).abs().amax(-1) > 2e-3)
+                    .float().mean())
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", renderer.TierFallbackWarning)
+            ms = device_timer(render, proj, name, cams, kw, iters=1,
+                              repeats=5)
+        print(f"main path 11 ({name}): pose 0 {q:.3f} dB against the "
+              f"640-step march (lif_tpu {ref_db}); against the CPU port's "
+              f"frame {q_cpu:.2f} dB, {off:.2e} of the pixels off by > 2e-3; "
+              f"{ms:.3f} ms per {len(cams)} poses = "
+              f"{len(cams) / (ms / 1e3):.2f} frames/s; the 40-step exact "
+              f"march at pose 0 {q40:.3f} dB, {ms40:.3f} ms [{card}]",
+              flush=True)
+        check(q >= ref_db - 1.0, f"{name}: {q:.3f} dB, lif_tpu {ref_db}")
+        check(q_cpu >= SWEEP_CPU_DB and off <= SWEEP_CPU_OFF,
+              f"{name}: the card's frame is not the CPU port's")
+        del out, exact
+
+    # the solved invz* in full float32: the card against the CPU port
+    cams = sweep_drives(lt, focal)["sweep"][0]
+    c1 = np.float32(relative_view_pose(proj.position, proj.rotation,
+                                       cams[0].position,
+                                       cams[0].rotation)[0])
+    solved = []
+    for p in (proj, proj_cpu):
+        lay = renderer._prepared_textures(p)[0]
+        tab = renderer._sweep_tables(p, [lay], cfg.sweep_planes)[0]
+        solved.append(solve_depth_aligned(
+            lay["disp"], lay["izmin_host"], lay["izmax_host"], c1, focal,
+            out_w=W, out_h=H, focal1=focal, num_planes=cfg.sweep_planes,
+            chunk=cfg.sweep_chunk, plane_invz=tab).cpu())
+    flips = int(((solved[0] > 0) != (solved[1] > 0)).sum())
+    both = (solved[0] > 0) & (solved[1] > 0)
+    err = float((solved[0] - solved[1])[both].abs().max())
+    print(f"main path 11: solved invz* at pose 0 (K = {cfg.sweep_planes}, "
+          f"hybrid table), card against the CPU port: {flips} found flips, "
+          f"max abs {err:.3g} where both found ({float(both.float().mean()):.4f}"
+          f" of the pixels); TF32 off (float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()!r})", flush=True)
+    check(flips <= INVZ_CPU_FLIPS and err <= INVZ_CPU_MAX,
+          "the card's solved invz* is not the CPU port's")
+
+
+def fit_phase(reset_counts, launch_counts, card, dev):
+    """Phase 22, main path 12: scene fitting (see the module note): the
+    targets rendered with the true disparity by the port's soft sweep on
+    the card, then fit_projector from the perturbed start. No kernel may
+    launch."""
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.train import fit
+
+    path12 = MainPath("main path 12", reset_counts, launch_counts)
+    rgb, truth, start, positions, rotations = make_fit_problem(0)
+    kw = dict(focal_px=0.78 * W, invz_min=FIT_INVZ[0], invz_max=FIT_INVZ[1],
+              baseline=1.0, device=dev)
+    true_proj = lt.projector_from_arrays(rgb, truth, **kw)
+    cam = lt.Camera.create(W, H, focal_px=0.78 * W)
+    rel_p, rel_r = fit.relative_poses(true_proj, positions, rotations)
+    zero = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        targets = fit.render_with_params(
+            fit.FitParams(true_proj.disp, zero, zero),
+            fit.static_projector(true_proj, cam),
+            torch.as_tensor(rel_p, device=dev),
+            torch.as_tensor(rel_r, device=dev), W, H, 1, FIT_PLANES)
+    bad = lt.projector_from_arrays(rgb, start, **kw)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    (params, losses), counts, _ = path12.counted(
+        fit.fit_projector, bad, positions, rotations, cam, targets,
+        steps=FIT_STEPS, learning_rate=FIT_LR, num_steps=FIT_PLANES)
+    ev1.record()
+    torch.cuda.synchronize()
+    ms = ev0.elapsed_time(ev1) / FIT_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    err0 = float(np.abs(start - truth).mean())
+    err1 = float(np.abs(np.clip(params.disp[0].cpu().numpy(), 0, 1)
+                        - truth).mean())
+    drop = min(losses[-5:]) / losses[0]
+    print(f"main path 12: fit_projector({FIT_POSES} poses at {W}x{H}, "
+          f"{FIT_PLANES} planes, {FIT_STEPS} Adam steps at lr {FIT_LR:g}): "
+          f"launches {counts}; losses {[round(v, 6) for v in losses]}",
+          flush=True)
+    print(f"main path 12: min(last 5) / first {drop:.4f} (gate < "
+          f"{FIT_DROP}); mean |disp - truth| {err0:.5f} -> {err1:.5f}; first "
+          f"losses {losses[:3]} (lif_tpu {LIF_TPU_FIT_LOSSES})", flush=True)
+    print(f"main path 12: {ms:.2f} ms per step (CUDA events over the "
+          f"{FIT_STEPS} steps, each ending in a host read of its loss); peak "
+          f"device memory {peak / 2**30:.2f} GiB (max_memory_allocated; "
+          f"{resident / 2**30:.2f} GiB resident before) [{card}]", flush=True)
+    check(counts == path12.expect(()), f"fit launches {counts}")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    check(drop < FIT_DROP, f"the fit's loss fell only to {drop:.4f}")
+    check(err1 < err0, f"the fitted disparity is no closer ({err1} vs {err0})")
+    for got, want in zip(losses[:3], LIF_TPU_FIT_LOSSES):
+        check(abs(got - want) <= FIT_LOSS_RTOL * want,
+              f"losses {losses[:3]}, lif_tpu {LIF_TPU_FIT_LOSSES}")
 
 
 def main() -> int:

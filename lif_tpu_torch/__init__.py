@@ -7,12 +7,17 @@ so far: LIF files in (io/: the container codec, with its C++ copy built
 by g++ at first use, metadata normalization, and image decode, PNG
 without PIL) and the loaders (load_lif_file, LifLoader,
 projector_from_lif_view, resample_projector); the exact ray march;
-render_fast_view (render(mode='fast')) and render_depth_fast; four tiers
-of render_fast_batch: the lateral snap-plane march ('march', with the
-frustum-skew fold), the scaled march for other unrotated poses
+render_fast_view (render(mode='fast')) and render_depth_fast; the five
+tiers of render_fast_batch: the lateral snap-plane march ('march', with
+the frustum-skew fold), the scaled march for other unrotated poses
 ('scaled'), the orbit's target-ray march ('target': yaw-family poses,
-and pitch-family poses through an x<->y transpose) and the two-phase
-fallback for other rotated poses ('rotated'); the mesh modes,
+and pitch-family poses through an x<->y transpose), the two-phase
+fallback for other rotated poses ('rotated') and the plane sweep
+('sweep', ops/sweep_fast.py: method='sweep', exact_color and the
+fallback of the layers and poses no march tier covers, which warns
+models.renderer.TierFallbackWarning); scene fitting (train/:
+fit_projector, gradient refinement of depth and pose by autograd through
+the soft plane sweep ops/sweep.py, with torch.optim.Adam); the mesh modes,
 render(mode='billboard' | 'mesh') and, for lateral pose batches,
 render_billboard_fast_batch (the billboard splat as a row z-buffer
 scatter); the stereo modes, render_stereo_view (render(mode='stereo'),
@@ -23,8 +28,8 @@ render_fused_fast_batch (the nearest-surface merge on the lateral march)
 and its exact oracle parallel.sharding.render_fused_projectors (one
 process); models.scene (LayerGroup, Scene) and apps.viewer.
 As in lif_tpu, the top level exports the render and load entry points;
-the tiers' functions stay in lif_tpu_torch.ops. It imports neither jax
-nor lif_tpu.
+the tiers' functions stay in lif_tpu_torch.ops and the fit in
+lif_tpu_torch.train. It imports neither jax nor lif_tpu.
 """
 
 __version__ = "0.1.0"
@@ -64,3 +69,4 @@ from .models.renderer import (  # noqa: F401
     render_stereo_fast_batch,
     render_stereo_view,
 )
+from . import train  # noqa: F401,E402

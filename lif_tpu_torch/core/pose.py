@@ -1,7 +1,7 @@
 """Pose math: LIF rotation encoding, quaternions, world<->camera
 transforms and orbit poses (float64 numpy).
 
-Host-side numpy, copied from lif_tpu.core.pose (the JAX package's version
+Host-side numpy, a copy of lif_tpu.core.pose (the JAX package's version
 is already numpy; it is copied, not imported, because importing lif_tpu
 pulls in jax).
 

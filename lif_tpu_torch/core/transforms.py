@@ -97,4 +97,5 @@ def shader_rotation(rotation) -> torch.Tensor:
     into the shader's +Z-forward frame: ``flipZ @ R.T @ flipZ``.
     reference: rayCastMonoLDI.glsl:316, 332."""
     rt = _f32(rotation).transpose(-1, -2)
-    return mm(mm(FLIP_Z, rt), FLIP_Z)
+    flip = FLIP_Z.to(rt.device)
+    return mm(mm(flip, rt), flip)

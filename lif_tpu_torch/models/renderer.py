@@ -4,7 +4,7 @@ The counterpart of lif_tpu.models.renderer for the slice the port has so
 far: the exact ray march (render_mono_view, render(mode='raycast')), the
 single-view fast path (render_fast_view, render(mode='fast')) with its
 depth solve render_depth_fast, and the production fast path
-render_fast_batch on four tiers —
+render_fast_batch on five tiers —
   * 'march': LATERAL pose batches, the snap-plane first-crossing march
     (on CUDA through csrc/sweep_march.cu);
   * 'scaled': other UNROTATED batches (y/z translation, dolly, zoom) and
@@ -14,7 +14,12 @@ render_fast_batch on four tiers —
     single-phase target-ray march (on CUDA through csrc/sweep_target.cu),
     and PITCH-family batches through an x<->y transpose onto it;
   * 'rotated': the two-phase fallback for other rotated batches, phase A
-    on the scaled march (csrc/sweep_scaled.cu), phase B plain torch.
+    on the scaled march (csrc/sweep_scaled.cu), phase B plain torch;
+  * 'sweep': the plane sweep (ops/sweep_fast.py, plain torch: matrix
+    products and elementwise passes, as lif_tpu's is XLA outside any
+    Pallas kernel) for the layers and poses no march tier covers, with
+    lif_tpu's TierFallbackWarning where 'auto' demotes a layer to it, and
+    for method='sweep'.
 The mesh modes: render(mode='billboard') is the billboard scatter
 (ops/splat.py) and render(mode='mesh') the connected-mesh rasterizer
 (ops/mesh.py), both plain torch on any device; render_billboard_fast_batch
@@ -33,9 +38,8 @@ march every layer of every projector on the lateral tier with its raw
 outputs, composite each projector's LDI and merge the projectors at the
 frontmost surface (_fusion_weights, config.fuse_tol); the exact fused
 oracle is parallel.sharding.render_fused_projectors.
-A pose, layer or option that needs what the port does not have yet (the
-'sweep' fallback, ...) raises NotImplementedError naming it; nothing
-falls back to an approximate tier.
+An option the port does not have (the uniform and hybrid march grids)
+raises NotImplementedError naming it.
 
 Host-side planning (relative poses, plane grids, pad plans, the tiers'
 extents and pose packs) runs in numpy; the textures and every per-pixel
@@ -45,6 +49,7 @@ operation stay on the projector's device.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections import OrderedDict
 from typing import Literal, NamedTuple, Sequence
 
@@ -62,6 +67,7 @@ from ..ops import rotated_march as _rotated_march
 from ..ops import splat as _splat
 from ..ops import splat_march as _splat_march
 from ..ops import stereo as _stereo
+from ..ops import sweep_fast as _sweep_fast
 from ..ops import sweep_march as _sweep_march
 from ..ops import sweep_scaled as _sweep_scaled
 from ..ops import sweep_target as _sweep_target
@@ -70,12 +76,13 @@ from ..ops.cuda.sweep_target import skip_table_buffer
 from ..ops.sampling import read_disp
 from .projector import Projector
 
-__all__ = ["BillboardPlan", "RenderMode", "TierPlan", "plan_billboard",
-           "plan_tiers", "render", "render_billboard_fast_batch",
-           "render_depth_fast", "render_fast_batch", "render_fast_view",
-           "render_fused_fast", "render_fused_fast_batch",
-           "render_mono_view", "render_stereo_fast",
-           "render_stereo_fast_batch", "render_stereo_view"]
+__all__ = ["BillboardPlan", "RenderMode", "TierFallbackWarning", "TierPlan",
+           "plan_billboard", "plan_tiers", "render",
+           "render_billboard_fast_batch", "render_depth_fast",
+           "render_fast_batch", "render_fast_view", "render_fused_fast",
+           "render_fused_fast_batch", "render_mono_view",
+           "render_stereo_fast", "render_stereo_fast_batch",
+           "render_stereo_view"]
 
 RenderMode = Literal[
     "raycast", "stereo", "stereo_fast", "mesh", "billboard", "fast"
@@ -88,11 +95,15 @@ RenderMode = Literal[
 # entry bakes in, and stores strong references so the ids stay valid. The
 # TABLE cache holds the per-pose snap-plane grids on the device: building
 # them is host numpy per pose, which a replayed trajectory must not pay
-# every frame.
+# every frame. The PLANE-TABLE cache holds the sweep's per-(disparity,
+# ranges, K, mode) tables (_sweep_tables): a hybrid table reads quantiles
+# of the whole disparity map on the host, which must not happen per frame.
 _TEX_CACHE: OrderedDict = OrderedDict()
 _TEX_CACHE_MAX = 16
 _TABLE_CACHE: OrderedDict = OrderedDict()
 _TABLE_CACHE_MAX = 64
+_PLANE_TABLE_CACHE: OrderedDict = OrderedDict()
+_PLANE_TABLE_CACHE_MAX = 64
 
 # target-tier plans memoized on the exact pose batch (and device): the
 # entries hold the per-pose ladders and pose packs on the device, so a
@@ -123,14 +134,22 @@ _F32 = np.float32
 _SWAP_XY = (1, 0, 2)
 
 
-class _TierNotPorted(NotImplementedError):
-    """A layer routed to a tier the port does not have; `tier` names it."""
+class TierFallbackWarning(UserWarning):
+    """A layer left the march-tier cascade for the ~35 dB plane sweep."""
 
-    def __init__(self, tier: str, why: str):
-        super().__init__(
-            f"{why}: this needs the '{tier}' tier, which is not ported yet"
-        )
-        self.tier = tier
+
+def _warn_sweep_fallback(idx, err):
+    """Surface a quality demotion (lif_tpu's warning, word for word): the
+    march-tier planner rejected this layer (mismatched focal,
+    window/candidate budget, pose family), so it renders through the
+    approximate plane sweep instead of a march-exact tier."""
+    warnings.warn(
+        f"layer {idx if idx is not None else '?'} fell back to the "
+        f"approximate plane-sweep tier (expect ~35 dB, not march-exact): "
+        f"{err}",
+        TierFallbackWarning,
+        stacklevel=3,
+    )
 
 
 def _lru_put(cache: OrderedDict, limit: int, key, value):
@@ -242,6 +261,80 @@ def _snap_tables(lay, cxs, explicit_planes, phase_px, stride, device):
         _TABLE_CACHE.popitem(last=False)
     _TABLE_CACHE[key] = entry
     return entry
+
+
+def _plane_table(disp_host, izmin_f, izmax_f, num_planes, mode="uniform"):
+    """Inverse-depth plane table, near -> far (strictly descending),
+    lif_tpu's numpy host code verbatim, so the tables are bit-equal.
+
+    mode='uniform': the march's own step positions,
+    izmin - k * (izmin - izmax) / K, scene-independent.
+
+    mode='hybrid': 75% disparity quantiles + 25% uniform, useful when K
+    must stay small and the disparity mass is tightly clustered (the
+    sweep's tables)."""
+    if mode == "uniform":
+        step = (izmin_f - izmax_f) / num_planes
+        return (
+            izmin_f - np.arange(num_planes, dtype=np.float32) * step
+        ).astype(np.float32)
+    if mode != "hybrid":
+        raise ValueError(f"unknown plane mode: {mode}")
+    kq = num_planes - num_planes // 4
+    qs = np.quantile(disp_host, np.linspace(0.002, 0.998, kq)).astype(
+        np.float32
+    )
+    vals = np.concatenate(
+        [
+            izmax_f + (izmin_f - izmax_f) * qs,
+            izmax_f
+            + (izmin_f - izmax_f)
+            * np.linspace(0.001, 0.999, num_planes - kq).astype(np.float32),
+        ]
+    )
+    vals = np.sort(vals)[::-1].copy()
+    # keep planes strictly descending (dedupe flat regions)
+    eps = (izmin_f - izmax_f) * 1e-6
+    return vals - np.arange(num_planes, dtype=np.float32) * eps
+
+
+def _disp_host(lay) -> np.ndarray:
+    """A float32 host copy of one cached texture layer's disparity, made on
+    first use and kept in the layer's texture-cache entry (whose key holds
+    the disparity's version counter, so a write gets a new copy)."""
+    if "disp_host" not in lay:
+        lay["disp_host"] = lay["disp"].detach().to(
+            "cpu", torch.float32).numpy()
+    return lay["disp_host"]
+
+
+def _sweep_tables(projector, tex_layers, num_planes, mode="hybrid"):
+    """The sweep's per-layer plane tables (K,) on the projector's device,
+    cached per (disparity, ranges, K, mode) as lif_tpu's _prepared_fast
+    caches them. The key holds the disparity tensor's identity and
+    in-place version counter (a fit writing into the same tensor must not
+    be served stale tables) and the entry a strong reference to it, so its
+    id cannot be reused while the entry stands."""
+    key = (
+        id(projector.disp), _disp_fingerprint(projector.disp),
+        np.asarray(projector.invz_min).tobytes(),
+        np.asarray(projector.invz_max).tobytes(),
+        float(projector.baseline), num_planes, mode, str(projector.device),
+    )
+    hit = _PLANE_TABLE_CACHE.get(key)
+    if hit is not None and hit[0] is projector.disp:
+        _PLANE_TABLE_CACHE.move_to_end(key)
+        return hit[1]
+    tabs = [
+        torch.as_tensor(_plane_table(
+            _disp_host(lay), lay["izmin_host"], lay["izmax_host"],
+            num_planes, mode=mode,
+        ), device=projector.device)
+        for lay in tex_layers
+    ]
+    _lru_put(_PLANE_TABLE_CACHE, _PLANE_TABLE_CACHE_MAX, key,
+             (projector.disp, tabs))
+    return tabs
 
 
 def _march_eligible(lay, f2_host, out_w, out_h, out_w_true=None):
@@ -645,11 +738,19 @@ def _layer_tier_batch(
     per-pose pose packs and ladders in `lay`; 'rotated': the two-phase
     march with its setup (plan, wi, hi, K, skip_phase_a, sk1, sk2) and the
     aligned positions and ladders in `lay`, rendered at the true width
-    out_w. Returns the (B, H, W, 4) premultiplied RGBA over a zero
-    background, or with raw=True every tier's (rgba, alpha, hit, invz*)
-    tuple: straight colour, alpha, hit and the solved inverse depth,
-    each with a leading pose axis (the stereo blend consumes them)."""
+    out_w; 'sweep': the plane sweep, pose by pose, with its setup (K,
+    chunk, exact_color, rotated) and its (K,) plane table in
+    lay['sweep_invz'] (render_rotated for a rotated batch, else
+    render_sweep_aligned). Returns the (B, H, W, 4) premultiplied RGBA
+    over a zero background, or with raw=True every march tier's (rgba,
+    alpha, hit, invz*) tuple: straight colour, alpha, hit and the solved
+    inverse depth, each with a leading pose axis (the stereo blend
+    consumes them; the sweep has no raw outputs, and no stereo or fused
+    plan routes to it)."""
     zero_bg = np.zeros(4, np.float32)
+    if mode == "sweep":
+        return _sweep_batch(lay, setup, c1_b, rot_b, f2, out_w, out_h,
+                            feathering=feathering, mask_mode=mask_mode)
     if mode == "scaled":
         splan, k_s, fr, dxu, dyu = setup
         return _sweep_scaled.render_scaled_fetch_batch(
@@ -678,7 +779,7 @@ def _layer_tier_batch(
             raw=raw, refine=t_refine, skip_tables=lay.get("skip_target"),
         )
     if mode != "march":
-        raise NotImplementedError(f"the '{mode}' tier is not ported yet")
+        raise ValueError(f"unknown tier: {mode!r}")
     if "march_src" in lay:  # hoisted (CUDA): the cached pack
         rgb_l, disp_l, mask_l = lay["march_src"]
     else:
@@ -693,6 +794,39 @@ def _layer_tier_batch(
     )
 
 
+def _sweep_batch(lay, setup, c1_b, rot_b, f2, out_w, out_h, *, feathering,
+                 mask_mode):
+    """One LDI layer's pose batch on the plane sweep (lif_tpu's sweep
+    branch of _fast_chunk_body): the sweep multiplies the mask into alpha,
+    so mask_mode='none' feeds a ones mask; 'hard' has no sweep equivalent.
+    Returns (B, H, W, 4) premultiplied RGBA over a zero background."""
+    k_s, chunk, exact_color, rotated = setup
+    if mask_mode == "hard":
+        raise ValueError(
+            "mask_mode='hard' has no sweep equivalent; this layer fell back "
+            "to the sweep"
+        )
+    mask = torch.ones_like(lay["mask"]) if mask_mode == "none" else lay["mask"]
+    common = dict(
+        out_w=out_w, out_h=out_h, focal1=lay["focal_host"], num_planes=k_s,
+        chunk=chunk, feathering=feathering, to_srgb=False,
+        plane_invz=lay["sweep_invz"],
+    )
+    zero_bg = np.zeros(4, np.float32)
+    frames = [
+        _sweep_fast.render_rotated(
+            lay["rgb"], lay["disp"], mask, lay["izmin_host"],
+            lay["izmax_host"], c1, rot, f2, zero_bg, **common)
+        if rotated else
+        _sweep_fast.render_sweep_aligned(
+            lay["rgb"], lay["disp"], mask, lay["izmin_host"],
+            lay["izmax_host"], c1, f2, zero_bg, exact_color=exact_color,
+            **common)
+        for c1, rot in zip(c1_b, rot_b)
+    ]
+    return torch.stack(frames)
+
+
 def render_fast_batch(
     projector: Projector,
     cameras: Sequence[Camera],
@@ -700,6 +834,8 @@ def render_fast_batch(
     feathering: float | None = None,
     to_srgb: bool | None = None,
     num_planes: int | None = None,
+    chunk: int | None = None,
+    exact_color: bool = False,
     method: str = "auto",
     mask_mode: str | None = None,
     refine: int | None = None,
@@ -711,7 +847,7 @@ def render_fast_batch(
     device (GL-oriented, row 0 = bottom).
 
     The port of lif_tpu's production entry point, with lif_tpu's per-layer
-    tier routing over the four tiers the port has:
+    tier routing:
       * 'march': LATERAL batches (no relative rotation, translation along
         x only) on march-eligible layers (matched focal, even outpaint
         margins, plane_mode='snap'). Frustum skew (sk1 source, sk2
@@ -727,13 +863,22 @@ def render_fast_batch(
         swapped, the height padded to a 128-multiple, the pad sliced off
         and the axes swapped back on the device;
       * 'rotated': the two-phase fallback for rotated batches outside the
-        target tier (yaw + pitch together, roll, skewed frustums).
+        target tier (yaw + pitch together, roll, skewed frustums);
+      * 'sweep': a layer no march tier covers (method='auto' warns
+        TierFallbackWarning with the planner's reason; the transposed
+        route is tried first for a rotated batch), and every layer with
+        method='sweep': the plane sweep on the layer's cached 'hybrid'
+        plane table (num_planes or config.sweep_planes planes, `chunk` per
+        matrix product, config.sweep_chunk by default), pose by pose —
+        render_rotated for a rotated batch, else render_sweep_aligned,
+        with exact_color's first-crossing colour fetch. The sweep cannot
+        apply frustum skew or mask_mode='hard' (ValueError), and
+        method='march' raises ValueError where a layer would sweep.
     Non-8-divisible widths render a padded band on 'march'/'scaled' and
     slice the true width; the pad is dropped when a layer takes another
-    tier. On CUDA each layer launches its kernel once per pose chunk; the
-    layers are over-composited front to back. A batch no march tier
-    covers (lif_tpu's 'sweep' fallback) and the sweep method raise
-    NotImplementedError naming what they need.
+    tier. On CUDA each march layer launches its kernel once per pose
+    chunk; the sweep launches none. The layers are over-composited front
+    to back.
 
     return_tiers=True returns (images, tiers) with the per-layer tier.
     Batches larger than config.pose_chunk render in balanced chunks (a
@@ -745,12 +890,9 @@ def render_fast_batch(
     background = cfg.background if background is None else background
     feathering = cfg.feathering if feathering is None else feathering
     to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
+    chunk = cfg.sweep_chunk if chunk is None else chunk
     refine = cfg.march_refine if refine is None else refine
-    if method not in ("auto", "march"):
-        raise NotImplementedError(
-            f"method={method!r}: the plane-sweep tier is not ported yet"
-        )
-    tp = plan_tiers(projector, cameras, cfg, num_planes)
+    tp = plan_tiers(projector, cameras, cfg, num_planes, method=method)
     cam0 = cameras[0]
     pos_b, rot_b, planned = tp.pos_b, tp.rot_b, tp.planned
     out_w_eff, dx_pad = tp.out_w_eff, tp.dx_pad
@@ -760,6 +902,7 @@ def render_fast_batch(
     if (
         _transpose
         and tp.rotated
+        and method != "sweep"
         and any(m in ("rotated", "sweep") for m in modes)
         and _transposed_target_ok(tp.tex_layers, tp.f2_host, cam0,
                                   tp.rot_list, tp.pos_list)
@@ -767,21 +910,27 @@ def render_fast_batch(
         return _render_transposed(
             projector, cameras, return_tiers, background=background,
             feathering=feathering, to_srgb=to_srgb, num_planes=num_planes,
-            method=method, mask_mode=mask_mode, refine=refine, config=config,
+            chunk=chunk, exact_color=exact_color, method=method,
+            mask_mode=mask_mode, refine=refine, config=config,
         )
-    if "sweep" in modes and (method == "march" or tp.skewed):
+    if method == "march" and "sweep" in modes:
         raise ValueError(
-            "method='march' or a skewed frustum needs poses the march tiers "
-            "cover (lateral, aligned xyz/zoom, or bounded rotation with "
-            "matched-focal layers)"
+            "method='march' needs poses the march tiers cover (lateral, "
+            "aligned xyz/zoom, or bounded rotation with matched-focal "
+            "layers); use method='auto' to fall back automatically"
         )
-    for _, setup, _ in planned:
-        if isinstance(setup, _TierNotPorted):
-            raise setup
+    if tp.skewed and "sweep" in modes:
+        raise ValueError(
+            "skewed frustums need every layer on a march tier (matched "
+            "focal and dims) — the sweep fallback cannot apply the "
+            "frustum shift"
+        )
 
     max_cx = float(np.abs(pos_b[:, 0]).max())
+    k_sweep = num_planes or cfg.sweep_planes
     layers, setups, plans, crops, nums = [], [], [], [], []
-    for lay, (mode, setup, extra) in zip(tp.tex_layers, planned):
+    for idx, (lay, (mode, setup, extra)) in enumerate(
+            zip(tp.tex_layers, planned)):
         plan, crop_y, k_l = None, 0, None
         if mode == "march":
             plan, crop_y, phase, doff = _march_fold(
@@ -790,6 +939,10 @@ def render_fast_batch(
             tab, k_l = _snap_tables(lay, pos_b[:, 0], num_planes, phase,
                                     cfg.march_stride, projector.device)
             extra = {"plane_invz": tab, "doff": doff}
+        elif mode == "sweep":
+            setup = (k_sweep, chunk, exact_color, tp.rotated)
+            extra = {"sweep_invz": _sweep_tables(
+                projector, tp.tex_layers, k_sweep)[idx]}
         layers.append(dict(lay, **extra))
         setups.append(setup)
         plans.append(plan)
@@ -811,7 +964,7 @@ class TierPlan(NamedTuple):
     tier cascade, with the inputs it was planned from."""
 
     tex_layers: list  # _prepared_textures, one dict per LDI layer
-    planned: list  # per layer (mode, setup, extras); 'sweep': the error
+    planned: list  # per layer (mode, setup, extras); 'sweep': (None, {})
     pos_b: np.ndarray  # (B, 3) relative projector positions
     rot_b: np.ndarray  # (B, 3, 3) relative rotations
     pos_list: tuple
@@ -825,15 +978,21 @@ class TierPlan(NamedTuple):
 
 def plan_tiers(projector: Projector, cameras: Sequence[Camera],
                config: RenderConfig | None = None,
-               num_planes: int | None = None) -> TierPlan:
+               num_planes: int | None = None,
+               method: str = "auto") -> TierPlan:
     """Plan a pose batch as render_fast_batch does (relative poses, the
     per-layer tier cascade, the width pad) without rendering it. The
     'scaled' setup is (plan, K, fr, dx_user, dy_user) with the ladders in
     extras['grids']; the 'rotated' setup is (plan, wi, hi, K,
     skip_phase_a, sk1, sk2) with extras['aligned'] and extras['grids'];
-    the 'target' setup is (plan, K); 'march' plans later, per call. Raises
-    what render_fast_batch raises for cameras it cannot batch."""
+    the 'target' setup is (plan, K); 'march' and 'sweep' plan later, per
+    call. With method='auto' or 'march' a layer no march tier covers is
+    'sweep' and warns TierFallbackWarning with the planner's reason (as
+    lif_tpu's _layer_mode); method='sweep' plans every layer 'sweep'.
+    Raises what render_fast_batch raises for cameras it cannot batch."""
     cfg = config or DEFAULT_CONFIG
+    if method not in ("auto", "march", "sweep"):
+        raise ValueError(f"unknown method: {method!r}")
     if len(cameras) == 0:
         raise ValueError("render_fast_batch needs at least one camera")
     cam0 = cameras[0]
@@ -869,15 +1028,17 @@ def plan_tiers(projector: Projector, cameras: Sequence[Camera],
     skewed = bool(np.abs(sk1 - sk2).sum() > 1e-12)
     tex_layers = _prepared_textures(projector)
     f2_host = float(cam0.focal_px)
-    if lateral and cfg.plane_mode != "snap":
+    if lateral and method != "sweep" and cfg.plane_mode != "snap":
         raise NotImplementedError(
             f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
             "ported"
         )
 
-    def layer_mode(lay, out_w_eff, dx_pad):
+    def layer_mode(idx, lay, out_w_eff, dx_pad):
         """Per-layer tier: 'march' (lateral snap), else the non-lateral
-        cascade; a batch no march tier covers is lif_tpu's 'sweep'."""
+        cascade, else 'sweep' (with lif_tpu's warning)."""
+        if method == "sweep":
+            return "sweep", None, {}
         if lateral and _march_eligible(lay, f2_host, out_w_eff, cam0.height,
                                        out_w_true=cam0.width):
             return "march", None, {}
@@ -888,9 +1049,8 @@ def plan_tiers(projector: Projector, cameras: Sequence[Camera],
                 projector.device, dx_user=dx_pad, sk1=sk1, sk2=sk2,
             )
         except ValueError as err:
-            return "sweep", _TierNotPorted(
-                "sweep", f"no march tier covers this pose batch ({err})"
-            ), {}
+            _warn_sweep_fallback(idx, err)
+            return "sweep", None, {}
 
     # non-8-divisible widths: the band tiers render a wpad-wider band with
     # a constant wpad/2 x-offset, then slice the true width. Any other
@@ -898,13 +1058,14 @@ def plan_tiers(projector: Projector, cameras: Sequence[Camera],
     # and only the band-tier layers re-plan.
     wpad = _width_pad(cam0.width)
     out_w_eff, dx_pad = cam0.width + wpad, wpad / 2.0
-    planned = [layer_mode(lay, out_w_eff, dx_pad) for lay in tex_layers]
+    planned = [layer_mode(i, lay, out_w_eff, dx_pad)
+               for i, lay in enumerate(tex_layers)]
     if wpad and not all(p[0] in ("march", "scaled") for p in planned):
         out_w_eff, dx_pad = cam0.width, 0.0
         planned = [
-            layer_mode(lay, out_w_eff, dx_pad)
+            layer_mode(i, lay, out_w_eff, dx_pad)
             if p[0] in ("march", "scaled") else p
-            for lay, p in zip(tex_layers, planned)
+            for i, (lay, p) in enumerate(zip(tex_layers, planned))
         ]
     return TierPlan(tex_layers, planned, pos_b, rot_b, pos_list, rot_list,
                     rotated, skewed, f2_host, out_w_eff, dx_pad)
@@ -1098,41 +1259,43 @@ def render_fast_view(
     refine: int | None = None,
     config: RenderConfig | None = None,
 ):
-    """Render ONE novel view on the fast march tiers — the production
-    single-view path, lif_tpu's render_fast_view. Returns (H, W, 4) on the
-    projector's device (GL-oriented, row 0 = bottom).
+    """Render ONE novel view on the fast tiers — the production single-view
+    path, lif_tpu's render_fast_view. Returns (H, W, 4) on the projector's
+    device (GL-oriented, row 0 = bottom).
 
     Routing by pose, as lif_tpu routes it:
       * y-only translation (both world rotations identity, every layer at
-        the camera's focal and dims): an x<->y transpose of source and
-        camera onto the lateral march, the result swapped back;
+        the camera's focal and dims; not method='sweep'): an x<->y
+        transpose of source and camera onto the lateral march, the result
+        swapped back;
       * any other non-lateral pose: render_fast_batch with a batch of one
-        (the scaled, target and rotated tiers);
-      * a lateral pose: the snap-plane march (on CUDA the lateral kernel,
-        one launch per layer) on this pose's own snap_plane_table, with
-        the width pad of a non-8-divisible width, the skew fold, LDI
-        over-compositing and finish_over_background.
+        (the scaled, target and rotated tiers, and its sweep fallback);
+        with method='sweep' the plane sweep directly (render_rotated for a
+        rotated pose, else render_sweep_aligned);
+      * a lateral pose: per layer, the snap-plane march (on CUDA the
+        lateral kernel, one launch per layer) on this pose's own
+        snap_plane_table where the layer is march-eligible, else (with
+        TierFallbackWarning under 'auto') the plane sweep on the layer's
+        'hybrid' table; with the width pad of a non-8-divisible width when
+        every layer marches, the skew fold, LDI over-compositing and
+        finish_over_background.
 
-    method: 'auto' or 'march' ('march' raises ValueError where a layer is
-    not march-eligible, as lif_tpu). The plane sweep is not ported:
-    method='sweep', exact_color=True (its exact colour fetch) and a layer
-    lif_tpu would send to the sweep raise NotImplementedError; `chunk`
-    (the sweep's matmul chunk) is accepted and not read. mask_mode: None
-    -> the reference default (multiply for LDI projectors, taper-only for
-    single-layer), or 'multiply' / 'none'."""
+    method: 'auto', 'march' (ValueError where a layer is not
+    march-eligible, as lif_tpu) or 'sweep'. exact_color and chunk (the
+    sweep's planes per matrix product, config.sweep_chunk by default) are
+    the sweep layers' options; num_planes, when given, sets the plane
+    count of both tiers, as in render_fast_batch. Frustum skew needs every
+    layer on the march.
+    mask_mode: None -> the reference default (multiply for LDI projectors,
+    taper-only for single-layer), or 'multiply' / 'none'; 'hard' raises
+    ValueError on a sweep layer."""
     cfg = config or DEFAULT_CONFIG
-    if method not in ("auto", "march"):
-        raise NotImplementedError(
-            f"method={method!r}: the plane-sweep tier is not ported yet"
-        )
-    if exact_color:
-        raise NotImplementedError(
-            "exact_color=True: the plane sweep's exact colour fetch is not "
-            "ported yet"
-        )
+    if method not in ("auto", "march", "sweep"):
+        raise ValueError(f"unknown method: {method!r}")
     background = cfg.background if background is None else background
     feathering = cfg.feathering if feathering is None else feathering
     to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
+    chunk = cfg.sweep_chunk if chunk is None else chunk
     refine = cfg.march_refine if refine is None else refine
     pos_np, rot_np = relative_view_pose(
         projector.position, projector.rotation, camera.position,
@@ -1142,14 +1305,16 @@ def render_fast_view(
     tex_layers = _prepared_textures(projector)
     f2_host = float(camera.focal_px)
     kw = dict(background=background, feathering=feathering, to_srgb=to_srgb,
-              num_planes=num_planes, method=method, mask_mode=mask_mode,
-              refine=refine, config=config)
+              num_planes=num_planes, chunk=chunk, exact_color=exact_color,
+              method=method, mask_mode=mask_mode, refine=refine,
+              config=config)
 
     # y-only translation: a transpose maps it onto the x-only march. Both
     # world rotations must be identity so the transposed world poses give
     # the swapped relative pose; every layer must be march-eligible
     if (
-        not rotated
+        method != "sweep"
+        and not rotated
         and abs(pos_np[0]) < 1e-9
         and abs(pos_np[2]) < 1e-9
         and abs(pos_np[1]) > 1e-9
@@ -1170,43 +1335,79 @@ def render_fast_view(
         out = render_fast_view(_transposed_projector(projector), cam_t, **kw)
         return out.transpose(0, 1).contiguous()
 
-    if rotated or abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9:
+    nonlateral = rotated or abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
+    if method != "sweep" and nonlateral:
         return render_fast_batch(projector, [camera], **kw)[0]
 
-    if cfg.plane_mode != "snap":
+    marching = method != "sweep"  # and, from here on, a lateral pose
+    if marching and cfg.plane_mode != "snap":
         raise NotImplementedError(
             f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
             "ported"
         )
     if mask_mode is None:
         mask_mode = "multiply" if projector.num_layers > 1 else "none"
+    sk1 = np.asarray(projector.skew, np.float64)
+    sk2 = np.asarray(camera.skew, np.float64)
+    skewed = bool(np.abs(sk1 - sk2).sum() > 1e-12)
+    if skewed and not marching:
+        raise ValueError(
+            "skewed frustums are supported only on the lateral march "
+            "path (no rotation, x-only translation)"
+        )
+    # equal nonzero skews cancel only for unrotated views; the rotated
+    # sweep ignores skew
+    if rotated and (np.abs(sk1).sum() + np.abs(sk2).sum()) > 1e-12:
+        raise ValueError(
+            "render_fast_view does not support skew on rotated poses; "
+            "use render_mono_view (the exact march handles it)"
+        )
 
     # non-8-divisible widths: march a wpad-wider band carrying a constant
     # wpad/2 x-offset and slice the true width, only when every layer
-    # marches
+    # marches (a sweep layer renders around the true image centre)
     wpad = _width_pad(camera.width)
     out_w_eff, dx_pad = camera.width + wpad, wpad / 2.0
 
     def eligible(lay, w_eff):
-        return _march_eligible(lay, f2_host, w_eff, camera.height,
-                               out_w_true=camera.width)
+        return marching and _march_eligible(lay, f2_host, w_eff,
+                                            camera.height,
+                                            out_w_true=camera.width)
 
     if wpad and not all(eligible(lay, out_w_eff) for lay in tex_layers):
         out_w_eff, dx_pad = camera.width, 0.0
-    layers, plans, crops, nums = [], [], [], []
+    modes = []
     for idx, lay in enumerate(tex_layers):
-        if not eligible(lay, out_w_eff):
-            if method == "march":
-                raise ValueError(
-                    "method='march' needs a lateral view (no rotation, "
-                    "x-only translation, matched focal, output dims == "
-                    "layer dims); use method='auto' to fall back "
-                    "automatically"
-                )
-            raise _TierNotPorted(
-                "sweep", f"layer {idx} is not march-eligible at this camera "
-                "(mismatched focal/dims or non-8-divisible width)"
+        m = eligible(lay, out_w_eff)
+        if not m and method == "auto":
+            _warn_sweep_fallback(
+                idx, "layer is not march-eligible at this camera "
+                "(mismatched focal/dims or non-8-divisible width)",
             )
+        if method == "march" and not m:
+            raise ValueError(
+                "method='march' needs a lateral view (no rotation/skew, "
+                "x-only translation, matched focal, output dims == layer "
+                "dims); use method='auto' to fall back automatically"
+            )
+        modes.append("march" if m else "sweep")
+    if skewed and "sweep" in modes:
+        raise ValueError(
+            "skewed frustums need every layer on the march path "
+            "(matched focal and dims)"
+        )
+
+    k_sweep = num_planes or cfg.sweep_planes
+    layers, setups, plans, crops, nums = [], [], [], [], []
+    for idx, (lay, mode) in enumerate(zip(tex_layers, modes)):
+        if mode == "sweep":
+            layers.append(dict(lay, sweep_invz=_sweep_tables(
+                projector, tex_layers, k_sweep)[idx]))
+            setups.append((k_sweep, chunk, exact_color, rotated))
+            plans.append(None)
+            crops.append(0)
+            nums.append(None)
+            continue
         # the skew fold, as in render_fast_batch, on this pose's own grid
         plan, crop_y, phase, doff = _march_fold(
             lay, projector.skew, camera.skew, abs(float(pos_np[0])),
@@ -1215,17 +1416,17 @@ def render_fast_view(
             lay["focal_host"], float(pos_np[0]), lay["izmin_host"],
             lay["izmax_host"], num_planes=num_planes, phase_px=phase,
         )
-        plans.append(plan)
-        crops.append(crop_y)
-        nums.append(k_l)
         layers.append(dict(
             lay, doff=doff,
             plane_invz=torch.as_tensor(tab[None], device=projector.device),
         ))
-    n = len(layers)
+        setups.append(None)
+        plans.append(plan)
+        crops.append(crop_y)
+        nums.append(k_l)
     return _fast_batch_core(
-        layers, ["march"] * n, [None] * n, pos_np[None], rot_np[None],
-        background, plans=plans, nums=nums, crops=crops, refine=refine,
+        layers, modes, setups, pos_np[None], rot_np[None], background,
+        plans=plans, nums=nums, crops=crops, refine=refine,
         rot_refine=cfg.rotated_refine, t_refine=cfg.target_refine,
         feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
         f2=f2_host, out_h=camera.height, out_w_true=camera.width,

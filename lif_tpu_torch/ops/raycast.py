@@ -177,10 +177,19 @@ def raycast_layer(
             hit_confidence)
 
 
-def _pixel_grid(out_w: int, out_h: int, device):
-    """GL-oriented pixel-center uv grid minus 0.5 (the s2 coordinates)."""
-    u = (torch.arange(out_w, dtype=torch.float32, device=device) + 0.5) / out_w
-    v = (torch.arange(out_h, dtype=torch.float32, device=device) + 0.5) / out_h
+def _pixel_grid(out_w: int, out_h: int, device, full_w=None, full_h=None,
+                row_start=0, col_start=0):
+    """GL-oriented pixel-center uv grid minus 0.5 (the s2 coordinates).
+
+    With full_w/full_h set, the (out_h, out_w) tile of the larger
+    (full_h, full_w) grid starting at (row_start, col_start): each tile of
+    a split framebuffer renders its part of the same virtual image."""
+    fw = out_w if full_w is None else full_w
+    fh = out_h if full_h is None else full_h
+    u = (torch.arange(out_w, dtype=torch.float32, device=device) + 0.5
+         + col_start) / fw
+    v = (torch.arange(out_h, dtype=torch.float32, device=device) + 0.5
+         + row_start) / fh
     s2x = u[None, :].expand(out_h, out_w) - 0.5
     s2y = v[:, None].expand(out_h, out_w) - 0.5
     return s2x, s2y

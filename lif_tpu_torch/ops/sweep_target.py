@@ -22,8 +22,8 @@ by a secant in its bracket (and, with refine > 0, by an in-bracket
 sub-sweep).
 
 Host planning (extents, the yaw gate, plans, per-pose ladders and pose
-packs) is float64 numpy, copied from lif_tpu so that routing cannot
-drift from the reference. Two implementations of the march share it:
+packs) is float64 numpy, lif_tpu's own code copied here, so that routing
+cannot drift from the reference. Two implementations of the march share it:
   * march_target_plain: a Python loop over planes in plain torch, the
     kernel's plain version; render_target_plain is the twin of
     lif_tpu's render_target_xla, the CPU path;

@@ -982,3 +982,74 @@ def test_fused_fast_on_cuda_matches_cpu(cuda):
     assert flips.float().mean().item() <= 1e-3
     err = (got.cpu() - ref).abs().amax(-1)
     assert err[~flips].max().item() < 1e-4
+
+
+def _sweep_counts():
+    return (tcuda.sweep_lateral.launches, tcuda_t.sweep_target.launches,
+            tcuda_s.sweep_scaled.launches, tcuda_b.sweep_billboard.launches)
+
+
+@pytest.mark.parametrize("kw", [dict(method="sweep"),
+                                dict(method="sweep", exact_color=True)])
+def test_sweep_on_cuda_matches_cpu(cuda, kw):
+    """The plane sweep on the card launches no kernel and equals the CPU
+    port's frames (its products sum two banded taps a row, so the card's
+    order of summation changes nothing beyond float32 rounding: max abs
+    < 1e-4), also for a rotated pose (render_rotated)."""
+    rgb, disp, mask = _scene(5, 96, 128)
+    kw_p = dict(focal_px=0.78 * 128, invz_min=2.0, invz_max=0.1,
+                baseline=1.0)
+    cams = [lif_tpu_torch.Camera.create(128, 96, focal_px=0.78 * 128,
+                                        position=[0.03 * i, 0.01, 0.0])
+            for i in range(3)]
+    rot = lif_tpu_torch.orbit_pose([0, 0, -1], 1.0, 0.1, 0.05)
+    cams.append(lif_tpu_torch.Camera.create(
+        128, 96, focal_px=0.78 * 128, position=rot[0], rotation=rot[1]))
+    for batch in (cams[:3], cams[3:]):
+        outs = []
+        for dev in (cuda, "cpu"):
+            proj = lif_tpu_torch.projector_from_arrays(rgb, disp, mask,
+                                                       device=dev, **kw_p)
+            before = _sweep_counts()
+            out, tiers = lif_tpu_torch.render_fast_batch(
+                proj, batch, return_tiers=True, **kw)
+            assert tiers == ("sweep",) and _sweep_counts() == before
+            outs.append(out.cpu())
+        assert (outs[0] - outs[1]).abs().max().item() < 1e-4
+
+
+def test_fit_step_on_cuda_matches_cpu(cuda):
+    """Two fit steps on the card: the losses within 1e-4 relative of the
+    CPU port's (the gathers' backward accumulates with atomics on the
+    card, in no fixed order) and no kernel launched."""
+    from lif_tpu_torch.train import fit
+
+    rgb, disp, _ = _scene(9, 24, 32)
+    kw = dict(focal_px=0.78 * 32, invz_min=2.0, invz_max=0.2, baseline=1.0)
+    positions = np.stack([[0.05 * (i - 2), 0.02 * i + 0.001, 0.0]
+                          for i in range(4)])
+    rotations = np.stack([np.eye(3)] * 4)
+    cam = lif_tpu_torch.Camera.create(32, 24, focal_px=0.78 * 32)
+    start = np.clip(disp + 0.1 * np.sin(np.arange(disp.size)).reshape(
+        disp.shape), 0, 1).astype(np.float32)
+    histories = []
+    for dev in (cuda, "cpu"):
+        true_proj = lif_tpu_torch.projector_from_arrays(rgb, disp, device=dev,
+                                                        **kw)
+        rel_p, rel_r = fit.relative_poses(true_proj, positions, rotations)
+        zero = torch.zeros(3, device=dev)
+        with torch.no_grad():
+            targets = fit.render_with_params(
+                fit.FitParams(true_proj.disp, zero, zero),
+                fit.static_projector(true_proj, cam),
+                torch.as_tensor(rel_p, device=dev),
+                torch.as_tensor(rel_r, device=dev), 32, 24, 1, 12)
+        bad = lif_tpu_torch.projector_from_arrays(rgb, start, device=dev,
+                                                  **kw)
+        before = _sweep_counts()
+        params, losses = fit.fit_projector(bad, positions, rotations, cam,
+                                           targets, steps=2)
+        assert _sweep_counts() == before
+        assert params.disp.device.type == torch.device(dev).type
+        histories.append(losses)
+    np.testing.assert_allclose(histories[0], histories[1], rtol=1e-4)

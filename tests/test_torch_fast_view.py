@@ -14,6 +14,8 @@ row tables built from that source, equals the dense plain march bit for
 bit.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -132,26 +134,84 @@ def test_fast_mode_and_routes(rng, monkeypatch):
 
 
 def test_fast_view_unported_options_raise(rng):
-    """The plane sweep is not ported: method='sweep', exact_color=True and
-    a lateral layer lif_tpu would send to its sweep (mismatched focal)
-    raise NotImplementedError naming it; method='march' on such a layer
-    raises lif_tpu's ValueError."""
+    """What the single view refuses or ignores, as lif_tpu: method='march'
+    on a layer that is not march-eligible (a mismatched focal) raises
+    lif_tpu's ValueError; an unknown method raises ValueError; `chunk`,
+    the sweep's knob, is not read by a view that marches every layer."""
     _, tp = _projectors(rng, h=32, w=64)
     cam = lif_tpu_torch.Camera.create(64, 32, focal_px=0.78 * 64,
                                       position=[0.03, 0.0, 0.0])
-    with pytest.raises(NotImplementedError, match="sweep"):
-        lif_tpu_torch.render_fast_view(tp, cam, method="sweep")
-    with pytest.raises(NotImplementedError, match="exact_color"):
-        lif_tpu_torch.render_fast_view(tp, cam, exact_color=True)
     zoom = lif_tpu_torch.Camera.create(64, 32, focal_px=0.9 * 64,
                                        position=[0.03, 0.0, 0.0])
-    with pytest.raises(NotImplementedError, match="sweep"):
-        lif_tpu_torch.render_fast_view(tp, zoom)
     with pytest.raises(ValueError, match="method='march'"):
         lif_tpu_torch.render_fast_view(tp, zoom, method="march")
-    # chunk is the sweep's knob: accepted, not read
+    with pytest.raises(ValueError, match="unknown method"):
+        lif_tpu_torch.render_fast_view(tp, cam, method="splat")
     assert torch.equal(lif_tpu_torch.render_fast_view(tp, cam, chunk=7),
                        lif_tpu_torch.render_fast_view(tp, cam))
+
+
+def _view_case(pkg, case):
+    """(projector kwargs, camera, render_fast_view kwargs) of a sweep case
+    on the 64x32 scene."""
+    f, pos, rot, kw, proj = 0.78 * 64, [0.03, 0.0, 0.0], None, {}, {}
+    if case == "method_sweep":
+        kw = dict(method="sweep")
+    elif case == "exact_color":
+        kw = dict(method="sweep", exact_color=True, num_planes=24, chunk=5)
+    elif case == "zoom":
+        f = 0.9 * 64  # the single view's per-layer fallback
+    elif case == "rotated_sweep":
+        c, s_ = np.cos(0.1), np.sin(0.1)
+        rot = np.array([[c, 0.0, s_], [0.0, 1.0, 0.0], [-s_, 0.0, c]])
+        pos, kw = [0.02, 0.01, 0.0], dict(method="sweep")
+    elif case == "mixed_ldi":
+        proj = "mixed"
+    cam = pkg.Camera.create(64, 32, focal_px=f, position=pos, rotation=rot)
+    return proj, cam, kw
+
+
+@pytest.mark.parametrize("case", ["method_sweep", "exact_color", "zoom",
+                                  "rotated_sweep", "mixed_ldi"])
+def test_fast_view_sweep_routes_match_lif_tpu(rng, case):
+    """render_fast_view on the sweep, against lif_tpu on the same inputs:
+    method='sweep' on a lateral pose (render_sweep_aligned) and on a
+    rotated one (render_rotated), exact_color's first-crossing colour
+    fetch, a zoomed lateral view (the per-layer fallback: the layer sweeps
+    with TierFallbackWarning) and an LDI whose front layer marches while
+    its back layer (another focal) sweeps. The warnings equal lif_tpu's.
+    Gate: max abs < 2e-3 in sRGB (the bf16 colour product can round one
+    bf16 step apart; tests/test_torch_render.py)."""
+    proj, cam_j, kw = _view_case(lif_tpu, case)
+    _, cam_t, _ = _view_case(lif_tpu_torch, case)
+    if proj == "mixed":
+        rgb, disp = _scene(rng, 32, 64)
+        back = make_layer(rng, 32, 64, invz_min=0.5, invz_max=0.1)
+        mask = (smooth_noise(rng, 32, 64, octaves=2) > 0.35).astype(
+            np.float32)
+        jp = lif_tpu.projector_from_arrays(
+            rgb, disp, mask, focal_px=0.78 * 64, invz_min=2.0, invz_max=0.6,
+            baseline=1.0, extra_layers=[dict(
+                rgb=back["rgb"], disp=back["disp"], focal_px=0.7 * 64,
+                invz_min=0.5, invz_max=0.1)],
+        )
+        tp = lif_tpu_torch.projector_from_reference(jp, device="cpu")
+    else:
+        jp, tp = _projectors(rng, h=32, w=64)
+    with warnings.catch_warnings(record=True) as jrec:
+        warnings.simplefilter("always")
+        ref = np.asarray(jfast_view(jp, cam_j, **kw))
+    with warnings.catch_warnings(record=True) as trec:
+        warnings.simplefilter("always")
+        got = lif_tpu_torch.render_fast_view(tp, cam_t, **kw).numpy()
+    jw, tw = ([str(r.message) for r in rec
+               if r.category.__name__ == "TierFallbackWarning"]
+              for rec in (jrec, trec))
+    assert tw == jw
+    assert len(tw) == (case in ("zoom", "mixed_ldi"))
+    assert got.shape == ref.shape == (32, 64, 4)
+    assert np.abs(got - ref).max() < 2e-3
+    assert ref[..., 3].mean() > 0.5
 
 
 def _skewed_ldi(rng, h=64, w=128):

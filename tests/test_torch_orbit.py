@@ -4,9 +4,10 @@ The same seeded scene goes through lif_tpu.render_fast_batch (JAX on the
 CPU: its XLA twin of the target-ray march) and, carried across with
 projector_from_reference, through lif_tpu_torch.render_fast_batch (the
 plain twin on CPU tensors). Yaw-family batches route to the 'target'
-tier, pitch-family batches to it through the x<->y transpose, and the
-batches lif_tpu sends to its two-phase 'rotated' tier raise
-NotImplementedError naming it. Gate: >= 60 dB and fewer than 0.1% of
+tier, pitch-family batches to it through the x<->y transpose; the
+batches lif_tpu sends to its two-phase 'rotated' tier and to its plane
+sweep are checked in tests/test_torch_rotated.py. Gate: >= 60 dB and
+fewer than 0.1% of
 pixels off by more than 1e-3 (tests/test_sweep_target.py:146-153; XLA's
 FMA contraction can flip isolated grazing crossings).
 """

@@ -9,6 +9,7 @@ gamma curve's slope near 0 magnifies float32 noise).
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -178,39 +179,60 @@ _FORMERLY_UNCOVERED = {"rotated": "rotated", "y_translation": "scaled",
                        "skewed": "march"}
 
 
-@pytest.mark.parametrize("case", [
-    "rotated", "y_translation", "z_translation", "focal_mismatch",
-    "uniform_planes", "sweep_method", "stereo_mode",
-])
+@pytest.mark.parametrize("case", ["uniform_planes", "stereo_mode"])
 def test_uncovered_poses_raise_not_implemented(rng, case):
-    """Anything no ported tier covers raises NotImplementedError naming
-    what it needs; it never returns a silent wrong image. A rotation, a
-    y/z translation or a mismatched focal past every march tier's budget
-    is lif_tpu's 'sweep' fallback, which the port does not have; the
-    stereo fast path, like the mono batch, has only the snap plane
-    mode."""
-    jp, tp = _projectors(rng, h=32, w=64)
-    kw = {}
-    if case in ("uniform_planes", "stereo_mode"):
-        kw = dict(config=lif_tpu_torch.DEFAULT_CONFIG.replace(
-            plane_mode="uniform"))
-    elif case == "sweep_method":
-        kw = dict(method="sweep")
-    beyond = case in _FORMERLY_UNCOVERED
-    if beyond:
-        _, jt = lif_tpu.render_fast_batch(
-            jp, [_case_camera(lif_tpu, case, beyond)], return_tiers=True)
-        assert tuple(jt) == ("sweep",)
-    match = {
-        "uniform_planes": "snap", "sweep_method": "sweep",
-        "stereo_mode": "snap",
-    }.get(case, "sweep")
-    cam = _case_camera(lif_tpu_torch, case, beyond)
-    with pytest.raises(NotImplementedError, match=match):
+    """What no ported tier covers raises NotImplementedError naming what it
+    needs; it never returns a silent wrong image: the mono batch and the
+    stereo fast path have only the snap grid of the march (lif_tpu's
+    uniform and hybrid march grids are not ported)."""
+    _, tp = _projectors(rng, h=32, w=64)
+    kw = dict(config=lif_tpu_torch.DEFAULT_CONFIG.replace(
+        plane_mode="uniform"))
+    cam = _case_camera(lif_tpu_torch, case)
+    with pytest.raises(NotImplementedError, match="snap"):
         if case == "stereo_mode":
             lif_tpu_torch.render([tp, tp], cam, mode="stereo_fast", **kw)
         else:
             lif_tpu_torch.render_fast_batch(tp, [cam], **kw)
+
+
+def _fallback_warnings(fn):
+    """fn()'s result and the messages of the TierFallbackWarnings it fired
+    (each package's own class)."""
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = fn()
+    fired = [str(r.message) for r in rec
+             if r.category.__name__ == "TierFallbackWarning"]
+    return out, fired
+
+
+@pytest.mark.parametrize("case", [
+    "rotated", "y_translation", "z_translation", "focal_mismatch",
+    "sweep_method",
+])
+def test_sweep_poses_match_lif_tpu(rng, case):
+    """A rotation, a y/z translation or a mismatched focal past every march
+    tier's budget is lif_tpu's 'sweep' fallback, and method='sweep' sweeps
+    a lateral batch: each renders on the 'sweep' tier in both packages,
+    with lif_tpu's image and lif_tpu's TierFallbackWarning (the same text;
+    none for method='sweep', which asked for the sweep). Gate: max abs
+    < 2e-3 in sRGB; lif_tpu's colour row product rounds to bf16, where
+    the two packages' products, summed in another order, can round one
+    bf16 step (2^-8 relative) apart."""
+    jp, tp = _projectors(rng, h=32, w=64)
+    beyond = case != "sweep_method"
+    kw = {} if beyond else dict(method="sweep")
+    (ref, jt), jw = _fallback_warnings(lambda: lif_tpu.render_fast_batch(
+        jp, [_case_camera(lif_tpu, case, beyond)], return_tiers=True, **kw))
+    (got, tt), tw = _fallback_warnings(
+        lambda: lif_tpu_torch.render_fast_batch(
+            tp, [_case_camera(lif_tpu_torch, case, beyond)],
+            return_tiers=True, **kw))
+    assert tuple(jt) == tt == ("sweep",)
+    assert tw == jw and len(tw) == int(beyond)
+    assert beyond == ("plane-sweep" in "".join(tw))
+    assert np.abs(got.numpy() - np.asarray(ref)).max() < 2e-3
 
 
 @pytest.mark.parametrize("case", sorted(_FORMERLY_UNCOVERED))

@@ -328,19 +328,34 @@ def test_transpose_when_upright_cascade_ends_in_sweep(rng, monkeypatch):
 
 
 def test_sweep_batch_raises_naming_sweep(rng):
-    """A batch no march tier covers in either orientation: lif_tpu routes
-    it to its sweep fallback, the port raises naming 'sweep'."""
+    """Batches no march tier covers in either orientation: lif_tpu routes
+    them to its sweep fallback (render_rotated, after the transposed route
+    fails too) and raises TierFallbackWarning naming the plane sweep; the
+    port raises the same warning, routes the same tier and renders
+    lif_tpu's image. The first pose (1 m off axis) sees nothing; the
+    second (30 deg yaw + pitch, 0.1 m) covers about a sixth of the frame.
+    Gate: max abs < 2e-3 (the sweep's gate,
+    tests/test_torch_render.py::test_sweep_poses_match_lif_tpu)."""
     jp, tp = _projectors(rng)
-    poses = [(_rotx(12.0) @ _roty(12.0), [0.0, 1.0, 0.0])]
-    _, jt = lif_tpu.render_fast_batch(
-        jp, [lif_tpu.Camera.create(128, 96, focal_px=0.78 * 128, position=c,
-                                   rotation=r) for r, c in poses],
-        return_tiers=True)
-    assert tuple(jt) == ("sweep",)
-    with pytest.raises(NotImplementedError, match="sweep"):
-        lif_tpu_torch.render_fast_batch(tp, [lif_tpu_torch.Camera.create(
-            128, 96, focal_px=0.78 * 128, position=c, rotation=r)
-            for r, c in poses])
+    for rot, pos, coverage in ((_rotx(12.0) @ _roty(12.0), [0.0, 1.0, 0.0],
+                                0.0),
+                               (_rotx(30.0) @ _roty(30.0), [0.0, 0.1, 0.0],
+                                0.15)):
+        fired, outs = [], []
+        for pkg, proj in ((lif_tpu, jp), (lif_tpu_torch, tp)):
+            cam = pkg.Camera.create(128, 96, focal_px=0.78 * 128,
+                                    position=pos, rotation=rot)
+            with pytest.warns(UserWarning, match="plane-sweep") as rec:
+                out, tiers = pkg.render_fast_batch(proj, [cam],
+                                                   return_tiers=True)
+            assert tuple(tiers) == ("sweep",)
+            fired.append([str(r.message) for r in rec
+                          if r.category.__name__ == "TierFallbackWarning"])
+            outs.append(np.asarray(out))
+        assert fired[0] == fired[1] and fired[0]
+        ref, got = outs
+        assert np.abs(got - ref).max() < 2e-3
+        assert (ref[..., 3] > 0).mean() >= coverage
 
 
 @pytest.mark.parametrize("case", ["lateral", "dolly", "yaw", "yaw_pitch"])
