@@ -147,10 +147,14 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     a second call reusing every texture entry and march pack, its frames
     equal to the first; the frames equal to their plain-version render
     (plain_lateral); fused frames/s by CUDA events (median of 5 after a
-    warm-up) at 4 cameras and at 1; at 1280x800, the fused frame at x =
-    0.05 m against the port's 640-step render_fused_projectors at the
-    default fuse_tol and at 0.1, each at most 1 dB under lif_tpu's value
-    on the same projectors (tools/reference_fused_psnr.py).
+    warm-up) at 4 cameras and at 1; the peak device memory at 8 and 16
+    cameras, and 24 cameras in one call (its pose chunk bounded by the
+    free device memory: exactly 4 launches a chunk) frame for frame
+    against calls of 4 cameras (max abs <= 1e-5); at 1280x800, the fused
+    frame at x = 0.05 m against the port's 640-step
+    render_fused_projectors at the default fuse_tol and at 0.1, each at
+    most 1 dB under lif_tpu's value on the same projectors
+    (tools/reference_fused_psnr.py).
 21. main path 11 (the plane-sweep tier, plain torch: no kernel may
     launch), on the scene of main paths 1-7, each drive with every launch
     count reset just before it: render_fast_batch(method="sweep") over
@@ -176,9 +180,30 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     the fitted disparity closer to the truth than the start, the first
     three losses within 1e-3 of lif_tpu's (tools/reference_fit.py), ms per
     step by CUDA events and the peak device memory.
+23. main path 13 (multi-device: parallel.sharding on the one card, each
+    step's launch counts zeroed just before it): world size 1 on NCCL in
+    this process, render_fast_trajectory_sharded over main path 1's 96
+    lateral, main path 2's 120 orbit and main path 4's 48 dolly poses,
+    each equal to that main path's frames (max abs 0); then 2 and 4 ranks
+    on gloo with CUDA tensors (NCCL refuses two ranks on one GPU), each
+    launch through parallel.launch.run_ranks, the ranks reading the main
+    paths' results through CUDA IPC: the three trajectories (max abs <=
+    1e-6 against those frames; every rank's launches exactly one per pose
+    chunk of its block), render_view_tiled at main path 1's pose 0 against
+    its 640-step oracle (<= 1e-5), render_fused_projectors on main path
+    10's four 1280x800 projectors against the one-process fusion (<= 1e-6;
+    2 views on 2 ranks, 4 views and 2 views x 2 tiles on 4), and at 4
+    ranks two fit steps of main path 12's problem on a (2, 2) (data, tile)
+    mesh, their losses within 1e-5 (relative) of main path 12's first
+    two; wall ms of each sharded call at 1, 2 and 4 ranks and each rank's
+    peak device memory (one card shared by the ranks: no scaling
+    measurement); last, entry.dryrun_multichip(4) with its defaults (the
+    card; gloo on CUDA tensors, as 4 ranks share it): every rank on the
+    card, one loss, its own fused order check.
 
 Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1), main
-paths 8, 9 and 10 each step's against the tiers it took. The
+paths 8, 9 and 10 each step's against the tiers it took, main path 13
+each rank's against its block of poses. The
 second-to-last line is the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, as the source note of its .cu file counts them, a march's
@@ -305,6 +330,12 @@ W4, H4 = 3840, 2160
 FUSED_SCALE = W4 / W
 FUSED_STEPS = 640
 FUSE_TOLS = {"default": None, "0.1": 0.1}
+# the fused core's footprint at 3840x2160: peak memory at these camera
+# counts, then N_FUSED_MANY cameras in one call (its pose chunk bounded by
+# the free device memory) frame for frame against calls of FUSED_GROUP
+# cameras, which plan their own groups: at most FUSED_GROUP_TOL apart
+FUSED_FOOTPRINT = (8, 16)
+N_FUSED_MANY, FUSED_GROUP, FUSED_GROUP_TOL = 24, 4, 1e-5
 # lif_tpu's render_fused_fast_batch on the same four 1280x800 projectors
 # at x = FUSED_CAM_X against its own FUSED_STEPS-step
 # render_fused_projectors at the same fuse_tol, dB; JAX on the CPU
@@ -349,6 +380,19 @@ FIT_DROP = 0.85  # min(last 5 losses) < FIT_DROP x the first (test_train.py)
 LIF_TPU_FIT_LOSSES = (0.003640431445091963, 0.006393398158252239,
                       0.005992839112877846)
 FIT_LOSS_RTOL = 1e-3
+# main path 13 (multi-device, parallel.sharding on the one card): world
+# size 1 on NCCL in this process, then SHARD_RANKS ranks on gloo with CUDA
+# tensors (NCCL refuses two ranks on one GPU), each launch through
+# parallel.launch.run_ranks within SHARD_TIMEOUT_S; the sharded frames of
+# main paths 1, 2 and 4 against theirs (SHARD_TOL), the row-banded exact
+# march against main path 1's 640-step oracle (TILED_TOL), the fused
+# exact march against the one-process fusion (SHARD_TOL) and
+# FIT_SHARD_STEPS sharded fit steps on a FIT_MESH (data, tile) mesh
+# against main path 12's first losses (relative FIT_SHARD_RTOL)
+SHARD_RANKS = (2, 4)
+SHARD_TIMEOUT_S = 300.0
+SHARD_TOL, TILED_TOL = 1e-6, 1e-5
+FIT_MESH, FIT_SHARD_STEPS, FIT_SHARD_RTOL = (2, 2), 2, 1e-5
 # the H100 SXM's published peaks: HBM bytes/s and FP32 operations/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -360,6 +404,11 @@ OPS_NOTE = re.compile(
 
 class SmokeFailure(Exception):
     pass
+
+
+# what main paths 1, 2, 4, 10 and 12 computed, on the card, which main
+# path 13 holds its shards to
+MAIN_FRAMES: dict = {}
 
 
 def check(ok: bool, msg: str):
@@ -691,10 +740,7 @@ def run():
         from lif_tpu_torch.io import native
         from lif_tpu_torch.models import renderer
         from lif_tpu_torch.ops.cuda import build
-        from lif_tpu_torch.ops.cuda import splat_march as kbb
         from lif_tpu_torch.ops.cuda import sweep_march as kmarch
-        from lif_tpu_torch.ops.cuda import sweep_scaled as kscaled
-        from lif_tpu_torch.ops.cuda import sweep_target as ktarget
         from lif_tpu_torch.ops.sweep_march import (
             march_translation_plain,
             march_translation_skip_plain,
@@ -734,17 +780,13 @@ def run():
                         or "spill" in line):
                     print(f"  ptxas {name}: {line.strip()}", flush=True)
 
+    counter = launch_counter()
+
     def reset_counts():
-        kmarch.sweep_lateral.launches = 0
-        ktarget.sweep_target.launches = 0
-        kscaled.sweep_scaled.launches = 0
-        kbb.sweep_billboard.launches = 0
+        counter(reset=True)
 
     def launch_counts():
-        return {"lateral_march": kmarch.sweep_lateral.launches,
-                "target_march": ktarget.sweep_target.launches,
-                "scaled_march": kscaled.sweep_scaled.launches,
-                "billboard_march": kbb.sweep_billboard.launches}
+        return counter()
 
     rgb, disp = make_scene(0)
     proj = lif_tpu_torch.projector_from_arrays(
@@ -814,7 +856,7 @@ def run():
         int(found.sum()), N_CHECK)
 
     # 4. main path 1, with every launch count zeroed just before it
-    cams = [cam(0.135 + 0.02 * i / N_MAIN) for i in range(N_MAIN)]
+    cams = trajectory_drives(lif_tpu_torch, focal)["lateral"][0]
     reset_counts()
     out, tiers = lif_tpu_torch.render_fast_batch(
         proj, cams, method="march", return_tiers=True
@@ -834,6 +876,7 @@ def run():
 
     exact = lif_tpu_torch.render_mono_view(proj, cams[0], mask_mode="none",
                                            num_steps=640)
+    MAIN_FRAMES.update(lateral=out, lateral_exact=exact)
     ref40 = lif_tpu_torch.render_mono_view(proj, cams[0], mask_mode="none",
                                            num_steps=40)
     q_fast = psnr(out[0], exact)
@@ -882,6 +925,7 @@ def run():
     errs10 = fusion_phase(reset_counts, launch_counts, card)
     sweep_phase(proj, focal, reset_counts, launch_counts, card)
     fit_phase(reset_counts, launch_counts, card, dev)
+    shard_phase(proj, focal, reset_counts, launch_counts, card)
     kernels = [lateral, target, scaled, billboard]
     for rec in kernels:
         rec["max_abs_err"] = max(rec["max_abs_err"],
@@ -973,7 +1017,7 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
 
     # 7. main path 2: the orbit, every launch count zeroed just before it
     thetas = np.deg2rad(np.linspace(-ORBIT_DEG, ORBIT_DEG, N_ORBIT))
-    cams = orbit_cams(lt, focal, thetas=list(thetas))
+    cams = trajectory_drives(lt, focal)["orbit"][0]
     reset_counts()
     out, tiers = lt.render_fast_batch(proj, cams, return_tiers=True)
     torch.cuda.synchronize()
@@ -984,6 +1028,7 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
           f"{ORBIT_DEG:g} deg) -> {tuple(out.shape)}, tiers {tiers}, "
           f"target_march launches {launches}, alpha coverage "
           f"{coverage:.4f}", flush=True)
+    MAIN_FRAMES["orbit"] = out
     check(tiers == ("target",), f"orbit tiers {tiers}")
     check(launches == 3, f"{launches} target launches for three chunks")
     check(tuple(out.shape) == (N_ORBIT, H, W, 4), f"shape {tuple(out.shape)}")
@@ -1151,6 +1196,7 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
     print(f"main path 4: render_fast_batch({N_DOLLY} dolly poses) -> "
           f"{tuple(out.shape)}, tiers {tiers}, scaled_march launches "
           f"{launches}, alpha coverage {coverage:.4f}", flush=True)
+    MAIN_FRAMES["dolly"] = out
     check(tiers == ("scaled",), f"dolly tiers {tiers}")
     check(launches == 1, f"{launches} scaled launches on the dolly")
     check(tuple(out.shape) == (N_DOLLY, H, W, 4), f"shape {tuple(out.shape)}")
@@ -2050,6 +2096,87 @@ def fusion_phase(reset_counts, launch_counts, card):
           f"{one_ms:.3f} ms = {1e3 / one_ms:.2f} frames/s; peak device "
           f"memory {peak / 2**30:.2f} GiB [{card}]", flush=True)
 
+    # the footprint: the peak above the resident state at more cameras
+    # (each call twice: the first builds the march packs of its batch's
+    # plan, the second, measured, reuses them; no call recorded, since
+    # recorded_calls keeps a copy of every kernel output), its growth per
+    # camera as bytes per projector, pixel and pose (against the bound's
+    # renderer._FUSED_BYTES_PER_VIEW_PX), then N_FUSED_MANY cameras in one
+    # call, its pose chunk bounded by the free memory
+    # (renderer._fused_pose_chunk, spied on), against groups of FUSED_GROUP
+    def cams_4k(n):
+        return [lt.Camera.create(W4, H4, focal_px=focal4, position=[
+            FUSED_CAM_X + FUSED_CAM_DX * j, 0.0, 0.0]) for j in range(n)]
+
+    above = {}
+    for n in FUSED_FOOTPRINT:
+        warm = lt.render_fused_fast_batch(projs4, cams_4k(n))
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        many = lt.render_fused_fast_batch(projs4, cams_4k(n))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        record_path(path10.name, counts)
+        peak = torch.cuda.max_memory_allocated()
+        above[n] = peak - resident
+        print(f"main path 10: render_fused_fast_batch({N_FUSED} projectors, "
+              f"{n} cameras at {W4}x{H4}): launches {counts}, peak device "
+              f"memory {peak / 2**30:.3f} GiB, {above[n] / 2**30:.3f} GiB "
+              f"above the {resident / 2**30:.3f} GiB resident "
+              f"(max_memory_allocated) [{card}]", flush=True)
+        check(counts == want, f"{n} fused cameras: launches {counts}")
+        check(bool(torch.isfinite(many).all()), f"{n} fused cameras")
+        del many
+    lo, hi = FUSED_FOOTPRINT
+    slope = (above[hi] - above[lo]) / (hi - lo)
+    print(f"main path 10: the footprint grows {slope / 2**30:.3f} GiB a "
+          f"camera = {slope / (N_FUSED * W4 * H4):.1f} bytes per projector, "
+          f"pixel and pose (the chunk bound assumes "
+          f"{renderer._FUSED_BYTES_PER_VIEW_PX}) [{card}]", flush=True)
+    check(slope <= renderer._FUSED_BYTES_PER_VIEW_PX * N_FUSED * W4 * H4,
+          "the fused core holds more per pose than its chunk bound assumes")
+    torch.cuda.empty_cache()
+    chunks = []
+    bound = renderer._fused_pose_chunk
+
+    def spy(*args):
+        chunks.append(bound(*args))
+        return chunks[-1]
+
+    renderer._fused_pose_chunk = spy
+    try:
+        reset_counts()
+        many = lt.render_fused_fast_batch(projs4, cams_4k(N_FUSED_MANY))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        record_path(path10.name, counts)
+    finally:
+        renderer._fused_pose_chunk = bound
+    n_chunks = len(renderer._pose_chunks(N_FUSED_MANY, chunks[0]))
+    worst = flipped = 0.0
+    for g in range(0, N_FUSED_MANY, FUSED_GROUP):
+        part = lt.render_fused_fast_batch(projs4, cams_4k(N_FUSED_MANY)[
+            g:g + FUSED_GROUP])
+        diff = (many[g:g + FUSED_GROUP] - part).abs()
+        worst = max(worst, float(diff.max()))
+        flipped += float((diff > FUSED_GROUP_TOL).sum())
+        del part, diff
+    print(f"main path 10: {N_FUSED_MANY} cameras at {W4}x{H4} in one call: "
+          f"pose chunk {chunks[0]} ({n_chunks} chunks), launches {counts}; "
+          f"against calls of {FUSED_GROUP} cameras: max abs {worst:.3g}, "
+          f"{int(flipped)} values over {FUSED_GROUP_TOL:g}", flush=True)
+    check(counts["lateral_march"] == N_FUSED * n_chunks,
+          f"{N_FUSED_MANY} fused cameras: launches {counts}")
+    check(worst <= FUSED_GROUP_TOL,
+          f"{N_FUSED_MANY} fused cameras differ from groups of {FUSED_GROUP}"
+          f" by {worst:.3g}")
+    del many
+    torch.cuda.empty_cache()
+
     # fidelity at 1280x800 against the exact fused oracle
     cam = lt.Camera.create(W, H, focal_px=float(projs1k[0].focal[0]),
                            position=[FUSED_CAM_X, 0.0, 0.0])
@@ -2063,6 +2190,9 @@ def fusion_phase(reset_counts, launch_counts, card):
         path10.held(calls, f"the {W}x{H} fused frame at fuse_tol {name}")
         exact = render_fused_projectors(projs1k, cam, num_steps=FUSED_STEPS,
                                         fuse_tol=cfg.fuse_tol)
+        if tol is None:
+            MAIN_FRAMES.update(fused_projs=projs1k, fused_cam=cam,
+                               fused_exact=exact)
         q, ref_db = psnr(fast[0], exact), LIF_TPU_FUSED_PSNR[name]
         print(f"main path 10: {W}x{H} fused frame at x = {FUSED_CAM_X} m, "
               f"fuse_tol {name} ({cfg.fuse_tol:g}): launches {counts}, "
@@ -2235,6 +2365,7 @@ def fit_phase(reset_counts, launch_counts, card, dev):
           f"{FIT_STEPS} steps, each ending in a host read of its loss); peak "
           f"device memory {peak / 2**30:.2f} GiB (max_memory_allocated; "
           f"{resident / 2**30:.2f} GiB resident before) [{card}]", flush=True)
+    MAIN_FRAMES.update(fit_targets=targets, fit_losses=losses)
     check(counts == path12.expect(()), f"fit launches {counts}")
     check(all(np.isfinite(losses)), "non-finite loss")
     check(drop < FIT_DROP, f"the fit's loss fell only to {drop:.4f}")
@@ -2242,6 +2373,289 @@ def fit_phase(reset_counts, launch_counts, card, dev):
     for got, want in zip(losses[:3], LIF_TPU_FIT_LOSSES):
         check(abs(got - want) <= FIT_LOSS_RTOL * want,
               f"losses {losses[:3]}, lif_tpu {LIF_TPU_FIT_LOSSES}")
+
+
+def trajectory_drives(lt, focal):
+    """The trajectories of main paths 1, 2 and 4, which main path 13
+    shards, {name: (cameras, render_fast_batch keyword arguments)}: main
+    path 1's lateral poses (method 'march', as main path 1 renders them),
+    main path 2's orbit and main path 4's dolly."""
+    lateral = [lt.Camera.create(W, H, focal_px=focal, position=[
+        0.135 + 0.02 * i / N_MAIN, 0.0, 0.0]) for i in range(N_MAIN)]
+    orbit = orbit_cams(lt, focal, thetas=list(
+        np.deg2rad(np.linspace(-ORBIT_DEG, ORBIT_DEG, N_ORBIT))))
+    return {"lateral": (lateral, {"method": "march"}), "orbit": (orbit, {}),
+            "dolly": (dolly_cams(lt, focal), {})}
+
+
+def shard_fast(proj, cams, kw, mesh, counts):
+    """render_fast_trajectory_sharded of `cams` over the mesh's 'frame'
+    axis, cold then warm: (frames of the cold call, its launches, the
+    warm call's wall ms: from a barrier to the synchronize after the
+    all-gather). counts() zeroes, then reads the launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.parallel import sharding
+
+    template = lt.Camera.create(W, H, focal_px=float(cams[0].focal_px))
+    args = (proj, np.stack([c.position for c in cams]), template, mesh)
+    kw = dict(kw, cameras_rotations=np.stack([c.rotation for c in cams]))
+    counts(reset=True)
+    frames = sharding.render_fast_trajectory_sharded(*args, **kw)
+    torch.cuda.synchronize()
+    launches = counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    sharding.render_fast_trajectory_sharded(*args, **kw)
+    torch.cuda.synchronize()
+    return frames, launches, (time.perf_counter() - t0) * 1e3
+
+
+def launch_counter():
+    """counts(reset=False): zero every kernel's launch count (reset) or
+    read them."""
+    from lif_tpu_torch.ops.cuda import splat_march as kbb
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+    from lif_tpu_torch.ops.cuda import sweep_scaled as kscaled
+    from lif_tpu_torch.ops.cuda import sweep_target as ktarget
+
+    wrappers = {"lateral_march": kmarch.sweep_lateral,
+                "target_march": ktarget.sweep_target,
+                "scaled_march": kscaled.sweep_scaled,
+                "billboard_march": kbb.sweep_billboard}
+
+    def counts(reset=False):
+        if reset:
+            for fn in wrappers.values():
+                fn.launches = 0
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    return counts
+
+
+def shard_rank(refs):
+    """One rank of main path 13's gloo launches (CUDA tensors, the ranks
+    sharing the card): the seeded scene of main paths 1-7 on the card; the
+    sharded lateral, orbit and dolly trajectories against main paths 1, 2
+    and 4's frames (`refs`, CUDA tensors this process reads through CUDA
+    IPC) with each drive's launches; render_view_tiled at main path 1's
+    pose 0 against its 640-step oracle; render_fused_projectors on main
+    path 10's 1280x800 projectors against the one-process fusion (a view
+    per rank; at 4 ranks also 2 views x 2 tiles); at 4 ranks
+    FIT_SHARD_STEPS fit steps of main path 12's problem on a FIT_MESH
+    (data, tile) mesh. Returns the errors, launches, wall ms, losses and
+    the rank's peak device memory."""
+    import torch
+    import torch.distributed as dist
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.parallel import sharding
+    from lif_tpu_torch.parallel.sharding import render_fused_projectors
+    from lif_tpu_torch.train import fit
+
+    n = dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    counts = launch_counter()
+    rgb, disp = make_scene(0)
+    proj = lt.projector_from_arrays(
+        rgb, disp, focal_px=0.78 * W, invz_min=INVZ_NEAR, invz_max=INVZ_FAR,
+        baseline=BASELINE, device=dev)
+    focal = float(proj.focal[0])
+    frames_mesh = sharding.make_mesh(("frame",), device_type="cuda")
+    drives = trajectory_drives(lt, focal)
+    out = {"drives": {}}
+    for name, (cams, kw) in drives.items():
+        frames, launches, ms = shard_fast(proj, cams, kw, frames_mesh,
+                                          counts)
+        chunks = len(renderer._pose_chunks(len(cams) // n,
+                                           lt.DEFAULT_CONFIG.pose_chunk))
+        out["drives"][name] = dict(
+            err=float((frames - refs[name]).abs().max()), launches=launches,
+            chunks=chunks, ms=ms, shape=tuple(frames.shape))
+        del frames
+    tiles = sharding.make_mesh(("tile",), device_type="cuda")
+    cam0 = drives["lateral"][0][0]
+    dist.barrier()
+    t0 = time.perf_counter()
+    band = sharding.render_view_tiled(proj, cam0, tiles, mask_mode="none",
+                                      num_steps=640)
+    torch.cuda.synchronize()
+    out["tiled"] = dict(err=float((band - refs["lateral_exact"]).abs().max()),
+                        ms=(time.perf_counter() - t0) * 1e3)
+    del band
+    projs, cam = refs["fused_projs"], refs["fused_cam"]
+    views = sharding.make_mesh(("view",), device_type="cuda")
+    fused = {}
+    if n == len(projs):
+        got = render_fused_projectors(projs, cam, views,
+                                      num_steps=FUSED_STEPS)
+        fused[f"{n} views"] = float((got - refs["fused_exact"]).abs().max())
+    if n == 2:
+        got = render_fused_projectors(projs[:2], cam, views,
+                                      num_steps=FUSED_STEPS)
+        fused["2 views"] = float((got - refs["fused_exact2"]).abs().max())
+    if n == 4:
+        mesh = sharding.make_mesh(("view", "tile"), (2, 2),
+                                  device_type="cuda")
+        got = render_fused_projectors(projs[:2], cam, mesh, tile_axis="tile",
+                                      num_steps=FUSED_STEPS)
+        fused["2 views x 2 tiles"] = float(
+            (got - refs["fused_exact2"]).abs().max())
+        rgb_f, _, start, positions, rotations = make_fit_problem(0)
+        bad = lt.projector_from_arrays(
+            rgb_f, start, focal_px=0.78 * W, invz_min=FIT_INVZ[0],
+            invz_max=FIT_INVZ[1], baseline=1.0, device=dev)
+        _, losses = fit.fit_projector(
+            bad, positions, rotations, lt.Camera.create(W, H,
+                                                        focal_px=0.78 * W),
+            refs["fit_targets"], steps=FIT_SHARD_STEPS,
+            learning_rate=FIT_LR, num_steps=FIT_PLANES,
+            mesh=sharding.make_mesh(("data", "tile"), FIT_MESH,
+                                    device_type="cuda"))
+        out["fit_losses"] = losses
+    out["fused"] = fused
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def shard_phase(proj, focal, reset_counts, launch_counts, card):
+    """Phase 23, main path 13: parallel.sharding on the one card (see the
+    module note). World size 1 runs on NCCL in this process; SHARD_RANKS
+    ranks run on gloo with CUDA tensors through parallel.launch.run_ranks,
+    reading main paths 1, 2, 4, 10 and 12's results through CUDA IPC.
+    Every rank's launches must be what its block of poses implies: one
+    launch of the drive's kernel per pose chunk of the block."""
+    import functools
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.parallel import sharding
+    from lif_tpu_torch.parallel.launch import run_ranks
+    from lif_tpu_torch.parallel.sharding import render_fused_projectors
+
+    kernel_of = {"lateral": "lateral_march", "orbit": "target_march",
+                 "dolly": "scaled_march"}
+
+    def counts(reset=False):
+        if reset:
+            reset_counts()
+        return launch_counts()
+
+    def expect(name, chunks):
+        want = dict.fromkeys(launch_counts(), 0)
+        want[kernel_of[name]] = chunks
+        return want
+
+    wall = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = sharding.make_mesh(("frame",), device_type="cuda")
+            for name, (cams, kw) in trajectory_drives(lt, focal).items():
+                frames, launches, ms = shard_fast(proj, cams, kw, mesh,
+                                                  counts)
+                record_path("main path 13, 1 rank", launches)
+                chunks = len(renderer._pose_chunks(
+                    len(cams), lt.DEFAULT_CONFIG.pose_chunk))
+                equal = torch.equal(frames, MAIN_FRAMES[name])
+                wall[(name, 1)] = ms
+                print(f"main path 13: render_fast_trajectory_sharded({name}, "
+                      f"{len(cams)} poses) on 1 rank (NCCL): launches "
+                      f"{launches}, equal to render_fast_batch's {equal}, "
+                      f"{ms:.3f} ms (wall, warm)", flush=True)
+                check(equal, f"1-rank sharded {name} frames differ")
+                check(launches == expect(name, chunks),
+                      f"1-rank sharded {name} launches {launches}")
+                del frames
+        finally:
+            dist.destroy_process_group()
+    projs = MAIN_FRAMES["fused_projs"]
+    refs = {name: MAIN_FRAMES[name] for name in (
+        "lateral", "orbit", "dolly", "lateral_exact", "fused_projs",
+        "fused_cam", "fused_exact", "fit_targets")}
+    refs["fused_exact2"] = render_fused_projectors(
+        projs[:2], MAIN_FRAMES["fused_cam"], num_steps=FUSED_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for n in SHARD_RANKS:
+        t0 = time.perf_counter()
+        ranks = run_ranks(functools.partial(shard_rank, refs), n,
+                          backend="gloo", device_type="cuda",
+                          timeout_s=SHARD_TIMEOUT_S)
+        launch_s = time.perf_counter() - t0
+        for name in kernel_of:
+            recs = [r["drives"][name] for r in ranks]
+            err = max(r["err"] for r in recs)
+            wall[(name, n)] = max(r["ms"] for r in recs)
+            per_rank = [r["launches"] for r in recs]
+            want = expect(name, recs[0]["chunks"])
+            record_path(f"main path 13, {n} ranks (rank 0)", per_rank[0])
+            print(f"main path 13: render_fast_trajectory_sharded({name}) on "
+                  f"{n} ranks (gloo, CUDA tensors): frames "
+                  f"{recs[0]['shape']}, max abs against the one-process "
+                  f"frames {err:.3g}, launches per rank {per_rank} "
+                  f"(expected {want}), {wall[(name, n)]:.3f} ms (wall, "
+                  f"warm, slowest rank)", flush=True)
+            check(err <= SHARD_TOL, f"{n}-rank sharded {name}: {err:.3g}")
+            check(all(c == want for c in per_rank),
+                  f"{n}-rank sharded {name} launches {per_rank}")
+        tiled = max(r["tiled"]["err"] for r in ranks)
+        fused = {k: max(r["fused"][k] for r in ranks)
+                 for k in ranks[0]["fused"]}
+        peaks = [round(r["peak_gib"], 3) for r in ranks]
+        print(f"main path 13, {n} ranks: render_view_tiled ({W}x{H}, 640 "
+              f"steps, {H // n} rows a rank) against render_mono_view: max "
+              f"abs {tiled:.3g}, {max(r['tiled']['ms'] for r in ranks):.1f} "
+              f"ms; render_fused_projectors ({FUSED_STEPS} steps) against the "
+              f"one-process fusion: {fused}; peak device memory per rank "
+              f"{peaks} GiB; launch {launch_s:.1f} s [{card}]", flush=True)
+        check(tiled <= TILED_TOL, f"{n}-rank tiled render: {tiled:.3g}")
+        check(fused and all(v <= SHARD_TOL for v in fused.values()),
+              f"{n}-rank fused render: {fused}")
+        if n == FIT_MESH[0] * FIT_MESH[1]:
+            losses = [r["fit_losses"] for r in ranks]
+            want = MAIN_FRAMES["fit_losses"][:FIT_SHARD_STEPS]
+            rel = max(abs(a - b) / b for a, b in zip(losses[0], want))
+            print(f"main path 13: fit_projector on a {FIT_MESH} (data, tile) "
+                  f"mesh, {FIT_SHARD_STEPS} steps: losses {losses[0]} "
+                  f"(one process: {want}), max relative difference "
+                  f"{rel:.3g}", flush=True)
+            check(all(x == losses[0] for x in losses),
+                  "the ranks report different losses")
+            check(rel <= FIT_SHARD_RTOL, f"sharded fit losses: {rel:.3g}")
+    from lif_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(max(SHARD_RANKS), timeout_s=SHARD_TIMEOUT_S)
+    print(f"main path 13: entry.dryrun_multichip({len(dry)}) with its "
+          f"defaults on {torch.cuda.device_count()} card(s): devices {sorted({r['device'] for r in dry})}, fit "
+          f"loss {dry[0]['loss']}, fused {dry[0]['shape']} finite "
+          f"{all(r['finite'] for r in dry)}, max abs against the reversed "
+          f"projector order {max(r['order_err'] for r in dry):.3g}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(all(r["device"] == "cuda" for r in dry),
+          "the dry run did not run on the card")
+    check(len({r["loss"] for r in dry}) == 1,
+          "the dry run's ranks report different losses")
+    per_drive = [
+        f"{name} " + ", ".join(f"{n} rank(s) {wall[(name, n)]:.1f}"
+                               for n in (1, *SHARD_RANKS))
+        for name in kernel_of]
+    print("main path 13: wall ms of render_fast_trajectory_sharded (warm, "
+          "slowest rank) " + "; ".join(per_drive)
+          + f" [{card}]; the ranks share one card, so this is no scaling "
+          f"measurement; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def main() -> int:

@@ -25,8 +25,14 @@ the exact two-view march) and render_stereo_fast /
 render_stereo_fast_batch (render(mode='stereo_fast'), the same blend on
 the march tiers); multi-projector fusion, render_fused_fast /
 render_fused_fast_batch (the nearest-surface merge on the lateral march)
-and its exact oracle parallel.sharding.render_fused_projectors (one
-process); models.scene (LayerGroup, Scene) and apps.viewer.
+and its exact oracle parallel.sharding.render_fused_projectors;
+multi-device rendering and fitting over torch.distributed
+(parallel.sharding: make_mesh, render_view_tiled,
+render_trajectory_sharded, render_fast_trajectory_sharded, the mesh form
+of render_fused_projectors, and train.fit.fit_projector(mesh=...);
+parallel.launch.run_ranks starts the ranks of a one-host run; entry holds
+the forward check and the multi-rank dry run); models.scene (LayerGroup,
+Scene), apps.viewer and apps.picking; utils.debug and utils.profiling.
 As in lif_tpu, the top level exports the render and load entry points;
 the tiers' functions stay in lif_tpu_torch.ops and the fit in
 lif_tpu_torch.train. It imports neither jax nor lif_tpu.

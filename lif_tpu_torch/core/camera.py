@@ -12,7 +12,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["Camera", "focal_from_fov"]
+__all__ = ["Camera", "focal_from_fov", "fov_from_focal", "frustum_corners"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -65,3 +65,33 @@ class Camera:
 def focal_from_fov(fov_y_degrees: float, height: int) -> float:
     """Vertical FOV (degrees) -> focal length in pixels."""
     return (height / 2.0) / np.tan(np.deg2rad(fov_y_degrees) / 2.0)
+
+
+def fov_from_focal(focal_px: float, height: int) -> float:
+    """Focal length in pixels -> vertical FOV in degrees."""
+    return float(np.rad2deg(2.0 * np.arctan((height / 2.0) / focal_px)))
+
+
+def frustum_corners(intrinsics, width, height, invz_min, invz_max,
+                    baseline=0.063):
+    """8 frustum corner points in projector-local space (near + far
+    planes), float64 on the host.
+
+    near = baseline / invz_min, far = baseline / invz_max; corner rays are
+    (px - cx)/fx scaled by depth, Z negative (camera looks down -Z).
+    reference: src/HoloProjector.ts:388-433.
+    Returns (8, 3): rows 0-3 near plane TL,TR,BR,BL; rows 4-7 far plane.
+    """
+    fx, fy, cx, cy = (intrinsics["fx"], intrinsics["fy"], intrinsics["cx"],
+                      intrinsics["cy"])
+    near = baseline / invz_min
+    far = baseline / invz_max
+    corners = np.array([
+        [(0 - cx) / fx, (0 - cy) / fy],
+        [(width - cx) / fx, (0 - cy) / fy],
+        [(width - cx) / fx, (height - cy) / fy],
+        [(0 - cx) / fx, (height - cy) / fy],
+    ])
+    near_pts = np.concatenate([corners * near, np.full((4, 1), -near)], axis=1)
+    far_pts = np.concatenate([corners * far, np.full((4, 1), -far)], axis=1)
+    return np.concatenate([near_pts, far_pts], axis=0)

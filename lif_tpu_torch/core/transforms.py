@@ -4,7 +4,7 @@ The row-major equivalents of the GLSL helpers in the reference renderer
 (reference: src/shaders/rayCastMonoLDI.glsl:83-97), as in
 lif_tpu.core.transforms. GLSL mat3 constructors are column-major; every
 builder here returns the row-major matrix that performs the same
-``M @ v`` product. Only the builders the exact march needs are here.
+``M @ v`` product.
 
 The matrices are tiny per-call constants: callers build them on the CPU
 (exact IEEE float32) and move the results to the render device.
@@ -18,7 +18,9 @@ __all__ = [
     "FLIP_Z",
     "inv3",
     "mat_from_focal",
+    "mat_from_roll",
     "mat_from_skew",
+    "mat_from_slant",
     "mm",
     "shader_rotation",
 ]
@@ -35,6 +37,48 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
+
+
+def mat_from_slant(sl_x, sl_y) -> torch.Tensor:
+    """Rotation from tangent-space slant. reference: rayCastMonoLDI.glsl:63-71.
+
+    GLSL columns (invsqx,0,slx*invsq), (0,invsqy,sly*invsq),
+    (-slx*invsqx,-sly*invsqy,invsq) transposed to row-major.
+    """
+    sl_x, sl_y = _f32(sl_x), _f32(sl_y)
+    invsqx = 1.0 / torch.sqrt(1.0 + sl_x * sl_x)
+    invsqy = 1.0 / torch.sqrt(1.0 + sl_y * sl_y)
+    invsq = 1.0 / torch.sqrt(1.0 + sl_x * sl_x + sl_y * sl_y)
+    zero = torch.zeros_like(sl_x)
+    return torch.stack(
+        [
+            torch.stack([invsqx, zero, -sl_x * invsqx], dim=-1),
+            torch.stack([zero, invsqy, -sl_y * invsqy], dim=-1),
+            torch.stack([sl_x * invsq, sl_y * invsq, invsq], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def mat_from_roll(roll_degrees) -> torch.Tensor:
+    """Roll about +Z, angle in degrees. reference: rayCastMonoLDI.glsl:73-81.
+
+    Uses the shader's truncated PI constant (3.141593), as the reference
+    does, in float32.
+    """
+    th = _f32(roll_degrees)
+    rad = th * _f32(3.141593) / 180.0
+    c, s = torch.cos(rad), torch.sin(rad)
+    zero = torch.zeros_like(c)
+    one = torch.ones_like(c)
+    return torch.stack(
+        [
+            torch.stack([c, -s, zero], dim=-1),
+            torch.stack([s, c, zero], dim=-1),
+            torch.stack([zero, zero, one], dim=-1),
+        ],
+        dim=-2,
+    )
 
 
 def mat_from_skew(sk_x, sk_y) -> torch.Tensor:

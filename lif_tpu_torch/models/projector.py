@@ -81,6 +81,28 @@ class Projector:
         cy = self.height / 2.0 - float(self.skew[1]) * fx
         return {"fx": fx, "fy": fx, "cx": cx, "cy": cy}
 
+    @property
+    def inv_depth_range(self) -> dict:
+        """The base layer's inverse-depth range (LIF units) and baseline,
+        the reference's invDepthRange {min, max, baseline}."""
+        return {
+            "min": float(self.invz_min[0]),
+            "max": float(self.invz_max[0]),
+            "baseline": float(self.baseline),
+        }
+
+    def frustum_corners(self) -> np.ndarray:
+        """8 frustum corners in projector-local space (core.camera's
+        frustum_corners of the base view). reference:
+        HoloProjector.ts:388-433."""
+        from ..core.camera import frustum_corners
+
+        return frustum_corners(
+            self.intrinsics, self.width, self.height,
+            float(self.invz_min[0]), float(self.invz_max[0]),
+            float(self.baseline),
+        )
+
     def to(self, device) -> "Projector":
         """A copy whose textures live on `device`; upload once before
         steady-state rendering."""

@@ -310,15 +310,19 @@ def _disp_host(lay) -> np.ndarray:
 
 def _sweep_tables(projector, tex_layers, num_planes, mode="hybrid"):
     """The sweep's per-layer plane tables (K,) on the projector's device,
-    cached per (disparity, ranges, K, mode) as lif_tpu's _prepared_fast
-    caches them. The key holds the disparity tensor's identity and
-    in-place version counter (a fit writing into the same tensor must not
-    be served stale tables) and the entry a strong reference to it, so its
-    id cannot be reused while the entry stands."""
+    cached per (disparity, ranges, layer_res, K, mode) as lif_tpu's
+    _prepared_fast caches them. The key holds the disparity tensor's
+    identity and in-place version counter (a fit writing into the same
+    tensor must not be served stale tables) and the entry a strong
+    reference to it, so its id cannot be reused while the entry stands;
+    it holds layer_res because each table is built from the disparity
+    sliced to it (a dataclasses.replace projector with a smaller layer
+    keeps the first one's tensor)."""
     key = (
         id(projector.disp), _disp_fingerprint(projector.disp),
         np.asarray(projector.invz_min).tobytes(),
         np.asarray(projector.invz_max).tobytes(),
+        np.asarray(projector.layer_res).tobytes(),
         float(projector.baseline), num_planes, mode, str(projector.device),
     )
     hit = _PLANE_TABLE_CACHE.get(key)
@@ -842,6 +846,7 @@ def render_fast_batch(
     config: RenderConfig | None = None,
     return_tiers: bool = False,
     _transpose: bool = True,
+    _poses: slice | None = None,
 ):
     """Render MANY novel views; returns (B, H, W, 4) on the projector's
     device (GL-oriented, row 0 = bottom).
@@ -884,7 +889,9 @@ def render_fast_batch(
     Batches larger than config.pose_chunk render in balanced chunks (a
     bound on the per-chunk intermediates, nothing more). All cameras must
     share width/height/focal/skew; poses may vary. plan_tiers gives the
-    planning alone.
+    planning alone. `_poses`, a slice of the batch, renders only those
+    poses under the whole batch's plan (the frame-sharded path,
+    parallel.sharding.render_fast_trajectory_sharded).
     """
     cfg = config or DEFAULT_CONFIG
     background = cfg.background if background is None else background
@@ -896,8 +903,7 @@ def render_fast_batch(
     cam0 = cameras[0]
     pos_b, rot_b, planned = tp.pos_b, tp.rot_b, tp.planned
     out_w_eff, dx_pad = tp.out_w_eff, tp.dx_pad
-    if mask_mode is None:
-        mask_mode = "multiply" if projector.num_layers > 1 else "none"
+    mask_mode = _default_mask_mode(projector, mask_mode)
     modes = [p[0] for p in planned]
     if (
         _transpose
@@ -912,6 +918,7 @@ def render_fast_batch(
             feathering=feathering, to_srgb=to_srgb, num_planes=num_planes,
             chunk=chunk, exact_color=exact_color, method=method,
             mask_mode=mask_mode, refine=refine, config=config,
+            _poses=_poses,
         )
     if method == "march" and "sweep" in modes:
         raise ValueError(
@@ -948,6 +955,9 @@ def render_fast_batch(
         plans.append(plan)
         crops.append(crop_y)
         nums.append(k_l)
+    if _poses is not None:
+        layers = [_chunk_layer(lay, _poses) for lay in layers]
+        pos_b, rot_b = pos_b[_poses], rot_b[_poses]
     out = _fast_batch_core(
         layers, modes, setups, pos_b, rot_b, background, plans=plans,
         nums=nums, crops=crops, refine=refine, rot_refine=cfg.rotated_refine,
@@ -1165,25 +1175,9 @@ def render_mono_view(
     feathering = cfg.feathering if feathering is None else feathering
     to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
     num_steps = cfg.num_steps if num_steps is None else num_steps
-    pos, rot = relative_view_pose(
-        projector.position, projector.rotation, camera.position,
-        camera.rotation,
-    )
-    if mask_mode is None:
-        mask_mode = "multiply" if projector.num_layers > 1 else "none"
-    # baseline-normalized ranges, divided in float32 as lif_tpu does
-    baseline = np.float32(projector.baseline)
+    mask_mode = _default_mask_mode(projector, mask_mode)
     return _raycast.render_mono(
-        projector.rgb,
-        projector.disp,
-        projector.mask,
-        projector.layer_res,
-        np.asarray(projector.invz_min, np.float32) / baseline,
-        np.asarray(projector.invz_max, np.float32) / baseline,
-        projector.focal,
-        projector.skew,
-        np.asarray(pos, np.float32),
-        np.asarray(rot, np.float32),
+        *_view_args(projector, camera.position, camera.rotation),
         float(camera.focal_px),
         camera.skew,
         background,
@@ -1197,14 +1191,20 @@ def render_mono_view(
     )
 
 
-def _stereo_view_args(projector: Projector, camera: Camera):
-    """render_stereo's arguments for one view: the textures and the host
-    fields, with the relative pose and the baseline-normalized ranges
-    (divided in float32, as lif_tpu does)."""
-    pos, rot = relative_view_pose(
-        projector.position, projector.rotation, camera.position,
-        camera.rotation,
-    )
+def _default_mask_mode(projector: Projector, mask_mode: str | None) -> str:
+    """mask_mode as given, or the reference default when None: 'multiply'
+    for an LDI projector, else 'none'."""
+    return mask_mode or ("multiply" if projector.num_layers > 1 else "none")
+
+
+def _view_args(projector: Projector, position, rotation):
+    """One view's arguments of ops.raycast.render_mono and
+    ops.stereo.render_stereo, from the textures through rot1, for a camera
+    at the world pose (position, rotation): the host fields, the
+    baseline-normalized ranges (divided in float32, as lif_tpu divides
+    them) and the camera-local projector pose."""
+    pos, rot = relative_view_pose(projector.position, projector.rotation,
+                                  position, rotation)
     baseline = np.float32(projector.baseline)
     return (
         projector.rgb, projector.disp, projector.mask, projector.layer_res,
@@ -1237,7 +1237,8 @@ def render_stereo_view(
     to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
     num_steps = cfg.num_steps if num_steps is None else num_steps
     return _stereo.render_stereo(
-        *_stereo_view_args(left, camera), *_stereo_view_args(right, camera),
+        *_view_args(left, camera.position, camera.rotation),
+        *_view_args(right, camera.position, camera.rotation),
         float(camera.focal_px), camera.skew, background,
         out_w=camera.width, out_h=camera.height,
         num_layers=min(left.num_layers, right.num_layers),
@@ -1345,8 +1346,7 @@ def render_fast_view(
             f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
             "ported"
         )
-    if mask_mode is None:
-        mask_mode = "multiply" if projector.num_layers > 1 else "none"
+    mask_mode = _default_mask_mode(projector, mask_mode)
     sk1 = np.asarray(projector.skew, np.float64)
     sk2 = np.asarray(camera.skew, np.float64)
     skewed = bool(np.abs(sk1 - sk2).sum() > 1e-12)
@@ -1790,9 +1790,10 @@ def render_fused_fast_batch(
     equal the camera's with an 8-divisible width; the cameras must share
     width, height, focal and skew. Other poses take
     parallel.sharding.render_fused_projectors. Batches beyond
-    config.pose_chunk render in balanced chunks. lif_tpu's uniform and
-    hybrid plane modes raise NotImplementedError, as the mono and stereo
-    batches do."""
+    config.pose_chunk, or on CUDA beyond what the free device memory
+    holds (_fused_pose_chunk), render in balanced chunks. lif_tpu's
+    uniform and hybrid plane modes raise NotImplementedError, as the mono
+    and stereo batches do."""
     cfg = config or DEFAULT_CONFIG
     background = cfg.background if background is None else background
     feathering = cfg.feathering if feathering is None else feathering
@@ -1838,8 +1839,7 @@ def render_fused_fast_batch(
         pos_b = np.stack(pos_list)
         max_cx = float(np.abs(pos_b[:, 0]).max())
         view = _FusedView(
-            pos_b, mask_mode or ("multiply" if proj.num_layers > 1
-                                 else "none"), [], [], [])
+            pos_b, _default_mask_mode(proj, mask_mode), [], [], [])
         for lay in _prepared_textures(proj):
             if not _march_eligible(lay, f2_host, cam0.width, cam0.height) or (
                 lay["w"] != cam0.width or lay["h"] != cam0.height
@@ -1859,26 +1859,63 @@ def render_fused_fast_batch(
     return _fused_fast_core(
         views, background, refine=cfg.march_refine, feathering=feathering,
         to_srgb=to_srgb, fuse_tol=float(cfg.fuse_tol),
-        pose_chunk=cfg.pose_chunk,
+        pose_chunk=cfg.pose_chunk, out_h=cam0.height, out_w=cam0.width,
     )
 
 
+# Device bytes the fused core holds per projector, output pixel and pose
+# of a chunk, rounded up from the 76.0 that chip_smoke.py's main path 10
+# measures (the growth of max_memory_allocated from 8 to 16 cameras of 4
+# projectors at 3840x2160, 2.348 GiB a camera, on an NVIDIA H100 80GB
+# HBM3 at 700 W); the smoke fails if the growth exceeds it.
+_FUSED_BYTES_PER_VIEW_PX = 80
+
+
+def _free_device_bytes(device) -> int | None:
+    """Bytes a new allocation can take on a CUDA device: the free memory
+    torch.cuda.mem_get_info reports plus what torch's caching allocator
+    holds unused. None off CUDA."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _fused_pose_chunk(n_views, out_h, out_w, pose_chunk, free_bytes):
+    """The fused core's pose chunk: at most `pose_chunk` (None or 0: no
+    bound), and at most what `free_bytes` holds at
+    _FUSED_BYTES_PER_VIEW_PX (at least 1). free_bytes None: pose_chunk."""
+    if free_bytes is None:
+        return pose_chunk
+    per_pose = n_views * out_h * out_w * _FUSED_BYTES_PER_VIEW_PX
+    fit = max(1, free_bytes // per_pose)
+    return min(pose_chunk, fit) if pose_chunk else fit
+
+
 def _fused_fast_core(views, background, *, refine, feathering, to_srgb,
-                     fuse_tol, pose_chunk):
+                     fuse_tol, pose_chunk, out_h, out_w):
     """The body of render_fused_fast_batch: hoists each projector's march
-    source prep, then renders balanced pose chunks, each through every
-    projector's LDI composite on the raw march outputs and the
-    tolerance-blended nearest-surface merge, in lif_tpu's order of
-    operations. The (V, B, H, W, ...) merge intermediates never exceed a
-    chunk."""
+    source prep, allocates the (B, H, W, 4) output, then renders balanced
+    pose chunks into it, each through every projector's LDI composite on
+    the raw march outputs and the tolerance-blended nearest-surface merge,
+    in lif_tpu's order of operations. The (V, B, H, W, ...) intermediates
+    never exceed a chunk, and a chunk never exceeds pose_chunk nor, on
+    CUDA, what the device's free memory holds (_fused_pose_chunk, from the
+    shapes and the free memory after the output is allocated)."""
     views = [
         view._replace(layers=_attach_march_prep(
             view.layers, ["march"] * len(view.layers), view.plans,
             [0] * len(view.layers)))
         for view in views
     ]
-    outs = []
-    for sl in _pose_chunks(len(views[0].pos_b), pose_chunk):
+    batch = len(views[0].pos_b)
+    device = views[0].layers[0]["disp"].device
+    out = torch.empty((batch, out_h, out_w, 4), dtype=torch.float32,
+                      device=device)
+    chunk = _fused_pose_chunk(len(views), out_h, out_w, pose_chunk,
+                              _free_device_bytes(device))
+    for sl in _pose_chunks(batch, chunk):
         view_rgb, view_a, view_front = [], [], []
         for view in views:
             acc_rgb = acc_a = front = None
@@ -1905,25 +1942,35 @@ def _fused_fast_core(views, background, *, refine, feathering, to_srgb,
         color, alpha = _fuse_views(torch.stack(view_rgb),
                                    torch.stack(view_a),
                                    torch.stack(view_front), fuse_tol)
-        outs.append(_composite.finish_over_background(color, alpha,
-                                                      background, to_srgb))
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+        out[sl] = _composite.finish_over_background(color, alpha, background,
+                                                    to_srgb)
+    return out
 
 
-def _fuse_views(rgb_s, a_s, front_s, tol: float):
-    """The merge across a stacked view axis, shared by the fast and the
-    exact fusion (lif_tpu's, its pmax/psum as amax/sum over axis 0):
-    rgb_s (V, ..., 3) each view's premultiplied composite, a_s (V, ...)
-    its alpha, front_s (V, ...) its frontmost hit's absolute inverse
-    depth. Returns the merged (premultiplied colour, alpha), alpha 0 where
-    no view hit."""
+def _fuse_views(rgb_s, a_s, front_s, tol: float, reduce_max=None,
+                reduce_sum=None):
+    """The merge across the view axis, shared by the fast and the exact
+    fusion, in one process and over a mesh (lif_tpu's, its pmax/psum as
+    reduce_max/reduce_sum): rgb_s (V, ..., 3) each view's premultiplied
+    composite, a_s (V, ...) its alpha, front_s (V, ...) its frontmost
+    hit's absolute inverse depth. The reductions default to amax/sum over
+    axis 0 of the stacked views; the mesh form (parallel.sharding) passes
+    all_reduce closures over the view group, each rank holding its one
+    view without the V axis. Returns the merged (premultiplied colour,
+    alpha), alpha 0 where no view hit."""
+    if reduce_max is None:
+        def reduce_max(t):
+            return t.amax(dim=0)
+    if reduce_sum is None:
+        def reduce_sum(t):
+            return t.sum(dim=0)
     hit = a_s > 0.0
     key = torch.where(hit, front_s, -torch.inf)
-    best = key.amax(dim=0)
+    best = reduce_max(key)
     w = _fusion_weights(key, best, hit, tol)
-    wsum = torch.clamp(w.sum(dim=0), min=1e-12)
-    color = (w[..., None] * rgb_s).sum(dim=0) / wsum[..., None]
-    alpha = (w * a_s).sum(dim=0) / wsum
+    wsum = torch.clamp(reduce_sum(w), min=1e-12)
+    color = reduce_sum(w[..., None] * rgb_s) / wsum[..., None]
+    alpha = reduce_sum(w * a_s) / wsum
     return color, torch.where(torch.isfinite(best), alpha, 0.0)
 
 

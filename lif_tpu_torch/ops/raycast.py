@@ -34,8 +34,9 @@ from . import composite as _composite
 from .composite import smoothstep
 from .sampling import bilinear_sample, read_disp
 
-__all__ = ["NUM_STEPS", "cast_view", "raycast_layer", "render_mono", "taper",
-           "target_transform"]
+__all__ = ["NUM_STEPS", "blend_background", "build_fskr2", "build_skr1",
+           "cast_view", "compose_layers", "raycast_layer", "render_mono",
+           "taper", "target_transform"]
 
 NUM_STEPS = 40  # reference: rayCastMonoLDI.glsl:223
 
@@ -204,6 +205,21 @@ def target_transform(f2: float, out_w: int, out_h: int, skew2):
     )
 
 
+def build_skr1(skew1, rot1):
+    """The skew and rotation part of the source transform, skew(sk1) @
+    flipZ R1^T flipZ (the focal is applied per layer), on the host in
+    float32 (rayCastMonoLDI.glsl:316-326)."""
+    return mm(mat_from_skew(skew1[0], skew1[1]), shader_rotation(rot1))
+
+
+def build_fskr2(f2: float, out_w, out_h, skew2, rot2=None):
+    """The full target transform (rayCastMonoLDI.glsl:332): target_transform,
+    times flipZ R2^T flipZ when the render camera carries a rotation rot2
+    in the march's frame."""
+    m = target_transform(f2, out_w, out_h, skew2)
+    return m if rot2 is None else mm(m, shader_rotation(rot2))
+
+
 def cast_view(rgb, disp, mask, layer_res, invz_min, invz_max, focal, skew1,
               c1, rot1, fskr2, s2x, s2y, background_rgb, num_layers: int,
               feathering: float, num_steps: int, mask_mode: str):
@@ -212,7 +228,7 @@ def cast_view(rgb, disp, mask, layer_res, invz_min, invz_max, focal, skew1,
     per-layer source transform FSKR1 = focal(f1/iRes) @ skew(sk1) @
     flipZ R1^T flipZ is built on the host (rayCastMonoLDI.glsl:316-326);
     arguments as render_mono's, fskr2 from target_transform."""
-    skr1 = mm(mat_from_skew(skew1[0], skew1[1]), shader_rotation(rot1))
+    skr1 = build_skr1(skew1, rot1)
     c_rel = -torch.as_tensor(np.asarray(c1, np.float32))  # c2 = 0
     layer_res = np.asarray(layer_res, np.float32)
     for i in range(num_layers):
@@ -249,6 +265,10 @@ def render_mono(
     num_steps: int = NUM_STEPS,
     mask_mode: str = "multiply",
     to_srgb: bool = True,
+    full_w: int | None = None,
+    full_h: int | None = None,
+    row_start: int = 0,
+    col_start: int = 0,
 ):
     """Render a novel view of one (possibly multi-layer) projector.
 
@@ -267,19 +287,49 @@ def render_mono(
         camera-local. f2: render focal in output pixels. skew2: (2,)
         render frustum skew. background: (4,) linear-light RGBA.
       out_w/out_h: output resolution. num_layers: layer count (<= L).
+      full_w/full_h/row_start/col_start: render the (out_h, out_w) tile
+        of a larger (full_h, full_w) framebuffer starting at (row_start,
+        col_start), GL-oriented: the unit of image-space sharding
+        (parallel.sharding.render_view_tiled). The focal normalization
+        f2/oRes always uses the full framebuffer.
 
-    Returns (H, W, 4) GL-oriented image (row 0 = bottom) on rgb's device.
+    Returns (out_h, out_w, 4) GL-oriented image (row 0 = bottom) on rgb's
+    device.
     """
     device = rgb.device
-    s2x, s2y = _pixel_grid(out_w, out_h, device)
+    s2x, s2y = _pixel_grid(out_w, out_h, device, full_w=full_w,
+                           full_h=full_h, row_start=row_start,
+                           col_start=col_start)
+    fb_w = out_w if full_w is None else full_w
+    fb_h = out_h if full_h is None else full_h
     background = torch.as_tensor(
         np.asarray(background, np.float32), device=device
     )
     acc = None
     for layer, _, _ in cast_view(
         rgb, disp, mask, layer_res, invz_min, invz_max, focal, skew1, c1,
-        rot1, target_transform(f2, out_w, out_h, skew2), s2x, s2y,
+        rot1, target_transform(f2, fb_w, fb_h, skew2), s2x, s2y,
         background[:3], num_layers, feathering, num_steps, mask_mode,
     ):
         acc = _composite.over(acc, layer)
     return _composite.finish_over_background(*acc, background, to_srgb)
+
+
+def compose_layers(layers_rgba, num_layers: int):
+    """Front-to-back over-compositing of straight-alpha raycast layers
+    (L, H, W, 4), the first num_layers of them (rayCastMonoLDI.glsl:
+    338-358; the shader's early-outs at alpha 1 are the identity).
+    Returns (H, W, 3) premultiplied rgb and (H, W) alpha."""
+    acc = None
+    for i in range(num_layers):
+        acc = _composite.over(acc, layers_rgba[i])
+    return acc
+
+
+def blend_background(rgb, alpha, background):
+    """The premultiplied composite over the (4,) background colour
+    (rayCastMonoLDI.glsl:361-362), without the gamma curve. Returns
+    (rgb, alpha)."""
+    out = _composite.finish_over_background(rgb, alpha, background,
+                                            to_srgb=False)
+    return out[..., :3], out[..., 3]

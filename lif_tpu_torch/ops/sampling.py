@@ -21,6 +21,7 @@ import torch
 __all__ = [
     "bilinear_sample",
     "bilinear_sample_packed",
+    "nearest_sample",
     "pack_rgbm",
     "read_disp",
 ]
@@ -61,6 +62,16 @@ def bilinear_sample(tex: torch.Tensor, u, v, res_w, res_h) -> torch.Tensor:
     top = t00 + (t01 - t00) * fx
     bot = t10 + (t11 - t10) * fx
     return top + (bot - top) * fy
+
+
+def nearest_sample(tex: torch.Tensor, u, v, res_w, res_h) -> torch.Tensor:
+    """Nearest-neighbour sample with clamp-to-edge (GL NEAREST); arguments
+    as bilinear_sample's."""
+    ix = torch.clamp(torch.floor(u * res_w).to(torch.int64), 0,
+                     int(res_w) - 1)
+    iy = torch.clamp(torch.floor(v * res_h).to(torch.int64), 0,
+                     int(res_h) - 1)
+    return tex[iy, ix]
 
 
 def _edge_weights(x0, y0, fx, fy, wmax: int, hmax: int):

@@ -76,6 +76,7 @@ __all__ = [
     "march_scaled_skip_plain",
     "scaled_skip_tables",
     "skip_pack",
+    "render_scaled",
     "render_scaled_plain",
     "render_scaled_batch",
     "render_scaled_fetch_batch",
@@ -819,6 +820,26 @@ def _march_batch(disp, invz_min, invz_max, tabs, plan: ScaledPlan,
         for tab in tabs
     ]
     return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def render_scaled(rgb, disp, mask, invz_min, invz_max, c1, f1, fr,
+                  plane_invz, background, plan: ScaledPlan, num_planes: int,
+                  skip_tables=None, **kw):
+    """The scaled march of one pose, dispatched on the device of the
+    textures (lif_tpu's render_scaled): a CUDA tensor launches the kernel
+    as a batch of one (render_scaled_batch, which needs `skip_tables`, the
+    kernel's skip_pack), a CPU tensor takes the plain twin
+    (render_scaled_plain). c1 (3,), plane_invz (K,); kw as
+    render_scaled_plain's. Returns what render_scaled_plain returns."""
+    if disp.device.type == "cpu":
+        return render_scaled_plain(rgb, disp, mask, invz_min, invz_max, c1,
+                                   f1, fr, plane_invz, background, plan,
+                                   num_planes, **kw)
+    out = render_scaled_batch(
+        rgb, disp, mask, invz_min, invz_max, _as_f32(c1, disp.device)[None],
+        f1, fr, plane_invz, background, plan, num_planes,
+        skip_tables=skip_tables, **kw)
+    return tuple(o[0] for o in out) if isinstance(out, tuple) else out[0]
 
 
 def render_scaled_batch(

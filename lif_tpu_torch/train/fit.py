@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.pose import relative_view_pose
@@ -101,13 +102,17 @@ def render_with_params(
     out_h: int,
     num_layers: int,
     num_steps: int = 12,
+    full_h: int | None = None,
+    row_start: int = 0,
 ):
     """Render a BATCH of frames from the learnable parameters.
 
     rel_positions (B, 3) / rel_rotations (B, 3, 3) are base camera-local
     projector poses (shader convention) on the parameters' device; the
     learned pose delta is applied on top. The batch broadcasts through
-    the sweep. Returns linear light (B, out_h, out_w, 3).
+    the sweep. Returns linear light (B, out_h, out_w, 3): with full_h
+    set, the rows [row_start, row_start + out_h) of the full_h-row
+    GL-oriented image (a tile-sharded fit's band).
 
     The SOFT plane sweep, not the hard march: the march's surface
     crossings are discrete decisions with exactly zero gradient with
@@ -123,6 +128,7 @@ def render_with_params(
         pos, rot, static_proj["f2"], static_proj["skew2"],
         np.zeros(4, np.float32), out_w=out_w, out_h=out_h,
         num_layers=num_layers, num_planes=num_steps, to_srgb=False,
+        full_h=full_h, row_start=row_start,
     )
     return img[..., :3]
 
@@ -131,10 +137,12 @@ class SceneFit(nn.Module):
     """The trainable scene: the three FitParams as nn.Parameters (on the
     device of the FitParams given), rendered through render_with_params
     against a fixed projector (`static_proj`: textures on the device, host
-    fields)."""
+    fields), as whole images or as the band of rows [row_start, row_start
+    + out_h) of full_h-row images."""
 
     def __init__(self, params: FitParams, static_proj: dict, out_w: int,
-                 out_h: int, num_layers: int, num_steps: int = 12):
+                 out_h: int, num_layers: int, num_steps: int = 12,
+                 full_h: int | None = None, row_start: int = 0):
         super().__init__()
         self.disp = nn.Parameter(params.disp.detach().clone())
         self.position_delta = nn.Parameter(
@@ -144,6 +152,7 @@ class SceneFit(nn.Module):
         self.static_proj = static_proj
         self.out_w, self.out_h = out_w, out_h
         self.num_layers, self.num_steps = num_layers, num_steps
+        self.full_h, self.row_start = full_h, row_start
 
     def params(self) -> FitParams:
         """The current parameters, detached copies."""
@@ -155,20 +164,44 @@ class SceneFit(nn.Module):
         return render_with_params(
             FitParams(self.disp, self.position_delta, self.rotation_delta),
             self.static_proj, rel_positions, rel_rotations, self.out_w,
-            self.out_h, self.num_layers, self.num_steps,
+            self.out_h, self.num_layers, self.num_steps, self.full_h,
+            self.row_start,
         )
 
 
-def make_train_step(model: SceneFit, optimizer: torch.optim.Optimizer):
+def make_train_step(model: SceneFit, optimizer: torch.optim.Optimizer,
+                    groups=()):
     """The train step of `model` under `optimizer`: (rel_positions,
     rel_rotations, targets) -> the loss at the parameters before the
     update (a 0-d tensor), after one optimizer step in place (lif_tpu's
-    (state, ...) -> (state, loss))."""
+    (state, ...) -> (state, loss)).
+
+    `groups`: torch.distributed process groups that together span the
+    ranks of a sharded step, each rank holding an equal shard of the
+    batch. The gradients (packed into one buffer) and the loss are then
+    all-reduced with SUM over each group in turn and divided by the number
+    of ranks, so that every rank applies the gradient of the global mean
+    loss and reports that loss."""
+    ranks = 1
+    for group in groups:
+        ranks *= dist.get_world_size(group)
+
+    def mean_over_ranks(t):
+        for group in groups:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t / ranks
 
     def train_step(rel_positions, rel_rotations, targets):
         optimizer.zero_grad(set_to_none=True)
         loss = l2_loss(model(rel_positions, rel_rotations), targets)
         loss.backward()
+        if groups:
+            params = list(model.parameters())
+            flat = mean_over_ranks(torch.cat(
+                [p.grad.reshape(-1) for p in params]))
+            for p, g in zip(params, flat.split([p.numel() for p in params])):
+                p.grad.copy_(g.view_as(p))
+            loss = mean_over_ranks(loss.detach().clone())
         optimizer.step()
         return loss.detach()
 
@@ -230,28 +263,58 @@ def fit_projector(
     (world positions (B, 3), rotations (B, 3, 3)); camera_template gives
     the shared intrinsics. num_steps: the soft sweep's planes.
 
-    Returns (fitted FitParams, list of the losses, one per step, each at
-    the parameters before that step's update).
+    mesh: a torch.distributed DeviceMesh (parallel.sharding.make_mesh),
+    every rank calling with the same arguments (lif_tpu's data- and
+    tile-sharded step). The parameters are replicated; the rank at
+    (d, t) of the (data_axis, tile_axis) mesh renders poses
+    [d B/n_data, (d+1) B/n_data) and rows [t H/n_tile, (t+1) H/n_tile)
+    and takes its loss over that shard; gradients and loss are averaged
+    over the ranks (make_train_step), so each step is the one-process
+    step on the global mean loss and every rank applies the same update.
+    A tile_axis the mesh lacks (or None) shards the poses only. B must
+    divide by the data axis and H by the tile axis.
 
-    mesh (lif_tpu's data- and tile-sharded step; data_axis, tile_axis)
-    is not ported: it raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_projector(mesh=...): the sharded train step is multi-device "
-            "work that is not ported (ROADMAP queue 1 item 8)"
-        )
+    Returns (fitted FitParams, list of the losses, one per step, each at
+    the parameters before that step's update)."""
     dev = projector.device
     rel_p, rel_r = relative_poses(projector, cameras_positions,
                                    cameras_rotations)
+    targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
+    full_h, row_start, groups = None, 0, ()
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                "mesh must be a torch.distributed DeviceMesh "
+                "(parallel.sharding.make_mesh)")
+        from ..parallel.sharding import _axis
+
+        n_data, d, data_group = _axis(mesh, data_axis)
+        n_tile, t, tile_group = (
+            _axis(mesh, tile_axis)
+            if tile_axis is not None and tile_axis in mesh.mesh_dim_names
+            else (1, 0, None))
+        b, h = len(rel_p), camera_template.height
+        if b % n_data:
+            raise ValueError(
+                f"{b} poses not divisible by the {n_data}-device "
+                f"'{data_axis}' axis")
+        if h % n_tile:
+            raise ValueError(f"height {h} not divisible by {n_tile} tiles")
+        poses = slice(d * b // n_data, (d + 1) * b // n_data)
+        full_h, row_start = h, t * h // n_tile
+        rel_p, rel_r = rel_p[poses], rel_r[poses]
+        targets = targets[poses, row_start:row_start + h // n_tile]
+        groups = tuple(g for g in (data_group, tile_group) if g is not None)
     params = FitParams(projector.disp, torch.zeros(3, device=dev),
                        torch.zeros(3, device=dev))
     model = SceneFit(params, static_projector(projector, camera_template),
-                     camera_template.width, camera_template.height,
-                     projector.num_layers, num_steps)
+                     camera_template.width, targets.shape[1],
+                     projector.num_layers, num_steps, full_h, row_start)
     optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate)
-    train_step = make_train_step(model, optimizer)
+    train_step = make_train_step(model, optimizer, groups)
     rel_p = torch.as_tensor(rel_p, device=dev)
     rel_r = torch.as_tensor(rel_r, device=dev)
-    targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
     losses = [float(train_step(rel_p, rel_r, targets)) for _ in range(steps)]
     return model.params(), losses

@@ -940,6 +940,48 @@ def test_mono_stereo_mono_marches_each_mask(cuda):
         assert held == {id(lay["mask"]), id(lay["eroded_mask"])}
 
 
+def test_stereo_rotated_eyes_on_cuda_match_cpu(cuda):
+    """A stereo pair at +-0.03 m seen from a yaw + pitch head pose (tests/
+    test_torch_stereo_fast.py's 'rotated' case): both eyes route the
+    two-phase tier, whose phase A launches the scaled kernel once per eye
+    on the card, and the pair agrees with the same call on CPU tensors
+    under the fast-stereo gate (at most 0.1% of the pixels off by more
+    than 1e-3)."""
+    h, w = 64, 96
+    rgb, disp, _ = _scene(7, h, w)
+    eyes = [lif_tpu_torch.projector_from_arrays(
+        rgb, disp, focal_px=0.78 * w, invz_min=2.0, invz_max=0.1,
+        baseline=1.0, position=(x, 0.0, 0.0), device="cpu")
+        for x in (-0.03, 0.03)]
+    rot = lif_tpu_torch.orbit_pose([0, 0, -1], 1.0, 0.06, 0.04)[1]
+    cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                        position=[0.01, 0.0, 0.0],
+                                        rotation=rot)]
+    ref, tiers = lif_tpu_torch.render_stereo_fast_batch(
+        *eyes, cams, to_srgb=False, return_tiers=True)
+    assert tiers == (("rotated",), ("rotated",))
+    before = tcuda_s.sweep_scaled.launches
+    got, tiers = lif_tpu_torch.render_stereo_fast_batch(
+        *(e.to(cuda) for e in eyes), cams, to_srgb=False, return_tiers=True)
+    torch.cuda.synchronize()
+    assert tiers == (("rotated",), ("rotated",))
+    assert tcuda_s.sweep_scaled.launches == before + 2
+    err = (got.cpu() - ref).abs().amax(-1)
+    assert (err > 1e-3).float().mean().item() <= 1e-3
+    assert (got[..., 3] > 0.5).float().mean().item() > 0.5
+
+
+def test_benchmark_fn_times_on_the_card(cuda):
+    """utils.profiling.benchmark_fn: CUDA-event seconds per call of a
+    matmul, positive, and its rate their inverse."""
+    from lif_tpu_torch.utils.profiling import benchmark_fn
+
+    a = torch.ones(256, 256, device=cuda)
+    res = benchmark_fn(torch.matmul, a, a, label="matmul", iters=5)
+    assert res["label"] == "matmul" and res["seconds_per_call"] > 0
+    assert abs(res["calls_per_sec"] * res["seconds_per_call"] - 1) < 1e-9
+
+
 def test_fused_fast_on_cuda_matches_cpu(cuda):
     """render_fused_fast_batch on the card, two 2-layer LDI projectors at
     three poses: exactly one lateral launch per projector and layer (one

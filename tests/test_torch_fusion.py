@@ -273,6 +273,33 @@ def test_fused_fast_pose_chunks_equal_one_chunk(rng):
     assert torch.equal(whole, chunked)
 
 
+def test_fused_fast_memory_bound_chunks_equal_one_chunk(rng, monkeypatch):
+    """The fused core bounds its pose chunk by the device's free memory at
+    _FUSED_BYTES_PER_VIEW_PX (on CUDA; the CPU has no bound): with free
+    memory for two poses of two projectors, five poses render in chunks
+    of 2 + 2 + 1 and equal the one-chunk call bit for bit; pose_chunk
+    stays an upper bound."""
+    projs, _, _ = _case("ldi_and_single", rng)
+    tps = [_both(kw)[1] for kw in projs]
+    _, tcams = _cams([[0.004 * i, 0.0, 0.0] for i in range(5)])
+    whole = lif_tpu_torch.render_fused_fast_batch(tps, tcams)
+    per_pose = 2 * H * W * trenderer._FUSED_BYTES_PER_VIEW_PX
+    assert trenderer._fused_pose_chunk(2, H, W, 48, None) == 48
+    assert trenderer._fused_pose_chunk(2, H, W, 48, 2 * per_pose + 1) == 2
+    assert trenderer._fused_pose_chunk(2, H, W, 1, 2 * per_pose) == 1
+    assert trenderer._fused_pose_chunk(2, H, W, None, per_pose - 1) == 1
+    assert trenderer._free_device_bytes(torch.device("cpu")) is None
+    chunks = []
+    real = trenderer._pose_chunks
+    monkeypatch.setattr(trenderer, "_free_device_bytes",
+                        lambda device: 2 * per_pose + 1)
+    monkeypatch.setattr(trenderer, "_pose_chunks",
+                        lambda b, c: chunks.append(c) or real(b, c))
+    bounded = lif_tpu_torch.render_fused_fast_batch(tps, tcams)
+    assert chunks == [2]
+    assert torch.equal(whole, bounded)
+
+
 def test_fused_fast_single_projector_is_the_fast_view(rng):
     """One skewed projector 'fused' is render_fast_view's skewed lateral
     frame (tests/test_fusion.py:191's reduction, in the port): one

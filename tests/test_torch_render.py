@@ -282,6 +282,33 @@ def test_texture_cache_keys_on_host_fields(rng):
     assert (got - before).abs().max().item() > 0.1
 
 
+def test_sweep_table_cache_keys_on_layer_res(rng):
+    """The sweep's plane tables are built from the disparity sliced to
+    layer_res: a dataclasses.replace projector whose layer 0 is 48x64 of
+    the first one's 96x64 tensor must render (method='sweep', K = 16, one
+    lateral pose at x = 0.1) as it does with fresh caches, not with the
+    first projector's tables (lif_tpu keeps this fault:
+    lif_tpu/models/renderer.py:242-248)."""
+    h, w = 64, 96
+    disp = rng.random((h, w)).astype(np.float32)
+    disp[:, w // 2:] = 0.9
+    rgb = rng.random((h, w, 3)).astype(np.float32)
+    first = lif_tpu_torch.projector_from_arrays(
+        rgb, disp, focal_px=0.78 * w, invz_min=2.0, invz_max=0.1,
+        baseline=1.0, device="cpu")
+    cams = _cams(lif_tpu_torch, w, h, [0.1])
+    kw = dict(method="sweep", num_planes=16)
+    before = lif_tpu_torch.render_fast_batch(first, cams, **kw)
+    half = dataclasses.replace(
+        first, layer_res=np.asarray([[w // 2, h]], np.float32))
+    got = lif_tpu_torch.render_fast_batch(half, cams, **kw)
+    trenderer._PLANE_TABLE_CACHE.clear()
+    trenderer._TEX_CACHE.clear()
+    fresh = lif_tpu_torch.render_fast_batch(half, cams, **kw)
+    assert torch.equal(got, fresh)
+    assert (got - before).abs().max().item() > 0.1
+
+
 def test_texture_cache_holds_the_kernels_skip_tables(rng):
     """The march kernels' skip tables are cached per CUDA texture only: a
     CPU layer carries none, since its plain marches read none. The cached

@@ -192,8 +192,8 @@ def test_fit_reduces_loss(rng):
 def test_fit_params_carry_across_and_mesh_raises(rng):
     """fit_params_from_arrays carries lif_tpu's FitParams into the port
     (float32 tensors on the device asked for); render_with_params on them
-    equals lif_tpu's render; mesh= raises NotImplementedError naming the
-    multi-device item."""
+    equals lif_tpu's render; a mesh= that is not a DeviceMesh raises
+    TypeError (the sharded fit itself: tests/test_torch_parallel.py)."""
     proj_bad, tp, positions, rotations, cam, tcam, targets, _ = _problem(rng)
     jparams = jfit.FitParams(jnp.asarray(proj_bad.disp),
                              jnp.asarray([0.01, -0.02, 0.005], jnp.float32),
@@ -210,6 +210,6 @@ def test_fit_params_carry_across_and_mesh_raises(rng):
         tparams, tfit.static_projector(tp, tcam), torch.tensor(rel_p),
         torch.tensor(rel_r), cam.width, cam.height, 1, 12)
     assert np.abs(got.numpy() - want).max() < 1e-5
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tfit.fit_projector(tp, positions, rotations, tcam, targets, steps=1,
                            mesh=object())
