@@ -200,16 +200,35 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     measurement); last, entry.dryrun_multichip(4) with its defaults (the
     card; gloo on CUDA tensors, as 4 ranks share it): every rank on the
     card, one loss, its own fused order check.
+24. main path 14 (the uniform and hybrid march grids,
+    RenderConfig.plane_mode, each step's launch counts zeroed just before
+    it): the lateral kernel against its plain march and skip mirror (no
+    found flip, max abs 0) on 8 poses of the uniform grid of 256 planes,
+    planned as the main path plans it (renderer._march_tables; at least
+    90% of its fractions nonzero, so the lerp runs at fractional shifts)
+    and on 2 poses of 1536 planes (past the kernel's 1024-plane segment),
+    with its bound and ms/frame; render_fast_batch(method="march") over
+    main path 1's 96 poses on the uniform and on the hybrid grid (tiers
+    ('march',), exactly main path 1's 2 launches each, every launch held
+    on 4 poses to the plain versions), PSNR at poses 0, 48 and 95 against
+    the 640-step march at most 1 dB under lif_tpu's
+    (tools/reference_plane_mode_psnr.py), ms per call (CUDA events,
+    median of 5 after a warm-up); main path 9's 60 pairs on the uniform
+    grid (6 launches) and main path 10's four 1280x800 projectors at 4
+    cameras on the hybrid grid (4 launches), each launch held to the plain
+    versions.
 
 Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1), main
-paths 8, 9 and 10 each step's against the tiers it took, main path 13
+paths 8, 9, 10 and 14 each step's against the tiers it took, main path 13
 each rank's against its block of poses. The
 second-to-last line is the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, as the source note of its .cu file counts them, a march's
 planes counted from this run's crossings, the billboard splat's O(1) per
-source pixel, and `launches_by_path`, each main path's launches of the
-kernel) and the last line ``{"ok": true, "device": {...}}``.
+source pixel, `launches_by_path`, each main path's launches of the
+kernel, and for the lateral kernel `uniform_grid`, main path 14's K,
+ms/frame, planes per pixel, bound and ms per call of each grid) and the
+last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -393,6 +412,25 @@ SHARD_RANKS = (2, 4)
 SHARD_TIMEOUT_S = 300.0
 SHARD_TOL, TILED_TOL = 1e-6, 1e-5
 FIT_MESH, FIT_SHARD_STEPS, FIT_SHARD_RTOL = (2, 2), 2, 1e-5
+# main path 14 (the uniform and hybrid march grids): main path 1's poses
+# through render_fast_batch(method='march') on each grid of PLANE_MODE_K
+# planes (config.march_planes), PSNR at PLANE_MODE_POSES; the kernel
+# against its plain versions on an N_CHECK-pose batch of the uniform grid
+# (at least FRACTION_MIN of its fractions nonzero) and on a
+# N_SEGMENT-pose batch of SEGMENT_K uniform planes, past the kernel's
+# 1024-plane segment; main path 9's pairs on the uniform grid and main
+# path 10's 1280x800 projectors at N_FUSED cameras on the hybrid grid
+PLANE_MODES = ("uniform", "hybrid")
+PLANE_MODE_K, PLANE_MODE_POSES = 256, (0, 48, 95)
+FRACTION_MIN = 0.9
+N_SEGMENT, SEGMENT_K = 2, 1536
+# lif_tpu's render_fast_batch on each grid against its own 640-step march
+# at the checked poses, dB; JAX on the CPU at full size
+# (JAX_PLATFORMS=cpu python3 tools/reference_plane_mode_psnr.py, about 6
+# minutes on a CPU)
+LIF_TPU_PLANE_MODE_PSNR = {("uniform", 0): 39.667, ("uniform", 48): 39.043,
+                           ("uniform", 95): 38.318, ("hybrid", 0): 39.300,
+                           ("hybrid", 48): 38.667, ("hybrid", 95): 38.147}
 # the H100 SXM's published peaks: HBM bytes/s and FP32 operations/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -926,11 +964,13 @@ def run():
     sweep_phase(proj, focal, reset_counts, launch_counts, card)
     fit_phase(reset_counts, launch_counts, card, dev)
     shard_phase(proj, focal, reset_counts, launch_counts, card)
+    errs14, lateral["uniform_grid"] = plane_mode_phase(
+        proj, focal, lay, reset_counts, launch_counts, card)
     kernels = [lateral, target, scaled, billboard]
     for rec in kernels:
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  *(e.get(rec["name"], 0.0)
-                                   for e in (errs, errs9, errs10)))
+                                   for e in (errs, errs9, errs10, errs14)))
         rec["launches_by_path"] = {
             path: counts[rec["name"]]
             for path, counts in LAUNCHES_BY_PATH.items()
@@ -1891,6 +1931,7 @@ def stereo_phase(reset_counts, launch_counts, card, ldi):
           "the views' positions")
     check(not any(counts.values()), f"loading launched kernels: {counts}")
     cams = stereo_cams(lt, float(left.focal[0]), eye)
+    MAIN_FRAMES["stereo"] = (left, right, cams["pairs"])
 
     def stereo_batch(name):
         return path9.counted(lt.render_stereo_fast_batch, left, right,
@@ -2411,6 +2452,165 @@ def shard_fast(proj, cams, kw, mesh, counts):
     sharding.render_fast_trajectory_sharded(*args, **kw)
     torch.cuda.synchronize()
     return frames, launches, (time.perf_counter() - t0) * 1e3
+
+
+def plane_mode_phase(proj, focal, lay, reset_counts, launch_counts, card):
+    """Main path 14: the uniform and hybrid march grids (see the constants
+    note). Every step zeroes the launch counts just before it and checks
+    them just after, exactly, and holds each launch it made to the lateral
+    kernel's plain versions on that launch's inputs. Returns ({kernel:
+    max abs against its plain versions}, the lateral kernel's uniform-grid
+    record)."""
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.core.pose import relative_view_pose
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    t_phase = time.perf_counter()
+    path14 = MainPath("main path 14", reset_counts, launch_counts)
+    cfgs = {mode: lt.DEFAULT_CONFIG.replace(plane_mode=mode,
+                                           march_planes=PLANE_MODE_K)
+            for mode in PLANE_MODES}
+    tex = (lay["rgb"], lay["disp"], lay["mask"])
+    izmin, izmax, f1 = lay["izmin_host"], lay["izmax_host"], lay["focal_host"]
+
+    # the kernel against its plain versions on the uniform grid, planned
+    # as the main path plans it (renderer._march_tables): the 8-pose check
+    # batch, then a 2-pose batch of SEGMENT_K planes
+    def kernel_check(n, k):
+        cams_n = [lt.Camera.create(W, H, focal_px=focal, position=[
+            0.135 + 0.02 * i / N_CHECK, 0.0, 0.0]) for i in range(n)]
+        c1 = np.stack([relative_view_pose(proj.position, proj.rotation,
+                                          c.position, c.rotation)[0]
+                       for c in cams_n]).astype(np.float32)
+        cfg = cfgs["uniform"].replace(march_planes=k)
+        planes, k_l = renderer._march_tables(proj, 0, cfg, None, c1[:, 0],
+                                             0.0)
+        plan = renderer._march_plan(lay, float(np.abs(c1[:, 0]).max()), W,
+                                    H)
+        args = kmarch.lateral_kernel_inputs(
+            kmarch.prepare_translation_src(*tex, plan), izmin, izmax, c1,
+            f1, planes, plan, k_l)
+        share = float((args[2] != 0).float().mean())
+        with recorded_calls() as calls:
+            kmarch.march_translation_cuda(*tex, izmin, izmax, c1, f1, planes,
+                                          plan, k_l, rows=lay["skip_rows"])
+        errs = hold_to_plain(calls, f"main path 14: the uniform grid, K = "
+                                    f"{k_l}, {n} poses")
+        print(f"main path 14: uniform grid, K = {k_l}, {n} poses: "
+              f"{share:.4f} of the (pose, plane) fractions nonzero (gate "
+              f"{FRACTION_MIN})", flush=True)
+        check(share >= FRACTION_MIN, f"K = {k_l}: only {share:.4f} of the "
+                                     "fractions are nonzero")
+        return args, planes, calls[0][2], errs["lateral_march"]
+
+    args, planes, (found, invz, rgba), err = kernel_check(N_CHECK,
+                                                          PLANE_MODE_K)
+    v_top = izmax + (izmin - izmax) * float(lay["disp"].max())
+    walked, n_px = planes_walked(found, invz, planes, v_top), found.numel()
+    bound = bound_record(
+        "lateral_march uniform", "lif_tpu_torch/csrc/sweep_march.cu",
+        tensor_bytes(*args, found, invz, rgba), walked, found.numel(),
+        int(found.sum()), N_CHECK)
+    kernel_ms = device_timer(kmarch.sweep_lateral, *args,
+                             rows=lay["skip_rows"], iters=10, repeats=5)
+    del found, invz, rgba
+    check(SEGMENT_K > kmarch.SEGMENT_PLANES,
+          f"K = {SEGMENT_K} stays inside one kernel segment")
+    err = max(err, kernel_check(N_SEGMENT, SEGMENT_K)[3])
+    path14.errs["lateral_march"] = err
+
+    # the mono batch on each grid over main path 1's poses
+    cams = trajectory_drives(lt, focal)["lateral"][0]
+    exact = {0: MAIN_FRAMES["lateral_exact"]}
+    for pose in PLANE_MODE_POSES:
+        if pose not in exact:
+            exact[pose] = lt.render_mono_view(proj, cams[pose],
+                                              mask_mode="none", num_steps=640)
+    batch_ms = {}
+    for mode, cfg in cfgs.items():
+        (out, tiers), counts, calls = path14.counted(
+            lt.render_fast_batch, proj, cams, method="march", config=cfg,
+            return_tiers=True)
+        coverage = float(out[..., 3].mean())
+        print(f"main path 14: render_fast_batch({N_MAIN} poses, plane_mode "
+              f"{mode!r}, K = {PLANE_MODE_K}) -> {tuple(out.shape)}, tiers "
+              f"{tiers}, launches {counts}, alpha coverage {coverage:.4f}",
+              flush=True)
+        check(tiers == ("march",), f"{mode} tiers {tiers}")
+        check(counts == path14.expect(("march",) * 2),
+              f"{mode} launches {counts}: as main path 1, two chunks")
+        check(tuple(out.shape) == (N_MAIN, H, W, 4), f"{mode} shape")
+        check(bool(torch.isfinite(out).all()), f"non-finite {mode} output")
+        check(0.5 < coverage <= 1.0, f"{mode} alpha coverage {coverage}")
+        check(not torch.equal(out, MAIN_FRAMES["lateral"]),
+              f"the {mode} frames are main path 1's snap frames")
+        path14.held(calls, f"{mode} batch", poses=4)
+        for pose in PLANE_MODE_POSES:
+            q = psnr(out[pose], exact[pose])
+            ref_db = LIF_TPU_PLANE_MODE_PSNR[(mode, pose)]
+            print(f"main path 14: {mode}, pose {pose}: {q:.3f} dB against "
+                  f"the 640-step march (lif_tpu {ref_db:.3f})", flush=True)
+            check(q >= ref_db - 1.0,
+                  f"{mode} pose {pose}: {q:.3f} dB, lif_tpu {ref_db}")
+        del out, calls
+        batch_ms[mode] = device_timer(lt.render_fast_batch, proj, cams,
+                                      method="march", config=cfg, iters=1,
+                                      repeats=5)
+        print(f"main path 14: render_fast_batch on the {mode} grid: "
+              f"{batch_ms[mode]:.3f} ms per {N_MAIN} poses = "
+              f"{N_MAIN / (batch_ms[mode] / 1e3):.1f} frames/s at {W}x{H} "
+              f"[{card}]", flush=True)
+    print(f"main path 14: lateral_march kernel on the uniform grid: "
+          f"{kernel_ms / N_CHECK:.4f} ms/frame ({N_CHECK}-pose batch, K = "
+          f"{PLANE_MODE_K}, {walked / n_px:.1f} planes per pixel), "
+          f"bound {bound[0]:.5f} ms/frame (by {bound[1]}) [{card}]",
+          flush=True)
+
+    # stereo: main path 9's pairs on the uniform grid
+    left, right, pairs = MAIN_FRAMES.pop("stereo")
+    (out, tiers), counts, calls = path14.counted(
+        lt.render_stereo_fast_batch, left, right, pairs,
+        config=cfgs["uniform"], return_tiers=True)
+    print(f"main path 14: render_stereo_fast_batch({N_PAIRS} pairs, "
+          f"uniform grid) -> {tuple(out.shape)}, tiers {tiers}, launches "
+          f"{counts}", flush=True)
+    check(tiers == (("march",), ("march",)), f"uniform pair tiers {tiers}")
+    check(counts == path14.expect(("march",) * 6),
+          f"uniform pair launches {counts}: 2 eyes x 3 chunks")
+    check(bool(torch.isfinite(out).all()), "non-finite uniform pairs")
+    del out
+    path14.held(calls, f"{N_PAIRS} pairs, uniform grid", poses=4)
+    del calls
+
+    # fusion: main path 10's 1280x800 projectors at N_FUSED cameras on the
+    # hybrid grid
+    projs = MAIN_FRAMES["fused_projs"]
+    fcams = [lt.Camera.create(W, H, focal_px=float(projs[0].focal[0]),
+                              position=[FUSED_CAM_X + FUSED_CAM_DX * j, 0.0,
+                                        0.0]) for j in range(N_FUSED)]
+    out, counts, calls = path14.counted(lt.render_fused_fast_batch, projs,
+                                        fcams, config=cfgs["hybrid"])
+    print(f"main path 14: render_fused_fast_batch({len(projs)} projectors, "
+          f"{N_FUSED} cameras at {W}x{H}, hybrid grid) -> "
+          f"{tuple(out.shape)}, launches {counts}, alpha coverage "
+          f"{float(out[..., 3].mean()):.4f}", flush=True)
+    check(counts == path14.expect(("march",) * len(projs)),
+          f"hybrid fused launches {counts}")
+    check(bool(torch.isfinite(out).all()), "non-finite hybrid fused frames")
+    del out
+    path14.held(calls, "fused, hybrid grid", poses=2)
+    del calls
+    print(f"main path 14: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    record = {"k": PLANE_MODE_K, "ms": kernel_ms / N_CHECK,
+              "planes_per_px": walked / n_px,
+              "bound_ms": bound[0], "bound_by": bound[1],
+              "batch_ms": batch_ms}
+    return path14.errs, record
 
 
 def launch_counter():

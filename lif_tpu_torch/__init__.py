@@ -8,8 +8,9 @@ by g++ at first use, metadata normalization, and image decode, PNG
 without PIL) and the loaders (load_lif_file, LifLoader,
 projector_from_lif_view, resample_projector); the exact ray march;
 render_fast_view (render(mode='fast')) and render_depth_fast; the five
-tiers of render_fast_batch: the lateral snap-plane march ('march', with
-the frustum-skew fold), the scaled march for other unrotated poses
+tiers of render_fast_batch: the lateral plane march ('march', on the
+snap, uniform or hybrid grid of RenderConfig.plane_mode, with the
+frustum-skew fold), the scaled march for other unrotated poses
 ('scaled'), the orbit's target-ray march ('target': yaw-family poses,
 and pitch-family poses through an x<->y transpose), the two-phase
 fallback for other rotated poses ('rotated') and the plane sweep
@@ -32,7 +33,8 @@ render_trajectory_sharded, render_fast_trajectory_sharded, the mesh form
 of render_fused_projectors, and train.fit.fit_projector(mesh=...);
 parallel.launch.run_ranks starts the ranks of a one-host run; entry holds
 the forward check and the multi-rank dry run); models.scene (LayerGroup,
-Scene), apps.viewer and apps.picking; utils.debug and utils.profiling.
+Scene), apps.viewer and apps.picking; utils.debug and utils.profiling;
+the examples (examples.render_sfmoma, examples.multiview_demo).
 As in lif_tpu, the top level exports the render and load entry points;
 the tiers' functions stay in lif_tpu_torch.ops and the fit in
 lif_tpu_torch.train. It imports neither jax nor lif_tpu.

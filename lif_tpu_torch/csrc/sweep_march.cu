@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel lif_tpu/ops/pallas/sweep_march.py::_kernel
 // (launched by _sweep_lateral). For every pose p and output pixel (i, j)
-// it walks the pose's snap planes near -> far over the x-shifted source
-// disparity, finds the FIRST plane k whose warped inverse depth lies in
+// it walks the pose's planes (a snap, uniform or hybrid ladder) near ->
+// far over the x-shifted source disparity, finds the FIRST plane k whose warped inverse depth lies in
 // front of the plane (diff > 0), and returns the secant-refined crossing
 // invz* (with `refine` in-bracket sub-planes) and the color lerped between
 // the warps at planes k-1 and k — the outputs found / invz* / rgba* of the
@@ -13,10 +13,16 @@
 // Design. A block is 8 rows of one pose and walks kTiles (8) tiles of 32
 // columns, one after the other; each warp is one row of a tile, 32
 // neighbouring columns, so a plane's shifted read is one coalesced load of
-// 33 floats. The pose's shifts, fractions and plane depths (K <= 1024) are
-// staged in shared memory once per block, with per run of kRun (16) planes
-// (runs aligned at multiples of kRun) the smallest and largest shift and
-// the smallest plane depth; the tiles share that staging. Column
+// 33 floats. The pose's shifts, fractions and plane depths are staged in
+// shared memory, with per run of kRun (16) planes (runs aligned at
+// multiples of kRun) the smallest and largest shift and the smallest plane
+// depth: once per block where K <= kMaxPlanes (1024), the tiles sharing
+// that staging; a longer ladder (a uniform grid of more planes) is walked
+// in segments of kMaxPlanes planes, each staged in turn by the whole
+// block for every tile, the walk's state (the previous plane's difference,
+// the crossing and its bracket) carried across a segment's end, and a
+// plane of an earlier segment (the bracket refresh, the colour at k - 1)
+// read from global memory. Column
 // clamping replaces the edge padding of the TPU layout (the transposed
 // stack, 8-aligned slices, 128-lane pads and flattened SMEM tables are
 // TPU constraints and are gone). Each lane searches its (band x 128-row)
@@ -106,6 +112,48 @@ __device__ __forceinline__ float row_bound(const float* __restrict__ r8,
   return INFINITY;
 }
 
+// one plane's window start, fraction and inverse depth
+struct Plane {
+  int ix;
+  float fx, iz;
+};
+
+// one pose's plane tables of [seg0, seg0 + n) and their run minima into
+// shared memory (every thread of the block calls it)
+__device__ __forceinline__ void stage_segment(
+    const int* __restrict__ ix, const float* __restrict__ fx,
+    const float* __restrict__ izt, size_t pose0, int seg0, int n, int* s_ix,
+    float* s_fx, float* s_iz, int* s_ixlo, int* s_ixhi, float* s_tmin) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  for (int k = tid; k < n; k += nthreads) {
+    const size_t o = pose0 + seg0 + k;
+    s_ix[k] = ix[o];
+    s_fx[k] = fx[o];
+    s_iz[k] = izt[o];
+  }
+  __syncthreads();
+  // per run: its shift range and smallest plane invz (NaN planes cannot
+  // cross and are left out)
+  const int n_runs = (n + kRun - 1) / kRun;
+  for (int r = tid; r < n_runs; r += nthreads) {
+    int lo = INT_MAX, hi = INT_MIN;
+    float tmin = INFINITY;
+    for (int k = r * kRun; k < min(r * kRun + kRun, n); ++k) {
+      lo = min(lo, s_ix[k]);
+      hi = max(hi, s_ix[k]);
+      tmin = fminf(tmin, s_iz[k]);
+    }
+    s_ixlo[r] = lo;
+    s_ixhi[r] = hi;
+    s_tmin[r] = tmin;
+  }
+  __syncthreads();
+}
+
+// kSegmented: K > kMaxPlanes, the ladder walked in staged segments; the
+// other instantiation stages the whole ladder once (the common case)
+template <bool kSegmented>
 __global__ void __launch_bounds__(kBlockX * kBlockY) lateral_march_kernel(
     const float* __restrict__ src,   // (5, H, W): r, g, b, mask, disp
     const int* __restrict__ ix,      // (B, K) window starts, padded coords
@@ -125,46 +173,30 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) lateral_march_kernel(
   __shared__ int s_ixlo[kMaxRuns], s_ixhi[kMaxRuns];
   __shared__ float s_tmin[kMaxRuns];
   const int p = blockIdx.z;
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  constexpr int nthreads = kBlockX * kBlockY;
-  for (int k = tid; k < K; k += nthreads) {
-    const size_t o = static_cast<size_t>(p) * K + k;
-    s_ix[k] = ix[o];
-    s_fx[k] = fx[o];
-    s_iz[k] = izt[o];
+  const size_t pose0 = static_cast<size_t>(p) * K;
+  // one staged segment for the whole block, or several, staged in turn
+  // for every tile (the block's threads all reach each __syncthreads: a
+  // row past H walks nothing but stays)
+  const int last0 = (K - 1) / kMaxPlanes * kMaxPlanes;  // the last segment
+  if (!kSegmented) {
+    stage_segment(ix, fx, izt, pose0, 0, K, s_ix, s_fx, s_iz, s_ixlo,
+                  s_ixhi, s_tmin);
   }
-  __syncthreads();
-  // per run: its shift range and smallest plane invz (NaN planes cannot
-  // cross and are left out)
-  const int n_runs = (K + kRun - 1) / kRun;
-  for (int r = tid; r < n_runs; r += nthreads) {
-    int lo = INT_MAX, hi = INT_MIN;
-    float tmin = INFINITY;
-    for (int k = r * kRun; k < min(r * kRun + kRun, K); ++k) {
-      lo = min(lo, s_ix[k]);
-      hi = max(hi, s_ix[k]);
-      tmin = fminf(tmin, s_iz[k]);
-    }
-    s_ixlo[r] = lo;
-    s_ixhi[r] = hi;
-    s_tmin[r] = tmin;
-  }
-  __syncthreads();
 
   const int lane = threadIdx.x;
   const int i = blockIdx.y * kBlockY + threadIdx.y;  // row, warp-uniform
-  if (i >= H) return;
+  const bool row_ok = i < H;
   const size_t plane = static_cast<size_t>(H) * W;
-  const size_t row = static_cast<size_t>(i) * W;
+  const size_t row = static_cast<size_t>(min(i, H - 1)) * W;
   const float* disp = src + 4 * plane + row;
   const float dsc = __fsub_rn(izmin, izmax);
   const bool down = dsc < 0.0f;  // the tables bound -disp
-  const float* row8 = r8 + static_cast<size_t>(i) * n8;
-  const float* row32 = r32 + static_cast<size_t>(i) * n32;
+  const float* row8 = r8 + static_cast<size_t>(min(i, H - 1)) * n8;
+  const float* row32 = r32 + static_cast<size_t>(min(i, H - 1)) * n32;
   for (int tile = 0; tile < kTiles; ++tile) {
     const int j = (blockIdx.x * kTiles + tile) * kBlockX + lane;  // column
-    if (j - lane >= out_w) break;  // warp-uniform: no column left
-    const bool valid = j < out_w;
+    if (j - lane >= out_w) break;  // block-uniform: no column left
+    const bool valid = row_ok && j < out_w;
     int k0 = K, k1 = 0;
     if (valid) {
       const int cell = (p * (out_w / tw) + j / tw) * n_hc + i / 128;
@@ -177,62 +209,92 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) lateral_march_kernel(
     auto tap = [&](int start, int d) {
       return min(max(x0 + start + d, 0), W - 1);
     };
-    // decoded inverse depth of the warped disparity minus the plane's
-    auto diff_at = [&](int k) {
-      const float tex =
-          lerp_rn(disp[tap(s_ix[k], 0)], disp[tap(s_ix[k], 1)], s_fx[k]);
-      return __fsub_rn(__fadd_rn(__fmul_rn(tex, dsc), izmax), s_iz[k]);
+    // decoded inverse depth of the warped disparity minus the plane's, at
+    // shift s + f and plane invz z
+    auto diff_of = [&](int s, float f, float z) {
+      const float tex = lerp_rn(disp[tap(s, 0)], disp[tap(s, 1)], f);
+      return __fsub_rn(__fadd_rn(__fmul_rn(tex, dsc), izmax), z);
+    };
+    // plane k's shift, fraction and invz: staged in shared memory from
+    // seg0 on, else (an earlier segment) read from global memory
+    auto plane_at = [&](int k, int seg0) {
+      if (!kSegmented || k >= seg0) {
+        return Plane{s_ix[k - seg0], s_fx[k - seg0], s_iz[k - seg0]};
+      }
+      return Plane{__ldg(ix + pose0 + k), __ldg(fx + pose0 + k),
+                   __ldg(izt + pose0 + k)};
     };
 
-    // pass 1: the first crossing and its bracket
+    // pass 1: the first crossing and its bracket, segment by segment
     bool active = valid && k0 < k1;
     int ks = -1, pk = -1;  // pd holds the difference at plane pk
     float pd = 0.0f, pdc = 0.0f, dc = 0.0f;
     const int kw0 = __reduce_min_sync(kAll, active ? k0 : K);
     const int kw1 = __reduce_max_sync(kAll, active ? k1 : 0);
-    for (int r = kw0 / kRun; r * kRun < kw1; ++r) {
-      const int kb = r * kRun;
-      if (active && k1 <= kb) active = false;
-      if (!__any_sync(kAll, active)) break;
-      // the warp's window of tap origins over the run
-      const int jlo = __reduce_min_sync(kAll, active ? j : INT_MAX);
-      const int jhi = __reduce_max_sync(kAll, active ? j : INT_MIN);
-      const int xa = min(max(jlo - pad_lo_x + s_ixlo[r], 0), W - 1);
-      const int xb = min(max(jhi - pad_lo_x + s_ixhi[r], 0), W - 1);
-      float m = row_bound(row8, row32, xa, xb, lane);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        m = fmaxf(m, __shfl_xor_sync(kAll, m, off));
+    for (int seg0 = 0; seg0 < (kSegmented ? K : 1); seg0 += kMaxPlanes) {
+      const int seg1 = kSegmented ? min(seg0 + kMaxPlanes, K) : K;
+      if (kSegmented) {
+        __syncthreads();  // every read of the previous staging is done
+        stage_segment(ix, fx, izt, pose0, seg0, seg1 - seg0, s_ix, s_fx,
+                      s_iz, s_ixlo, s_ixhi, s_tmin);
       }
-      const float top = __fadd_rn(__fmul_rn(down ? -m : m, dsc), izmax);
-      if (m != INFINITY && !(__fsub_rn(top, s_tmin[r]) > 0.0f)) continue;
-      // walk the run: kGroup planes read together, then tested in order
-      const int ke = min(kb + kRun, K);
-      for (int c = kb + max(kw0 - kb, 0) / kGroup * kGroup; c < ke;
-           c += kGroup) {
+      // the segment's planes, staged from seg0
+      auto diff_at = [&](int k) {
+        return diff_of(s_ix[k - seg0], s_fx[k - seg0], s_iz[k - seg0]);
+      };
+      for (int r = max(kw0, seg0) / kRun; r * kRun < min(kw1, seg1); ++r) {
+        const int kb = r * kRun;
+        const int rs = r - seg0 / kRun;  // the run within the segment
+        if (active && k1 <= kb) active = false;
         if (!__any_sync(kAll, active)) break;
-        if (!active) continue;
-        float d[kGroup];
+        // the warp's window of tap origins over the run
+        const int jlo = __reduce_min_sync(kAll, active ? j : INT_MAX);
+        const int jhi = __reduce_max_sync(kAll, active ? j : INT_MIN);
+        const int xa = min(max(jlo - pad_lo_x + s_ixlo[rs], 0), W - 1);
+        const int xb = min(max(jhi - pad_lo_x + s_ixhi[rs], 0), W - 1);
+        float m = row_bound(row8, row32, xa, xb, lane);
 #pragma unroll
-        for (int u = 0; u < kGroup; ++u) d[u] = diff_at(min(c + u, K - 1));
+        for (int off = 16; off > 0; off >>= 1) {
+          m = fmaxf(m, __shfl_xor_sync(kAll, m, off));
+        }
+        const float top = __fadd_rn(__fmul_rn(down ? -m : m, dsc), izmax);
+        if (m != INFINITY && !(__fsub_rn(top, s_tmin[rs]) > 0.0f)) continue;
+        // walk the run: kGroup planes read together, then tested in order
+        const int ke = min(kb + kRun, K);
+        for (int c = kb + max(kw0 - kb, 0) / kGroup * kGroup; c < ke;
+             c += kGroup) {
+          if (!__any_sync(kAll, active)) break;
+          if (!active) continue;
+          float d[kGroup];
 #pragma unroll
-        for (int u = 0; u < kGroup; ++u) {
-          const int cc = c + u;
-          if (!active || cc >= ke) break;
-          if (cc >= k1) {
-            active = false;
-            break;
-          }
-          if (cc < k0) continue;
-          if (d[u] > 0.0f) {
-            ks = cc;
-            dc = d[u];
-            // the bracket refresh: the plane before was not read
-            pdc = pk == cc - 1 ? pd : (cc > 0 ? diff_at(cc - 1) : 0.0f);
-            active = false;
-          } else {
-            pd = d[u];
-            pk = cc;
+          for (int u = 0; u < kGroup; ++u) d[u] = diff_at(min(c + u, ke - 1));
+#pragma unroll
+          for (int u = 0; u < kGroup; ++u) {
+            const int cc = c + u;
+            if (!active || cc >= ke) break;
+            if (cc >= k1) {
+              active = false;
+              break;
+            }
+            if (cc < k0) continue;
+            if (d[u] > 0.0f) {
+              ks = cc;
+              dc = d[u];
+              // the bracket refresh: the plane before was not read (it may
+              // lie in the previous segment)
+              if (pk == cc - 1) {
+                pdc = pd;
+              } else if (cc > 0) {
+                const Plane q = plane_at(cc - 1, seg0);
+                pdc = diff_of(q.ix, q.fx, q.iz);
+              } else {
+                pdc = 0.0f;
+              }
+              active = false;
+            } else {
+              pd = d[u];
+              pk = cc;
+            }
           }
         }
       }
@@ -258,9 +320,13 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) lateral_march_kernel(
         out[ch] = lerp_rn(cp[a], cp[b], f);
       }
     };
+    // the bracket's planes, from the segment staged last (or before it)
     const int km1 = max(ks - 1, 0);
-    const float tx0 = __fadd_rn(static_cast<float>(s_ix[km1]), s_fx[km1]);
-    const float tx1 = __fadd_rn(static_cast<float>(s_ix[ks]), s_fx[ks]);
+    const Plane q0 = plane_at(km1, kSegmented ? last0 : 0);
+    const Plane q1 = plane_at(ks, kSegmented ? last0 : 0);
+    const float iz0 = q0.iz, iz1 = q1.iz;
+    const float tx0 = __fadd_rn(static_cast<float>(q0.ix), q0.fx);
+    const float tx1 = __fadd_rn(static_cast<float>(q1.ix), q1.fx);
     float cur[4], prev[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c[4];
     color_at(tx1, cur);
     float s_star = 1.0f;  // a first-plane crossing snaps to plane 0
@@ -295,7 +361,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) lateral_march_kernel(
                                     disp[tap(static_cast<int>(tf), 1)],
                                     __fsub_rn(t, tf));
           g = __fsub_rn(__fadd_rn(__fmul_rn(tex, dsc), izmax),
-                        mix_rn(s_iz[km1], s_iz[ks], s));
+                        mix_rn(iz0, iz1, s));
           color_at(t, cs);
         } else {
           g = dc;
@@ -328,7 +394,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) lateral_march_kernel(
       for (int ch = 0; ch < 4; ++ch) c[ch] = mix_rn(clo[ch], chi[ch], t2);
     }
     found[o] = 1.0f;
-    invz_star[o] = mix_rn(s_iz[km1], s_iz[ks], s_star);
+    invz_star[o] = mix_rn(iz0, iz1, s_star);
     rgba_star[o] = make_float4(c[0], c[1], c[2], c[3]);
   }  // tiles
 }
@@ -336,7 +402,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) lateral_march_kernel(
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() right after the launch,
-// or cudaErrorInvalidValue for a ladder longer than kMaxPlanes. tw (the
+// or cudaErrorInvalidValue for an empty ladder. tw (the
 // band width of the bounds cells, dividing out_w) locates each lane's
 // cell; r8/r32 are row_skip_tables' cells.
 extern "C" int lif_lateral_march(
@@ -345,13 +411,15 @@ extern "C" int lif_lateral_march(
     void* found, void* invz_star, void* rgba_star, int B, int K, int H,
     int W, int out_w, int pad_lo_x, int tw, int n_hc, int n8, int n32,
     float izmin, float izmax, int refine, void* stream) {
-  if (K < 1 || K > kMaxPlanes || refine < 0 || W < 1) {
+  if (K < 1 || refine < 0 || W < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 block(kBlockX, kBlockY);
   const int span = kBlockX * kTiles;
   const dim3 grid((out_w + span - 1) / span, (H + kBlockY - 1) / kBlockY, B);
-  lateral_march_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = K > kMaxPlanes ? lateral_march_kernel<true>
+                               : lateral_march_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(src), static_cast<const int*>(ix),
       static_cast<const float*>(fx), static_cast<const float*>(izt),
       static_cast<const int*>(klo), static_cast<const int*>(khi),

@@ -5,8 +5,10 @@ far: the exact ray march (render_mono_view, render(mode='raycast')), the
 single-view fast path (render_fast_view, render(mode='fast')) with its
 depth solve render_depth_fast, and the production fast path
 render_fast_batch on five tiers —
-  * 'march': LATERAL pose batches, the snap-plane first-crossing march
-    (on CUDA through csrc/sweep_march.cu);
+  * 'march': LATERAL pose batches, the first-crossing plane march on
+    config.plane_mode's grid (integer-parallax 'snap', or 'uniform' /
+    'hybrid' of config.march_planes planes; on CUDA through
+    csrc/sweep_march.cu);
   * 'scaled': other UNROTATED batches (y/z translation, dolly, zoom) and
     lateral layers the march cannot take, the scaled first-crossing march
     plus one packed color fetch (on CUDA through csrc/sweep_scaled.cu);
@@ -38,8 +40,6 @@ march every layer of every projector on the lateral tier with its raw
 outputs, composite each projector's LDI and merge the projectors at the
 frontmost surface (_fusion_weights, config.fuse_tol); the exact fused
 oracle is parallel.sharding.render_fused_projectors.
-An option the port does not have (the uniform and hybrid march grids)
-raises NotImplementedError naming it.
 
 Host-side planning (relative poses, plane grids, pad plans, the tiers'
 extents and pose packs) runs in numpy; the textures and every per-pixel
@@ -240,8 +240,8 @@ def _prepared_textures(projector):
 
 def _snap_tables(lay, cxs, explicit_planes, phase_px, stride, device):
     """Per-pose snap-plane grids (B, K) on `device` plus K, memoized on
-    the exact pose batch (the counterpart of lif_tpu's per-(num_planes,
-    mode) plane-table cache; the port has only the snap mode)."""
+    the exact pose batch (the uniform and hybrid grids are one table a
+    layer, cached by _sweep_tables)."""
     key = (
         lay["focal_host"], lay["izmin_host"], lay["izmax_host"],
         np.asarray(cxs, np.float64).tobytes(), explicit_planes,
@@ -339,6 +339,34 @@ def _sweep_tables(projector, tex_layers, num_planes, mode="hybrid"):
     _lru_put(_PLANE_TABLE_CACHE, _PLANE_TABLE_CACHE_MAX, key,
              (projector.disp, tabs))
     return tabs
+
+
+_PLANE_MODES = ("snap", "uniform", "hybrid")
+
+
+def _check_plane_mode(cfg):
+    """config.plane_mode, one of the march's grids, or lif_tpu's
+    ValueError where its _prepared_fast would build the tables."""
+    if cfg.plane_mode not in _PLANE_MODES:
+        raise ValueError(f"unknown plane mode: {cfg.plane_mode}")
+
+
+def _march_tables(projector, idx, cfg, num_planes, cxs, phase):
+    """Layer idx's per-pose march plane tables (B, K) on the projector's
+    device, and K, on the grid config.plane_mode picks: 'snap', per pose
+    and phase-aligned to the skew fold (_snap_tables); 'uniform' or
+    'hybrid', one (K,) table of num_planes planes (config.march_planes
+    when None) shared by the batch as lif_tpu shares it (_sweep_tables:
+    no phase, the warps fall between texels), expanded to (B, K) so that
+    pose chunks and the kernel's per-pose tables see it as a snap
+    ladder."""
+    tex_layers = _prepared_textures(projector)
+    if cfg.plane_mode == "snap":
+        return _snap_tables(tex_layers[idx], cxs, num_planes, phase,
+                            cfg.march_stride, projector.device)
+    k = cfg.march_planes if num_planes is None else num_planes
+    tab = _sweep_tables(projector, tex_layers, k, cfg.plane_mode)[idx]
+    return tab.expand(len(cxs), k), k
 
 
 def _march_eligible(lay, f2_host, out_w, out_h, out_w_true=None):
@@ -734,7 +762,8 @@ def _layer_tier_batch(
     """ONE LDI layer's pose-batched render through its routed tier — the
     tier switch, shared by the mono batch and the stereo cores. c1_b
     (B, 3) and rot_b (B, 3, 3) are the host pose batch.
-    'march': the lateral snap translation, with the layer's constant
+    'march': the lateral translation on its (B, K) plane tables
+    `plane_invz`, with the layer's constant
     source shift `doff` (the width pad's dx and the skew fold; see
     render_fast_batch); 'scaled': the aligned march
     with its setup (plan, K, fr, dx, dy) and per-pose ladders in `lay`;
@@ -855,11 +884,14 @@ def render_fast_batch(
     tier routing:
       * 'march': LATERAL batches (no relative rotation, translation along
         x only) on march-eligible layers (matched focal, even outpaint
-        margins, plane_mode='snap'). Frustum skew (sk1 source, sk2
-        camera) is the constant pixel shift d = -f1*(sk1 - sk2) there:
-        its x part rides the snap phase and the warp tables, its y part
-        a one-time bilinear pre-shift of the source (before the
-        outpaint crop), lif_tpu's fold;
+        margins), on config.plane_mode's grid: 'snap' (per-pose
+        integer-parallax planes), or 'uniform' / 'hybrid' (one table of
+        num_planes planes, config.march_planes by default, shared by
+        the batch). Frustum skew (sk1 source, sk2 camera) is the
+        constant pixel shift d = -f1*(sk1 - sk2) there: its x part
+        rides the snap phase and the warp tables, its y part a one-time
+        bilinear pre-shift of the source (before the outpaint crop),
+        lif_tpu's fold; an unknown plane_mode raises ValueError;
       * 'scaled': every other unrotated batch (y/z translation, dolly,
         zoom) and lateral layers that are not march-eligible;
       * 'target': rotated YAW-family batches (each layer plans with its
@@ -943,8 +975,8 @@ def render_fast_batch(
             plan, crop_y, phase, doff = _march_fold(
                 lay, projector.skew, cam0.skew, max_cx, out_w_eff,
                 cam0.height, dx_pad)
-            tab, k_l = _snap_tables(lay, pos_b[:, 0], num_planes, phase,
-                                    cfg.march_stride, projector.device)
+            tab, k_l = _march_tables(projector, idx, cfg, num_planes,
+                                     pos_b[:, 0], phase)
             extra = {"plane_invz": tab, "doff": doff}
         elif mode == "sweep":
             setup = (k_sweep, chunk, exact_color, tp.rotated)
@@ -1038,15 +1070,13 @@ def plan_tiers(projector: Projector, cameras: Sequence[Camera],
     skewed = bool(np.abs(sk1 - sk2).sum() > 1e-12)
     tex_layers = _prepared_textures(projector)
     f2_host = float(cam0.focal_px)
-    if lateral and method != "sweep" and cfg.plane_mode != "snap":
-        raise NotImplementedError(
-            f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
-            "ported"
-        )
+    if lateral and method != "sweep":
+        _check_plane_mode(cfg)
 
     def layer_mode(idx, lay, out_w_eff, dx_pad):
-        """Per-layer tier: 'march' (lateral snap), else the non-lateral
-        cascade, else 'sweep' (with lif_tpu's warning)."""
+        """Per-layer tier: 'march' (lateral, on config.plane_mode's grid),
+        else the non-lateral cascade, else 'sweep' (with lif_tpu's
+        warning)."""
         if method == "sweep":
             return "sweep", None, {}
         if lateral and _march_eligible(lay, f2_host, out_w_eff, cam0.height,
@@ -1273,9 +1303,10 @@ def render_fast_view(
         (the scaled, target and rotated tiers, and its sweep fallback);
         with method='sweep' the plane sweep directly (render_rotated for a
         rotated pose, else render_sweep_aligned);
-      * a lateral pose: per layer, the snap-plane march (on CUDA the
-        lateral kernel, one launch per layer) on this pose's own
-        snap_plane_table where the layer is march-eligible, else (with
+      * a lateral pose: per layer, the plane march (on CUDA the lateral
+        kernel, one launch per layer) on this pose's own snap_plane_table
+        (or config.plane_mode's uniform / hybrid table, as
+        render_fast_batch) where the layer is march-eligible, else (with
         TierFallbackWarning under 'auto') the plane sweep on the layer's
         'hybrid' table; with the width pad of a non-8-divisible width when
         every layer marches, the skew fold, LDI over-compositing and
@@ -1341,11 +1372,8 @@ def render_fast_view(
         return render_fast_batch(projector, [camera], **kw)[0]
 
     marching = method != "sweep"  # and, from here on, a lateral pose
-    if marching and cfg.plane_mode != "snap":
-        raise NotImplementedError(
-            f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
-            "ported"
-        )
+    if marching:
+        _check_plane_mode(cfg)
     mask_mode = _default_mask_mode(projector, mask_mode)
     sk1 = np.asarray(projector.skew, np.float64)
     sk2 = np.asarray(camera.skew, np.float64)
@@ -1412,14 +1440,16 @@ def render_fast_view(
         plan, crop_y, phase, doff = _march_fold(
             lay, projector.skew, camera.skew, abs(float(pos_np[0])),
             out_w_eff, camera.height, dx_pad)
-        tab, k_l = _sweep_march.snap_plane_table(
-            lay["focal_host"], float(pos_np[0]), lay["izmin_host"],
-            lay["izmax_host"], num_planes=num_planes, phase_px=phase,
-        )
-        layers.append(dict(
-            lay, doff=doff,
-            plane_invz=torch.as_tensor(tab[None], device=projector.device),
-        ))
+        if cfg.plane_mode == "snap":
+            tab, k_l = _sweep_march.snap_plane_table(
+                lay["focal_host"], float(pos_np[0]), lay["izmin_host"],
+                lay["izmax_host"], num_planes=num_planes, phase_px=phase,
+            )
+            tab = torch.as_tensor(tab[None], device=projector.device)
+        else:
+            tab, k_l = _march_tables(projector, idx, cfg, num_planes,
+                                     pos_np[:1], phase)
+        layers.append(dict(lay, doff=doff, plane_invz=tab))
         setups.append(None)
         plans.append(plan)
         crops.append(crop_y)
@@ -1496,8 +1526,9 @@ class _Eye(NamedTuple):
 
 def _stereo_eye(projector, cameras, num_layers, mask_mode, cfg, num_planes):
     """Plan one eye as lif_tpu's stereo _eye_setup does: a lateral pose
-    batch takes the snap march on each march-eligible layer (the skew fold
-    of _march_fold, no width pad), every other layer the cascade of
+    batch takes the plane march on config.plane_mode's grid
+    (_march_tables) on each march-eligible layer (the skew fold of
+    _march_fold, no width pad), every other layer the cascade of
     _plan_march_tier (scaled, target, rotated); stereo has no sweep
     fallback and no pitch transpose, and a batch no tier covers raises
     ValueError naming render_stereo_view. Each layer dict carries the mask
@@ -1519,24 +1550,20 @@ def _stereo_eye(projector, cameras, num_layers, mask_mode, cfg, num_planes):
         and np.abs(pos_b[:, 1]).max() < 1e-9
         and np.abs(pos_b[:, 2]).max() < 1e-9
     )
-    if lateral and cfg.plane_mode != "snap":
-        raise NotImplementedError(
-            f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
-            "ported"
-        )
+    _check_plane_mode(cfg)
     sk1 = np.asarray(projector.skew, np.float64)
     sk2 = np.asarray(cam0.skew, np.float64)
     max_cx = float(np.abs(pos_b[:, 0]).max())
     eye = _Eye(pos_b, rot_b, [], [], [], [], [], [])
-    for lay in _prepared_textures(projector)[:num_layers]:
+    for idx, lay in enumerate(_prepared_textures(projector)[:num_layers]):
         mask = _eroded_mask(lay) if mask_mode == "hard" else lay["mask"]
         plan, crop_y, k_l, setup = None, 0, None, None
         if lateral and _march_eligible(lay, f2_host, out_w, out_h):
             mode = "march"
             plan, crop_y, phase, doff = _march_fold(
                 lay, sk1, sk2, max_cx, out_w, out_h, 0.0)
-            tab, k_l = _snap_tables(lay, pos_b[:, 0], num_planes, phase,
-                                    cfg.march_stride, projector.device)
+            tab, k_l = _march_tables(projector, idx, cfg, num_planes,
+                                     pos_b[:, 0], phase)
             extra = {"plane_invz": tab}
         else:
             try:
@@ -1583,7 +1610,7 @@ def render_stereo_fast_batch(
     confidence of each (_stretch_conf), ops.stereo.occlusion_blend with
     the per-pose view_weight, then front-to-back LDI compositing, the
     background and the gamma. Each eye routes as _stereo_eye says:
-    lateral poses on the snap march (on CUDA the lateral kernel, one
+    lateral poses on the plane march (on CUDA the lateral kernel, one
     launch per eye, layer and pose chunk), other poses on the scaled,
     target or rotated tier. Frustum skew (sk1 per eye, a shared sk2) rides
     every tier as in render_fast_batch. LDI pairs (more than one layer)
@@ -1591,8 +1618,8 @@ def render_stereo_fast_batch(
     and a tier keeps a hit where that mask reads >= 0.5; single layers
     take the taper only. All cameras must share width, height, focal and
     skew. Batches beyond config.pose_chunk render in balanced chunks.
-    lif_tpu's uniform and hybrid plane modes raise NotImplementedError,
-    as the mono batch does.
+    The lateral march takes config.plane_mode's grid, as the mono batch
+    does.
 
     return_tiers=True returns (images, (left tiers, right tiers)).
     """
@@ -1791,9 +1818,9 @@ def render_fused_fast_batch(
     width, height, focal and skew. Other poses take
     parallel.sharding.render_fused_projectors. Batches beyond
     config.pose_chunk, or on CUDA beyond what the free device memory
-    holds (_fused_pose_chunk), render in balanced chunks. lif_tpu's
-    uniform and hybrid plane modes raise NotImplementedError, as the mono
-    and stereo batches do."""
+    holds (_fused_pose_chunk), render in balanced chunks. Each
+    projector marches config.plane_mode's grid, as the mono and stereo
+    batches do."""
     cfg = config or DEFAULT_CONFIG
     background = cfg.background if background is None else background
     feathering = cfg.feathering if feathering is None else feathering
@@ -1814,12 +1841,6 @@ def render_fused_fast_batch(
                 "render_fused_fast_batch cameras must share "
                 "width/height/focal/skew"
             )
-    if cfg.plane_mode != "snap":
-        raise NotImplementedError(
-            f"plane_mode={cfg.plane_mode!r}: only the snap march grid is "
-            "ported"
-        )
-
     views = []
     for proj in projectors:
         pos_list = []
@@ -1837,10 +1858,11 @@ def render_fused_fast_batch(
                 )
             pos_list.append(pos_np)
         pos_b = np.stack(pos_list)
+        _check_plane_mode(cfg)
         max_cx = float(np.abs(pos_b[:, 0]).max())
         view = _FusedView(
             pos_b, _default_mask_mode(proj, mask_mode), [], [], [])
-        for lay in _prepared_textures(proj):
+        for idx, lay in enumerate(_prepared_textures(proj)):
             if not _march_eligible(lay, f2_host, cam0.width, cam0.height) or (
                 lay["w"] != cam0.width or lay["h"] != cam0.height
             ):
@@ -1850,8 +1872,8 @@ def render_fused_fast_batch(
                 )
             plan, _, phase, doff = _march_fold(
                 lay, proj.skew, sk2, max_cx, cam0.width, cam0.height, 0.0)
-            tab, k_l = _snap_tables(lay, pos_b[:, 0], num_planes, phase,
-                                    cfg.march_stride, proj.device)
+            tab, k_l = _march_tables(proj, idx, cfg, num_planes,
+                                     pos_b[:, 0], phase)
             view.layers.append(dict(lay, plane_invz=tab, doff=doff))
             view.plans.append(plan)
             view.nums.append(k_l)

@@ -42,7 +42,7 @@ from ..sweep_march import (
 from .build import load_library
 
 __all__ = [
-    "MAX_PLANES",
+    "SEGMENT_PLANES",
     "lateral_kernel_inputs",
     "lateral_loop_bounds",
     "march_translation_cuda",
@@ -51,7 +51,9 @@ __all__ = [
     "sweep_lateral",
 ]
 
-MAX_PLANES = 1024  # the kernel's shared-memory tables (kMaxPlanes)
+# planes of one shared-memory segment of the kernel's tables (kMaxPlanes):
+# a longer ladder is walked segment by segment
+SEGMENT_PLANES = 1024
 _COARSE = 8  # coarse skip-table cell width, px
 _LC = 128  # rows per bounds chunk (lif_tpu's 128-lane y chunk)
 
@@ -178,7 +180,8 @@ def sweep_lateral(src, ix, fx, izt, klo, khi, izmin: float, izmax: float,
     izt: (B, K) float32 plane inverse depths, near -> far; klo/khi:
     (B, nb, Hc) int32 plane ranges; rows: (r8, r32) of
     ops.sweep_march.row_skip_tables for src[4] and (izmin, izmax);
-    refine: in-bracket sub-planes. Returns found (B, H, out_w), invz*
+    refine: in-bracket sub-planes. Any K >= 1: a ladder longer than
+    SEGMENT_PLANES is walked in segments of that many planes. Returns found (B, H, out_w), invz*
     (B, H, out_w) and rgba* (B, H, out_w, 4), float32.
     `sweep_lateral.launches` counts the launches."""
     _, h, w = src.shape
@@ -194,8 +197,8 @@ def sweep_lateral(src, ix, fx, izt, klo, khi, izmin: float, izmax: float,
     _check(khi, "khi", torch.int32, (b, out_w // tw, n_hc))
     if (plan.src_w, plan.src_h, plan.out_h) != (w, h, h):
         raise ValueError(f"plan {plan} does not match a {w}x{h} source")
-    if not 1 <= k <= MAX_PLANES:
-        raise ValueError(f"{k} planes: the kernel takes 1..{MAX_PLANES}")
+    if k < 1:
+        raise ValueError(f"{k} planes: the kernel needs at least one")
     if refine < 0:
         raise ValueError(f"refine {refine} must be >= 0")
     if rows is None:

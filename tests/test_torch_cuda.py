@@ -21,6 +21,8 @@ versions (the scatter's and the ladder dual's), whose float sequence it
 evaluates.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -595,20 +597,115 @@ def test_lateral_kernel_exact_through_skipped_runs(cuda, kind, refine, w, h,
 
 
 def test_lateral_kernel_rejects_bad_inputs(cuda):
-    """The wrapper refuses ladders beyond 1024 planes and a launch
-    without the row skip tables."""
+    """The wrapper refuses an empty ladder and a launch without the row
+    skip tables (a ladder beyond one 1024-plane segment is walked in
+    segments: test_lateral_kernel_exact_across_segments)."""
     rgb, disp, mask = _scene(9, 16, 64)
     plan = tsm.translation_plan(64, 16, 64, 16, 10.0, 0.0)
     tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
     src = tcuda.prepare_translation_src(*tex, plan)[0]
     rows = tsm.row_skip_tables(src[4], 2.0, 0.1)[1:]
-    for k, r, match in ((1100, rows, "1024"), (8, None, "rows is required")):
+    for k, r, match in ((0, rows, "at least one"),
+                        (8, None, "rows is required")):
         ix = torch.zeros((1, k), dtype=torch.int32, device=cuda)
         fx = torch.zeros((1, k), device=cuda)
         klo = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda)
         with pytest.raises(ValueError, match=match):
             tcuda.sweep_lateral(src, ix, fx, fx, klo, klo, 2.0, 0.1, plan,
                                 rows=r)
+
+
+@pytest.mark.parametrize("kind", ["noise", "far"])
+@pytest.mark.parametrize("k,refine", [(256, 0), (256, 2), (1536, 0),
+                                      (1536, 1)])
+def test_lateral_kernel_exact_across_segments(cuda, kind, k, refine):
+    """On a uniform ladder (renderer._plane_table), whose shifts fall
+    between texels at nearly every plane (the lerp at fractional shifts,
+    the warp-run skip over fractional ix / fx, the bracket refresh after a
+    skipped fractional plane), the lateral kernel equals
+    march_translation_plain bit for bit, and so does its skip mirror; at
+    K = 1536 the walk crosses the kernel's 1024-plane segment."""
+    assert (k > tcuda.SEGMENT_PLANES) == (k == 1536)
+    h, w = 40, 128
+    rgb, disp, mask = _lateral_scene(kind, h, w)
+    f1, izmin, izmax = 0.78 * w, 2.0, 0.1
+    cxs = [0.01, -0.035, 0.06]
+    c1 = np.stack([np.asarray(cxs, np.float32), np.zeros(3, np.float32),
+                   np.zeros(3, np.float32)], -1)
+    planes = np.broadcast_to(trenderer._plane_table(
+        disp, np.float32(izmin), np.float32(izmax), k, "uniform"),
+        (3, k)).copy()
+    plan = tsm.translation_plan(w, h, w, h, f1 * 0.06 * izmin, 0.0)
+    tex = [torch.from_numpy(a).to(cuda) for a in (rgb, disp, mask)]
+    prepared = tcuda.prepare_translation_src(*tex, plan)
+    args = tcuda.lateral_kernel_inputs(prepared, izmin, izmax, c1, f1,
+                                       torch.from_numpy(planes).to(cuda),
+                                       plan, k)
+    assert (args[2] != 0).float().mean().item() >= 0.9
+    out = tcuda.sweep_lateral(
+        *args, refine=refine,
+        rows=tsm.row_skip_tables(prepared[0][4], izmin, izmax)[1:])
+    torch.cuda.synchronize()
+    for i in range(3):
+        want = tsm.march_translation_plain(*tex, izmin, izmax, c1[i], f1,
+                                           planes[i], plan, k, refine=refine)
+        mirror = tsm.march_translation_skip_plain(
+            *tex, izmin, izmax, c1[i], f1, planes[i], plan, k, refine=refine)
+        for got, ref, mir in zip(out, want, mirror):
+            assert torch.equal(got[i], ref) and torch.equal(mir, ref)
+    assert out[0].mean().item() > 0.3
+
+
+@pytest.mark.parametrize("mode,k", [("uniform", 256), ("hybrid", 256),
+                                    ("uniform", 1536)])
+def test_plane_modes_on_cuda_match_cpu(cuda, mode, k):
+    """render_fast_batch, render_stereo_fast_batch and
+    render_fused_fast_batch on the uniform and hybrid grids on the card
+    (one lateral launch per layer and pose chunk, the (K,) table expanded
+    per pose across chunks of 2) agree with the same calls on CPU tensors:
+    mono within 1e-4, stereo and fusion at most 0.1% of the pixels off by
+    more than 1e-3 (the gates of the card tests above)."""
+    h, w = 64, 128
+    rgb0, disp0, mask0 = _scene(11, h, w)
+    rgb1, disp1, _ = _scene(12, h + 16, w + 32)
+    proj = lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
+        baseline=1.0, device="cpu",
+        extra_layers=[dict(rgb=rgb1, disp=disp1, focal_px=0.78 * w,
+                           invz_min=0.5, invz_max=0.1)],
+    )
+    cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                        position=[x, 0.0, 0.0])
+            for x in (0.02, 0.04, 0.06)]
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(plane_mode=mode,
+                                               march_planes=k, pose_chunk=2)
+    # fusion takes layers of the camera's dims: the base layer alone
+    flat = lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
+        baseline=1.0, device="cpu")
+
+    def pair(p):
+        return p, dataclasses.replace(
+            p, position=np.asarray(p.position) + [0.05, 0.0, 0.0])
+
+    calls = (
+        (lambda p, r: lif_tpu_torch.render_fast_batch(p, cams, config=cfg),
+         proj, 4),
+        (lambda p, r: lif_tpu_torch.render_stereo_fast_batch(
+            p, r, cams, config=cfg), proj, 8),
+        (lambda p, r: lif_tpu_torch.render_fused_fast_batch(
+            [p, r], cams, config=cfg), flat, 4),
+    )
+    for n, (fn, base, launches) in enumerate(calls):
+        before = tcuda.sweep_lateral.launches
+        got = fn(*pair(base.to(cuda)))
+        torch.cuda.synchronize()
+        assert tcuda.sweep_lateral.launches == before + launches
+        err = (got.cpu() - fn(*pair(base))).abs().amax(-1)
+        if n == 0:
+            assert err.max().item() < 1e-4
+        else:  # the stereo and fused gates of the card tests above
+            assert (err > 1e-3).float().mean().item() <= 1e-3
 
 
 def test_texture_cache_holds_skip_tables_on_cuda(cuda):
@@ -894,8 +991,6 @@ def test_mono_stereo_mono_marches_each_mask(cuda):
     stereo gate, at most 0.1% of the pixels off by more than 1e-3), the
     launches are one per layer and eye, and the second mono frame equals
     the first bit for bit."""
-    import dataclasses
-
     h, w = 64, 128
     rgb0, disp0, _ = _scene(1, h, w)
     rgb1, disp1, _ = _scene(2, h + 16, w + 32)

@@ -476,15 +476,3 @@ def test_errors_match_lif_tpu(rng, what):
     with pytest.raises(ValueError) as terr:
         tcall()
     assert str(terr.value) == str(jerr.value)
-
-
-def test_plane_modes_not_ported_raise(rng):
-    """lif_tpu's uniform and hybrid plane modes raise NotImplementedError
-    naming the snap grid, as the mono and stereo batches do."""
-    projs, _, _ = _case("two", rng)
-    tps = [_both(kw)[1] for kw in projs]
-    _, tcams = _cams([[0.01, 0.0, 0.0]])
-    for mode in ("uniform", "hybrid"):
-        cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(plane_mode=mode)
-        with pytest.raises(NotImplementedError, match="snap march grid"):
-            lif_tpu_torch.render_fused_fast_batch(tps, tcams, config=cfg)

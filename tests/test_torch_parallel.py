@@ -46,6 +46,8 @@ FAMILIES = ("lateral", "orbit", "ldi", "skewed")
 H, W = 32, 48
 FIT_SHAPE, FIT_STEPS = (4, 2), 5
 LAUNCH_TIMEOUT_S = 300.0
+# the lateral family on the uniform march grid, at this world size only
+UNIFORM_RANKS, UNIFORM_PLANES = 2, 32
 
 
 def _pair(rgb, disp, **kw):
@@ -121,6 +123,11 @@ def _fast_case(family):
     return jp, tp, positions, rotations, jcam, tcam
 
 
+def _uniform_cfg(pkg):
+    return pkg.DEFAULT_CONFIG.replace(plane_mode="uniform",
+                                      march_planes=UNIFORM_PLANES)
+
+
 def _rank_cases(n):
     """The cases of the n-rank launch (see tests/torch_rank_bodies.py)."""
     inp = _inputs()
@@ -140,6 +147,11 @@ def _rank_cases(n):
         cases[f"fast_{family}"] = ("fast", dict(
             proj=host(fp), positions=positions, cam=tcam,
             rotations=rotations))
+    if n == UNIFORM_RANKS:
+        _, fp, positions, _, _, tcam = _fast_case("lateral")
+        cases["fast_lateral_uniform"] = ("fast", dict(
+            proj=host(fp), positions=positions, cam=tcam,
+            config=_uniform_cfg(lif_tpu_torch)))
     if n > 1:
         cases["errors"] = ("errors", dict(
             proj=tp, cam=inp["template"][1][0],
@@ -240,6 +252,26 @@ def test_fast_trajectory_sharded_matches_lif_tpu_and_one_rank(n, family):
     assert np.abs(got - ref.numpy()).max() <= 1e-6
     if family == "orbit":
         assert "march" not in tiers, tiers
+
+
+def test_fast_trajectory_sharded_uniform_grid():
+    """The lateral family on the uniform march grid (32 planes, one table
+    the batch shares, expanded per pose so a rank's block slices it) at 2
+    ranks: the frames equal the port's unsharded render_fast_batch on that
+    grid, and lif_tpu's sharded fast path to 2e-4."""
+    jp, tp, positions, _, jcam, tcam = _fast_case("lateral")
+    got = _agreed(UNIFORM_RANKS, "fast_lateral_uniform")
+    want = np.asarray(jsharding.render_fast_trajectory_sharded(
+        jp, positions, jcam, _jmesh(("frame",), UNIFORM_RANKS),
+        config=_uniform_cfg(lif_tpu)))
+    assert np.abs(got - want).max() <= 2e-4
+    _, tcams = _cams(tcam.width, tcam.height, positions)
+    ref, tiers = lif_tpu_torch.render_fast_batch(
+        tp, tcams, config=_uniform_cfg(lif_tpu_torch), return_tiers=True)
+    assert tiers == ("march",)
+    assert np.abs(got - ref.numpy()).max() <= 1e-6
+    snap = _agreed(UNIFORM_RANKS, "fast_lateral")
+    assert np.abs(got - snap).max() > 1e-4
 
 
 @pytest.mark.parametrize("n", WORLD_SIZES)

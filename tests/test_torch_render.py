@@ -179,23 +179,6 @@ _FORMERLY_UNCOVERED = {"rotated": "rotated", "y_translation": "scaled",
                        "skewed": "march"}
 
 
-@pytest.mark.parametrize("case", ["uniform_planes", "stereo_mode"])
-def test_uncovered_poses_raise_not_implemented(rng, case):
-    """What no ported tier covers raises NotImplementedError naming what it
-    needs; it never returns a silent wrong image: the mono batch and the
-    stereo fast path have only the snap grid of the march (lif_tpu's
-    uniform and hybrid march grids are not ported)."""
-    _, tp = _projectors(rng, h=32, w=64)
-    kw = dict(config=lif_tpu_torch.DEFAULT_CONFIG.replace(
-        plane_mode="uniform"))
-    cam = _case_camera(lif_tpu_torch, case)
-    with pytest.raises(NotImplementedError, match="snap"):
-        if case == "stereo_mode":
-            lif_tpu_torch.render([tp, tp], cam, mode="stereo_fast", **kw)
-        else:
-            lif_tpu_torch.render_fast_batch(tp, [cam], **kw)
-
-
 def _fallback_warnings(fn):
     """fn()'s result and the messages of the TierFallbackWarnings it fired
     (each package's own class)."""

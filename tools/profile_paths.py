@@ -3,10 +3,12 @@
 
 Run from the repository root: ``python3 tools/profile_paths.py [drive ...]``
 with drives from lateral, orbit, dolly, tilt, billboard, view0, view1,
-stereo and fused (default: all nine). Each of the first five renders
-chip_smoke.py's pose batch through render_fast_batch (billboard:
-render_billboard_fast_batch over the lateral drive's 96 poses) on
-chip_smoke.py's seeded 1280x800 scene; view0 and view1 render ONE frame
+stereo, fused, uniform and hybrid (default: all eleven). Each of the
+first five renders chip_smoke.py's pose batch through render_fast_batch
+(billboard: render_billboard_fast_batch over the lateral drive's 96
+poses) on chip_smoke.py's seeded 1280x800 scene, and uniform and hybrid
+render the lateral drive with that plane_mode at chip_smoke.py's
+PLANE_MODE_K march planes (main path 14); view0 and view1 render ONE frame
 with render(mode='fast') at BASELINE config 0's x = 0.135 m on view 0
 (one skewed layer) and view 1 (the 3-layer outpainted LDI) of
 chip_smoke.py's main-path-8 LIF, loaded with load_lif_file; stereo
@@ -44,7 +46,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRIVES = ("lateral", "orbit", "dolly", "tilt", "billboard", "view0",
-          "view1", "stereo", "fused")
+          "view1", "stereo", "fused", "uniform", "hybrid")
+# the drives on the lateral poses through render_fast_batch(method='march')
+LATERAL = ("lateral", "uniform", "hybrid")
 
 
 def _events():
@@ -107,7 +111,7 @@ def instrument(stages: dict):
 
 
 def drive_cameras(cs, lt, focal, drive):
-    if drive in ("lateral", "billboard"):
+    if drive in LATERAL or drive == "billboard":
         return [lt.Camera.create(cs.W, cs.H, focal_px=focal, position=[
             0.135 + 0.02 * i / cs.N_MAIN, 0.0, 0.0]) for i in range(cs.N_MAIN)]
     if drive == "orbit":
@@ -148,8 +152,14 @@ def drive_call(lt, drive):
         return lt.render_fused_fast_batch
     if drive.startswith("view"):
         return lambda proj, cams: lt.render(proj, cams[0], mode="fast")
-    method = "march" if drive == "lateral" else "auto"
-    return lambda proj, cams: lt.render_fast_batch(proj, cams, method=method)
+    kw = {"method": "march"} if drive in LATERAL else {}
+    if drive in ("uniform", "hybrid"):
+        import chip_smoke as cs
+
+        kw["config"] = lt.DEFAULT_CONFIG.replace(
+            plane_mode=drive, march_planes=cs.PLANE_MODE_K)
+    return lambda proj, cams, **extra: lt.render_fast_batch(proj, cams,
+                                                            **kw, **extra)
 
 
 def profile_drive(lt, proj, cams, drive, card, stages):
@@ -166,9 +176,7 @@ def profile_drive(lt, proj, cams, drive, card, stages):
     elif drive == "fused":
         tiers = ("march",) * sum(p.num_layers for p in proj)
     else:
-        _, tiers = lt.render_fast_batch(
-            proj, cams, method="march" if drive == "lateral" else "auto",
-            return_tiers=True)
+        _, tiers = render(proj, cams, return_tiers=True)
     render(proj, cams)
     torch.cuda.synchronize()
     stages.clear()
