@@ -217,10 +217,29 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     grid (6 launches) and main path 10's four 1280x800 projectors at 4
     cameras on the hybrid grid (4 launches), each launch held to the plain
     versions.
+25. main path 15 (the benches, lif_tpu_torch/bench/, at the smoke
+    preset: 640x400, the fused and tile-sharded views 1280x800):
+    throughput.run (bench_torch.py: the 16-pose headline, the composite's
+    lateral, orbit and zoom families, their PSNR and tiers against
+    lif_tpu's) and configs.run (bench_configs_torch.py: every section,
+    the scaling subprocess at 1 and 2 ranks with the fused oracle on 4,
+    the record written under lif_tpu_torch/_build/), each runner's
+    counted steps (the headline, each composite family, each config
+    section's first call of its workload) with the launch counts zeroed
+    just before and read just after, each step's launches exactly one per
+    routed tier, layer and pose chunk (config 0b+: one billboard launch;
+    the mesh modes none), every launch of a step held on BENCH_HELD poses,
+    on its own inputs, to the kernel's plain version and skip mirror (the
+    billboard kernel: billboard_scatter_plain and its ladder dual) with no
+    found flip and max abs 0; the headline line's keys and no
+    vs_baseline, no section in error, no missed bar (every PSNR at most
+    1 dB under lif_tpu's at the smoke preset, the routes lif_tpu's, from
+    tools/reference_bench_psnr.py), tile parity at every world size, and
+    each of the four kernels launched and held.
 
 Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1), main
-paths 8, 9, 10 and 14 each step's against the tiers it took, main path 13
-each rank's against its block of poses. The
+paths 8, 9, 10, 14 and 15 each step's against the tiers it took, main
+path 13 each rank's against its block of poses. The
 second-to-last line is the kernels' JSON record (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, as the source note of its .cu file counts them, a march's
@@ -245,11 +264,30 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-W, H = 1280, 800
-BASELINE = 0.045  # m
-INVZ_NEAR, INVZ_FAR = 0.09, 0.0001  # 1/m
+from lif_tpu_torch.bench.common import launch_counter, psnr
+from lif_tpu_torch.bench.scenes import (
+    BASELINE,
+    H,
+    INVZ_FAR,
+    INVZ_NEAR,
+    LIF_CONVERGENCE,
+    N_FUSED,
+    W,
+    dolly_cams,
+    make_fusion_projectors,
+    make_scene,
+    make_stereo_lif,
+    orbit_cams,
+    pair_cams,
+    rot_x,
+    rot_y,
+    scene_projector,
+    smooth_noise,
+)
+
 N_CHECK = 8  # poses of the kernel-vs-plain check
 N_MIRROR = 2  # of them, poses checked against a skip walk's plain mirror
+BENCH_HELD = 2  # poses of each of main path 15's launches held to plain
 N_MAIN = 96  # poses of the main-path run: two chunks of the default 48
 PSNR_MIN = 40.0  # dB against the converged (640-step) march
 N_ORBIT = 120  # orbit poses: three chunks of 40
@@ -293,13 +331,11 @@ COVERAGE_TOL = 0.005
 # bound, 1e-3 of the pixels, is 1024 here). Against its plain version,
 # which follows the same float sequence, it must agree exactly.
 BB_ORACLE_MAX = 64
-# main path 8's LIF: view 0's frustum skew, view 1's outpainting (px), its
-# three layers' inverse-depth ranges (1/m, near to far) and the
-# convergence distance behind stereo_render_data.invd (m)
+# main path 8's LIF: view 0's frustum skew, view 1's outpainting (px) and
+# its three layers' inverse-depth ranges (1/m, near to far)
 LIF_SKEW = (0.012, -0.0037)
 LIF_OUTPAINT = 128
 LIF_LAYERS = ((0.09, 0.02), (0.05, 0.005), (0.02, 0.0001))
-LIF_CONVERGENCE = 1.0
 LIF_X = 0.135  # BASELINE config 0's fixed novel view, m
 N_SEQ = 20  # poses of the sequential pass (bench_configs.py:168-178)
 N_VIEWER = 24  # orbit frames of the viewer run
@@ -337,13 +373,11 @@ STEREO_TIERS = {"pairs": "march", "mid": "march", "yaw": "target",
                 "offaxis": "scaled", "skewed": "march"}
 STEREO_LIF_SHA256 = (
     "00bf3b14560350d8a1cab34073b639181a4e13d99d00b6996bbd3d729bf7251f")
-# main path 10 (BASELINE config 4, bench_configs.py:540-600): four
-# projectors synthesized from make_scene(0) at x = FUSED_DX i, resampled
-# to 3840x2160, fused at four cameras x = FUSED_CAM_X + FUSED_CAM_DX j;
-# fidelity at 1280x800 against the FUSED_STEPS-step exact fused oracle at
-# each fuse_tol point (None: the config default)
-N_FUSED = 4
-FUSED_DX = 0.02  # m between projectors
+# main path 10 (BASELINE config 4, bench_configs.py:540-600): the N_FUSED
+# projectors make_fusion_projectors synthesizes from make_scene(0),
+# resampled to 3840x2160, fused at four cameras x = FUSED_CAM_X +
+# FUSED_CAM_DX j; fidelity at 1280x800 against the FUSED_STEPS-step exact
+# fused oracle at each fuse_tol point (None: the config default)
 FUSED_CAM_X, FUSED_CAM_DX = 0.05, 0.002  # m
 W4, H4 = 3840, 2160
 FUSED_SCALE = W4 / W
@@ -516,16 +550,6 @@ def kernel_record(name, source, replaces, launches, err, ms, plain_ms, bound):
     }
 
 
-def make_scene(seed: int = 0):
-    from tests.scenes import smooth_noise  # numpy only
-
-    rng = np.random.default_rng(seed)
-    disp = smooth_noise(rng, H, W, octaves=3, lo=0.2, hi=0.8)
-    disp[H // 3 : H // 2, W // 3 : W // 2] = 0.95  # near box: a hard edge
-    rgb = np.stack([smooth_noise(rng, H, W, octaves=4) for _ in range(3)], -1)
-    return rgb.astype(np.float32), disp.astype(np.float32)
-
-
 def make_lif(seed: int = 0) -> bytes:
     """Main path 8's LIF file, authored in memory from the seed with the
     port's PNG encoder and container writer (numpy and the port's io
@@ -539,7 +563,6 @@ def make_lif(seed: int = 0) -> bytes:
     LIF_CONVERGENCE m away."""
     from lif_tpu_torch.io import container
     from lif_tpu_torch.io.decode import encode_png
-    from tests.scenes import smooth_noise  # numpy only
 
     ratio = 0.78
     rgb, disp = make_scene(seed)
@@ -583,83 +606,21 @@ def make_lif(seed: int = 0) -> bytes:
     return container.write(encode_png(rgb), meta, blobs)
 
 
-def make_stereo_lif(seed: int = 0) -> bytes:
-    """Main path 9's stereo LIF, authored from the seed after
-    examples/multiview_demo.py:34-111 with PNG payloads: the left view is
-    make_scene(seed) at -baseline/2 (LIF position -0.5); the right view
-    at +baseline/2 is synthesized from the left alone by the port ON THE
-    CPU (render_fast_view with to_srgb=True, mask_mode='none',
-    feathering=0, and render_depth_fast), so the bytes do not depend on
-    the card. Both views 1280x800, focal 0.78 W, inverse depth
-    INVZ_FAR..INVZ_NEAR; stereo_render_data.invd puts the convergence
-    plane LIF_CONVERGENCE m away."""
-    import lif_tpu_torch as lt
-    from lif_tpu_torch.io import container
-    from lif_tpu_torch.io.decode import encode_png
-
-    rgb, disp = make_scene(seed)
-    view = {"width_px": W, "height_px": H, "focal_px": 0.78 * W,
-            "rotation": [0.0, 0.0, 0.0]}
-    left = dict(view, position=[-0.5, 0.0, 0.0], image={"blob_id": -1},
-                inv_z_map={"blob_id": 20, "min": INVZ_NEAR,
-                           "max": INVZ_FAR})
-    image, blobs = encode_png(rgb), {20: encode_png(disp)}
-    mono = {"views": [left], "baseline_mm": BASELINE * 1e3}
-    proj = lt.load_lif_file(container.write(image, mono, blobs),
-                            device="cpu").projectors[0]
-    cam_r = lt.Camera.create(W, H, focal_px=float(proj.focal[0]),
-                             position=[BASELINE / 2, 0.0, 0.0])
-    rgb_r = lt.render_fast_view(proj, cam_r, to_srgb=True, mask_mode="none",
-                                feathering=0.0)[..., :3].numpy()
-    invz_r = lt.render_depth_fast(proj, cam_r).numpy()
-    blobs[30] = encode_png(rgb_r)
-    blobs[31] = encode_png(np.clip(
-        (invz_r - INVZ_FAR) / (INVZ_NEAR - INVZ_FAR), 0.0, 1.0))
-    right = dict(view, position=[0.5, 0.0, 0.0], image={"blob_id": 30},
-                 inv_z_map={"blob_id": 31, "min": INVZ_NEAR,
-                            "max": INVZ_FAR})
-    meta = {"views": [left, right], "baseline_mm": BASELINE * 1e3,
-            "stereo_render_data": {"invd": BASELINE / LIF_CONVERGENCE}}
-    return container.write(image, meta, blobs)
-
-
-def make_fusion_projectors(seed: int = 0):
-    """Main path 10's four 1280x800 projectors: make_scene(seed) as a
-    projector at the origin (focal 0.78 W, INVZ_FAR..INVZ_NEAR, the
-    baseline), and from it one projector synthesized at x = FUSED_DX i
-    (synthesize_projector: the fast view and its solved depth there) by
-    the port ON THE CPU, so they do not depend on the card
-    (bench_configs.py:548-553). Returns the CPU projectors."""
-    import lif_tpu_torch as lt
-
-    rgb, disp = make_scene(seed)
-    base = lt.projector_from_arrays(
-        rgb, disp, focal_px=0.78 * W, invz_min=INVZ_NEAR, invz_max=INVZ_FAR,
-        baseline=BASELINE, device="cpu")
-    return [lt.synthesize_projector(base, [FUSED_DX * i, 0.0, 0.0])
-            for i in range(N_FUSED)]
-
-
 def stereo_cams(lt, focal, eye):
     """Main path 9's camera batches, {name: [Camera, ...]}: 'pairs', the
     N_PAIRS pairs at (-+eye + STEREO_DX i, 0, 0) (bench_configs.py:416-424);
     'mid', 'yaw' and 'offaxis', one camera each; 'skewed', N_SKEW_PAIRS
     pairs under the camera skew STEREO_SKEW."""
-    def cam(pos, rot=None, skew=(0.0, 0.0)):
+    def cam(pos, rot=None):
         return lt.Camera.create(W, H, focal_px=focal, position=pos,
-                                rotation=rot, skew=skew)
+                                rotation=rot)
 
-    def pairs(n, skew=(0.0, 0.0)):
-        return [cam([s * eye + STEREO_DX * i, 0.0, 0.0], skew=skew)
-                for i in range(n) for s in (-1.0, 1.0)]
-
-    th = np.deg2rad(STEREO_YAW_DEG)
-    yaw = np.array([[np.cos(th), 0.0, np.sin(th)], [0.0, 1.0, 0.0],
-                    [-np.sin(th), 0.0, np.cos(th)]])
-    return {"pairs": pairs(N_PAIRS), "mid": [cam([STEREO_MID_X, 0.0, 0.0])],
-            "yaw": [cam([STEREO_MID_X, 0.0, 0.0], yaw)],
+    return {"pairs": pair_cams(lt, focal, eye, N_PAIRS, STEREO_DX),
+            "mid": [cam([STEREO_MID_X, 0.0, 0.0])],
+            "yaw": [cam([STEREO_MID_X, 0.0, 0.0], rot_y(STEREO_YAW_DEG))],
             "offaxis": [cam(list(STEREO_OFFAXIS))],
-            "skewed": pairs(N_SKEW_PAIRS, STEREO_SKEW)}
+            "skewed": pair_cams(lt, focal, eye, N_SKEW_PAIRS, STEREO_DX,
+                                STEREO_SKEW)}
 
 
 def lif_cams(lt, proj, orbit_center):
@@ -678,39 +639,6 @@ def lif_cams(lt, proj, orbit_center):
     return {name: lt.Camera.create(W, H, focal_px=focal, position=p,
                                    rotation=r)
             for name, (p, r) in poses.items()}
-
-
-def orbit_cams(lt, focal, thetas=(), phis=()):
-    return [
-        lt.Camera.create(W, H, focal_px=focal, position=p, rotation=r)
-        for p, r in (
-            lt.orbit_pose([0.0, 0.0, -1.0], 1.0, t, ph)
-            for t, ph in zip(thetas or [0.0] * len(phis),
-                             phis or [0.0] * len(thetas))
-        )
-    ]
-
-
-def dolly_cams(lt, focal):
-    t = np.linspace(0.0, 1.0, N_DOLLY)
-    z = np.linspace(-0.05, 0.05, N_DOLLY)
-    return [
-        lt.Camera.create(W, H, focal_px=focal, position=[
-            0.03 * np.cos(2 * np.pi * a), 0.02 * np.sin(2 * np.pi * a), b])
-        for a, b in zip(t, z)
-    ]
-
-
-def rot_x(deg):
-    t = np.deg2rad(deg)
-    c, s = np.cos(t), np.sin(t)
-    return np.array([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]])
-
-
-def rot_y(deg):
-    t = np.deg2rad(deg)
-    c, s = np.cos(t), np.sin(t)
-    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
 
 
 def sweep_drives(lt, focal):
@@ -760,11 +688,6 @@ def card_line() -> str:
     )
     check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
-
-
-def psnr(a, b) -> float:
-    mse = float(((a[..., :3] - b[..., :3]) ** 2).mean())
-    return 10.0 * np.log10(1.0 / max(mse, 1e-12))
 
 
 def run():
@@ -826,11 +749,7 @@ def run():
     def launch_counts():
         return counter()
 
-    rgb, disp = make_scene(0)
-    proj = lif_tpu_torch.projector_from_arrays(
-        rgb, disp, focal_px=0.78 * W, invz_min=INVZ_NEAR, invz_max=INVZ_FAR,
-        baseline=BASELINE, device=dev,
-    )
+    proj = scene_projector(lif_tpu_torch, 0, device=dev)
     focal = float(proj.focal[0])
 
     def cam(x):
@@ -956,8 +875,8 @@ def run():
     scaled = scaled_phases(proj, focal, lay, reset_counts, card)
     billboard = billboard_phases(proj, focal, lay, cams, reset_counts,
                                  launch_counts, card)
-    # main paths 8, 9 and 10 held each launch to the plain versions: their
-    # worst errors join each kernel's record
+    # main paths 8, 9, 10, 14 and 15 held each launch to the plain versions:
+    # their worst errors join each kernel's record
     errs, views = lif_phase(reset_counts, launch_counts, card)
     errs9 = stereo_phase(reset_counts, launch_counts, card, views[1])
     errs10 = fusion_phase(reset_counts, launch_counts, card)
@@ -966,11 +885,12 @@ def run():
     shard_phase(proj, focal, reset_counts, launch_counts, card)
     errs14, lateral["uniform_grid"] = plane_mode_phase(
         proj, focal, lay, reset_counts, launch_counts, card)
+    errs15 = bench_phase(reset_counts, launch_counts, card)
     kernels = [lateral, target, scaled, billboard]
     for rec in kernels:
         rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 *(e.get(rec["name"], 0.0)
-                                   for e in (errs, errs9, errs10, errs14)))
+                                 *(e.get(rec["name"], 0.0) for e in (
+                                     errs, errs9, errs10, errs14, errs15)))
         rec["launches_by_path"] = {
             path: counts[rec["name"]]
             for path, counts in LAUNCHES_BY_PATH.items()
@@ -1148,7 +1068,7 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
     izmin, izmax, f1 = lay["izmin_host"], lay["izmax_host"], lay["focal_host"]
     disp = lay["disp"]
     refine = lt.DEFAULT_CONFIG.rotated_refine  # both tiers' production value
-    cams = dolly_cams(lt, focal)
+    cams = dolly_cams(lt, focal, N_DOLLY)
     thetas = np.deg2rad(np.linspace(-TILT_DEG, TILT_DEG, N_TILT))
     tcams = orbit_cams(lt, focal, thetas=list(thetas),
                        phis=[np.deg2rad(TILT_PHI)] * N_TILT)
@@ -1488,18 +1408,23 @@ def billboard_phases(proj, focal, lay, cams, reset_counts, launch_counts,
 
 
 # the hand-written kernel each tier launches once per layer and pose chunk
-# ('rotated': the scaled kernel in its phase A)
+# ('rotated': the scaled kernel in its phase A; 'billboard':
+# render_billboard_fast_batch's one launch a call)
 TIER_KERNEL = {"march": "lateral_march", "target": "target_march",
-               "scaled": "scaled_march", "rotated": "scaled_march"}
+               "scaled": "scaled_march", "rotated": "scaled_march",
+               "billboard": "billboard_march"}
 
 
 @contextlib.contextmanager
 def recorded_calls():
-    """Record every call of the march kernels' entry points made inside
+    """Record every call of the kernels' entry points made inside
     (ops/cuda/*.py's march_translation_cuda, march_target_cuda and
     march_scaled_cuda, which the renderer's dispatchers look up when they
-    run) as (kernel, the call's bound arguments, a copy of its outputs).
-    The calls run and launch as they would; hold_to_plain replays them."""
+    run, and the billboard kernel's sweep_billboard as
+    ops/splat_march.py's billboard_march_batch looks it up) as (kernel,
+    the call's bound arguments, a copy of its outputs). The calls run and
+    launch as they would; hold_to_plain replays them."""
+    from lif_tpu_torch.ops import splat_march as sbb
     from lif_tpu_torch.ops.cuda import sweep_march as kmarch
     from lif_tpu_torch.ops.cuda import sweep_scaled as kscaled
     from lif_tpu_torch.ops.cuda import sweep_target as ktarget
@@ -1507,7 +1432,8 @@ def recorded_calls():
     calls = []
     entries = ((kmarch, "march_translation_cuda", "lateral_march"),
                (ktarget, "march_target_cuda", "target_march"),
-               (kscaled, "march_scaled_cuda", "scaled_march"))
+               (kscaled, "march_scaled_cuda", "scaled_march"),
+               (sbb, "sweep_billboard", "billboard_march"))
     saved = [getattr(mod, attr) for mod, attr, _ in entries]
 
     def recorder(fn, kernel):
@@ -1536,10 +1462,12 @@ def hold_to_plain(calls, step, poses=None):
     """Each kernel call a main-path step made (recorded_calls), pose by
     pose on that call's own inputs, against the kernel's plain version
     (every pose, or `poses` of them spread evenly over each call) and the
-    plain mirror of its skip walk (the first N_MIRROR poses): no found
-    flip and max abs 0 against both. Returns {kernel: max abs}."""
+    plain mirror of its skip walk (the billboard kernel: its ladder dual)
+    (the first N_MIRROR poses): no found flip and max abs 0 against both.
+    Returns {kernel: max abs}."""
     import torch
 
+    from lif_tpu_torch.ops import splat_march as sbb
     from lif_tpu_torch.ops import sweep_march as smarch
     from lif_tpu_torch.ops import sweep_scaled as sscaled
     from lif_tpu_torch.ops import sweep_target as starget
@@ -1547,8 +1475,16 @@ def hold_to_plain(calls, step, poses=None):
     torch.cuda.synchronize()
     errs = {}
     for kernel, a, out in calls:
-        kw = dict(refine=a["refine"])
-        if kernel == "lateral_march":
+        kw = dict(refine=a.get("refine"))
+        if kernel == "billboard_march":
+            plains = (sbb.billboard_scatter_plain, sbb.billboard_march_plain)
+            geo = [a[k] for k in ("pad_lo_x", "cx0", "cy0", "inv_f",
+                                  "half_ps")]
+
+            def ref(plain, i):
+                return plain(a["disp"], a["rgbm"], a["ixs"][i], a["mms"][i],
+                             a["abp"][i], *geo)
+        elif kernel == "lateral_march":
             plains = (smarch.march_translation_plain,
                       smarch.march_translation_skip_plain)
             c1 = np.asarray(a["c1"], np.float32)
@@ -1590,11 +1526,13 @@ def hold_to_plain(calls, step, poses=None):
                     float((got[i] - want).abs().max())
                     for got, want in zip(out[1:], r[1:])])
         h, w = out[0].shape[1:]
+        mirror = ("ladder dual" if kernel == "billboard_march" else
+                  "skip mirror")
         print(f"{step}: {kernel} ({n} poses, {w}x{h}, refine "
-              f"{a['refine']}, colour {len(out) > 2}) on the launch's own "
+              f"{kw['refine']}, colour {len(out) > 2}) on the launch's own "
               f"inputs, {len(held)} poses: vs plain found "
               f"mismatches {worst[0][0]}, max abs {worst[0][1]:.3g}; vs its "
-              f"skip mirror ({min(N_MIRROR, out[0].shape[0])} poses) found "
+              f"{mirror} ({min(N_MIRROR, out[0].shape[0])} poses) found "
               f"mismatches {worst[1][0]}, max abs {worst[1][1]:.3g}",
               flush=True)
         check(worst == [[0, 0.0], [0, 0.0]],
@@ -1628,6 +1566,7 @@ class MainPath:
         self.reset_counts = reset_counts
         self.launch_counts = launch_counts
         self.errs = {}
+        self.steps = {}
 
     def counted(self, fn, *args, **kwargs):
         """fn's result, the kernel launches it made and the recorded
@@ -1653,6 +1592,22 @@ class MainPath:
         for kernel, err in hold_to_plain(calls, f"{self.name}: {step}",
                                          poses).items():
             self.errs[kernel] = max(self.errs.get(kernel, 0.0), err)
+
+    @contextlib.contextmanager
+    def step(self, name, poses=None):
+        """A step that runs inside (a runner's code, which calls it): the
+        counts zeroed just before it and read just after (kept in
+        self.steps[name]), its kernel calls held as held() holds them."""
+        import torch
+
+        self.reset_counts()
+        with recorded_calls() as calls:
+            yield
+        torch.cuda.synchronize()
+        counts = self.launch_counts()
+        record_path(self.name, counts)
+        self.steps[name] = counts
+        self.held(calls, name, poses)
 
 
 def lif_phase(reset_counts, launch_counts, card):
@@ -2426,7 +2381,7 @@ def trajectory_drives(lt, focal):
     orbit = orbit_cams(lt, focal, thetas=list(
         np.deg2rad(np.linspace(-ORBIT_DEG, ORBIT_DEG, N_ORBIT))))
     return {"lateral": (lateral, {"method": "march"}), "orbit": (orbit, {}),
-            "dolly": (dolly_cams(lt, focal), {})}
+            "dolly": (dolly_cams(lt, focal, N_DOLLY), {})}
 
 
 def shard_fast(proj, cams, kw, mesh, counts):
@@ -2613,26 +2568,87 @@ def plane_mode_phase(proj, focal, lay, reset_counts, launch_counts, card):
     return path14.errs, record
 
 
-def launch_counter():
-    """counts(reset=False): zero every kernel's launch count (reset) or
-    read them."""
-    from lif_tpu_torch.ops.cuda import splat_march as kbb
-    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
-    from lif_tpu_torch.ops.cuda import sweep_scaled as kscaled
-    from lif_tpu_torch.ops.cuda import sweep_target as ktarget
+def bench_phase(reset_counts, launch_counts, card):
+    """Phase 25, main path 15: the benches at the smoke preset on the card
+    (see the module note). Each runner's counted steps (the headline,
+    each composite family, each config section's first call) run inside
+    path15.step: the launch counts zeroed just before and read just after
+    each, checked against one launch per routed tier, layer and pose
+    chunk, and every kernel call held on BENCH_HELD poses to its plain
+    versions. Returns {kernel: worst error} of those holds."""
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.bench import common, configs, throughput
+    from lif_tpu_torch.models import renderer
 
-    wrappers = {"lateral_march": kmarch.sweep_lateral,
-                "target_march": ktarget.sweep_target,
-                "scaled_march": kscaled.sweep_scaled,
-                "billboard_march": kbb.sweep_billboard}
+    t_phase = time.perf_counter()
+    sizes = common.SMOKE
+    path15 = MainPath("main path 15", reset_counts, launch_counts)
 
-    def counts(reset=False):
-        if reset:
-            for fn in wrappers.values():
-                fn.launches = 0
-        return {name: fn.launches for name, fn in wrappers.items()}
+    def observe(step):
+        return path15.step(step, poses=BENCH_HELD)
 
-    return counts
+    lines, misses = throughput.run(sizes, "cuda", 0, observe=observe)
+    out = configs.default_out(sizes)
+    results = configs.run(sizes, "cuda", 0, out, observe=observe)
+    comp, head = lines
+    print(f"main path 15: bench_torch at the smoke preset: {json.dumps(comp)}",
+          flush=True)
+    print(f"main path 15: bench_torch headline: {json.dumps(head)}",
+          flush=True)
+    check(not misses, f"bench_torch misses: {misses}")
+    check({"metric", "value", "unit", "device"} <= set(head)
+          and "vs_baseline" not in head, f"headline keys {sorted(head)}")
+    check(head["unit"] == "frames/s" and head["value"] > 0
+          and head["device"] == card, "the headline's value or device")
+    for name in configs.SECTIONS:
+        rec = results.get(name, {"error": "not run"})
+        print(f"main path 15: {name}: {json.dumps(rec)}", flush=True)
+    bad = configs.failures(results)
+    check(not bad, f"bench_configs_torch failures: {bad}")
+    check(set(configs.SECTIONS) <= set(results), "a section is missing")
+    scaling = results["scaling"]
+    check(list(scaling["tile_parity"]) == [str(n) for n in sizes.scaling_ranks]
+          and all(scaling["tile_parity"].values()),
+          f"tile parity {scaling['tile_parity']}")
+    check(results["_provenance"]["card"] == card, "the record's card")
+
+    # each step's launches: one per routed tier, layer and pose chunk
+    def chunks(n):
+        return len(renderer._pose_chunks(n, lt.DEFAULT_CONFIG.pose_chunk))
+
+    def tiers(section):
+        return results[section]["tiers"]
+
+    want = {
+        "headline": ("march",) * chunks(sizes.batch),
+        **{f"composite {name}": fam["tiers"] * chunks(sizes.third)
+           for name, fam in comp["families"].items()},
+        "config0": tiers("config0") * chunks(sizes.batch),
+        "config0b_mesh": (), "config0b_billboard": (),
+        "config0b_billboard_kernel": ("billboard",),
+        "config1_orbit": tiers("config1_orbit") * chunks(sizes.orbit_frames),
+        "config1b_orbit_step2_refine1": (
+            tiers("config1b_orbit_step2_refine1")
+            * chunks(sizes.orbit_frames)),
+        "config2_stereo": (sum(tiers("config2_stereo"), ())
+                           * chunks(2 * sizes.n_pairs)),
+        "config3_ldi": tiers("config3_ldi") * chunks(sizes.n_ldi),
+        "config4_fusion": ("march",) * results["config4_fusion"][
+            "projectors"],
+    }
+    for step, routes in want.items():
+        got = path15.steps.get(step)
+        print(f"main path 15: {step}: launches {got}, expected "
+              f"{path15.expect(routes)} ({routes})", flush=True)
+        check(got == path15.expect(routes), f"{step}: launches {got}")
+    check(set(path15.steps) == set(want),
+          f"steps {sorted(path15.steps)}, expected {sorted(want)}")
+    print(f"main path 15: launches {LAUNCHES_BY_PATH['main path 15']}; "
+          f"record {out}; phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    check(set(path15.errs) == set(TIER_KERNEL.values()),
+          f"a kernel of main path 15 was not held: {sorted(path15.errs)}")
+    return path15.errs
 
 
 def shard_rank(refs):
@@ -2659,10 +2675,7 @@ def shard_rank(refs):
     n = dist.get_world_size()
     dev = torch.device("cuda", torch.cuda.current_device())
     counts = launch_counter()
-    rgb, disp = make_scene(0)
-    proj = lt.projector_from_arrays(
-        rgb, disp, focal_px=0.78 * W, invz_min=INVZ_NEAR, invz_max=INVZ_FAR,
-        baseline=BASELINE, device=dev)
+    proj = scene_projector(lt, 0, device=dev)
     focal = float(proj.focal[0])
     frames_mesh = sharding.make_mesh(("frame",), device_type="cuda")
     drives = trajectory_drives(lt, focal)
