@@ -74,6 +74,7 @@ from ..ops import sweep_target as _sweep_target
 from ..ops.cuda.sweep_march import prepare_translation_src
 from ..ops.cuda.sweep_target import skip_table_buffer
 from ..ops.sampling import read_disp
+from ..utils import profiling
 from .projector import Projector
 
 __all__ = ["BillboardPlan", "RenderMode", "TierFallbackWarning", "TierPlan",
@@ -138,7 +139,7 @@ class TierFallbackWarning(UserWarning):
     """A layer left the march-tier cascade for the ~35 dB plane sweep."""
 
 
-def _warn_sweep_fallback(idx, err):
+def _warn_sweep_fallback(idx, err, stacklevel=3):
     """Surface a quality demotion (lif_tpu's warning, word for word): the
     march-tier planner rejected this layer (mismatched focal,
     window/candidate budget, pose family), so it renders through the
@@ -148,8 +149,31 @@ def _warn_sweep_fallback(idx, err):
         f"approximate plane-sweep tier (expect ~35 dB, not march-exact): "
         f"{err}",
         TierFallbackWarning,
-        stacklevel=3,
+        stacklevel=stacklevel,
     )
+
+
+# the counters of each LRU cache (_lru_get): cache.<name>.hit / .miss
+_LRU_COUNTERS = {
+    name: (f"cache.{name}.hit", f"cache.{name}.miss")
+    for name in ("texture", "table", "plane_table", "target_plan",
+                 "target_neighborhood", "target_ok", "transposed",
+                 "march_pack")
+}
+
+
+def _lru_get(cache: OrderedDict, key, name: str, valid=None):
+    """The entry of `cache` under `key`, moved to the LRU end, or None
+    where there is none or `valid(entry)` is false; counted as a hit or a
+    miss of cache.<name> (utils.profiling.count)."""
+    entry = cache.get(key)
+    hit, miss = _LRU_COUNTERS[name]
+    if entry is None or (valid is not None and not valid(entry)):
+        profiling.count(miss)
+        return None
+    cache.move_to_end(key)
+    profiling.count(hit)
+    return entry
 
 
 def _lru_put(cache: OrderedDict, limit: int, key, value):
@@ -206,35 +230,34 @@ def _prepared_textures(projector):
     scalars the planners read and the kernels' skip tables (_layer_skip).
     Returns a list of per-layer dicts."""
     key, refs = _texture_key(projector)
-    hit = _TEX_CACHE.get(key)
-    if hit is not None and all(a is b for a, b in zip(hit[0], refs)):
-        _TEX_CACHE.move_to_end(key)
+    hit = _lru_get(_TEX_CACHE, key, "texture",
+                   lambda e: all(a is b for a, b in zip(e[0], refs)))
+    if hit is not None:
         return hit[1]
 
-    baseline = float(projector.baseline)
-    layers = []
-    for i in range(projector.num_layers):
-        w_i = int(projector.layer_res[i, 0])
-        h_i = int(projector.layer_res[i, 1])
-        izmin = float(projector.invz_min[i]) / baseline
-        izmax = float(projector.invz_max[i]) / baseline
-        disp = projector.disp[i, :h_i, :w_i]
-        layers.append(
-            dict(
-                rgb=projector.rgb[i, :h_i, :w_i],
-                disp=disp,
-                mask=projector.mask[i, :h_i, :w_i],
-                focal_host=float(projector.focal[i]),
-                izmin_host=izmin,
-                izmax_host=izmax,
-                w=w_i,
-                h=h_i,
-                **_layer_skip(disp.to(torch.float32), izmin, izmax),
+    with profiling.span("lif.prep"):
+        baseline = float(projector.baseline)
+        layers = []
+        for i in range(projector.num_layers):
+            w_i = int(projector.layer_res[i, 0])
+            h_i = int(projector.layer_res[i, 1])
+            izmin = float(projector.invz_min[i]) / baseline
+            izmax = float(projector.invz_max[i]) / baseline
+            disp = projector.disp[i, :h_i, :w_i]
+            layers.append(
+                dict(
+                    rgb=projector.rgb[i, :h_i, :w_i],
+                    disp=disp,
+                    mask=projector.mask[i, :h_i, :w_i],
+                    focal_host=float(projector.focal[i]),
+                    izmin_host=izmin,
+                    izmax_host=izmax,
+                    w=w_i,
+                    h=h_i,
+                    **_layer_skip(disp.to(torch.float32), izmin, izmax),
+                )
             )
-        )
-    while len(_TEX_CACHE) >= _TEX_CACHE_MAX:
-        _TEX_CACHE.popitem(last=False)
-    _TEX_CACHE[key] = (refs, layers)
+        _lru_put(_TEX_CACHE, _TEX_CACHE_MAX, key, (refs, layers))
     return layers
 
 
@@ -247,9 +270,8 @@ def _snap_tables(lay, cxs, explicit_planes, phase_px, stride, device):
         np.asarray(cxs, np.float64).tobytes(), explicit_planes,
         float(phase_px), int(stride), str(device),
     )
-    hit = _TABLE_CACHE.get(key)
+    hit = _lru_get(_TABLE_CACHE, key, "table")
     if hit is not None:
-        _TABLE_CACHE.move_to_end(key)
         return hit
     tab, k = _sweep_march.snap_plane_tables_batch(
         lay["focal_host"], [float(c) for c in cxs],
@@ -257,9 +279,8 @@ def _snap_tables(lay, cxs, explicit_planes, phase_px, stride, device):
         num_planes=explicit_planes, phase_px=phase_px, stride=stride,
     )
     entry = (torch.as_tensor(tab, device=device), k)
-    while len(_TABLE_CACHE) >= _TABLE_CACHE_MAX:
-        _TABLE_CACHE.popitem(last=False)
-    _TABLE_CACHE[key] = entry
+    profiling.host_sync("sync.upload.plane_table", entry[0].device)
+    _lru_put(_TABLE_CACHE, _TABLE_CACHE_MAX, key, entry)
     return entry
 
 
@@ -305,6 +326,7 @@ def _disp_host(lay) -> np.ndarray:
     if "disp_host" not in lay:
         lay["disp_host"] = lay["disp"].detach().to(
             "cpu", torch.float32).numpy()
+        profiling.host_sync("sync.readback.disp", lay["disp"].device)
     return lay["disp_host"]
 
 
@@ -325,9 +347,9 @@ def _sweep_tables(projector, tex_layers, num_planes, mode="hybrid"):
         np.asarray(projector.layer_res).tobytes(),
         float(projector.baseline), num_planes, mode, str(projector.device),
     )
-    hit = _PLANE_TABLE_CACHE.get(key)
-    if hit is not None and hit[0] is projector.disp:
-        _PLANE_TABLE_CACHE.move_to_end(key)
+    hit = _lru_get(_PLANE_TABLE_CACHE, key, "plane_table",
+                   lambda e: e[0] is projector.disp)
+    if hit is not None:
         return hit[1]
     tabs = [
         torch.as_tensor(_plane_table(
@@ -336,6 +358,8 @@ def _sweep_tables(projector, tex_layers, num_planes, mode="hybrid"):
         ), device=projector.device)
         for lay in tex_layers
     ]
+    profiling.host_sync("sync.upload.plane_table", projector.device,
+                        len(tabs))
     _lru_put(_PLANE_TABLE_CACHE, _PLANE_TABLE_CACHE_MAX, key,
              (projector.disp, tabs))
     return tabs
@@ -457,9 +481,8 @@ def _march_pack(lay, plan, crop_y):
     mask = lay["mask"]
     key = (id(mask), float(np.float32(lay["doff"][1])), crop_y, plan)
     cache = lay["march_packs"]
-    entry = cache.get(key)
+    entry = _lru_get(cache, key, "march_pack")
     if entry is not None:
-        cache.move_to_end(key)
         return entry[1]
     srcs = _march_sources(lay, plan, crop_y)
     pack = (srcs, prepare_translation_src(*srcs, plan),
@@ -486,13 +509,14 @@ def _attach_march_prep(layers, modes, plans, crops):
     source, pack and row tables the kernel reads. CUDA path only (the CPU
     twin reads the textures)."""
     out = []
-    for lay, mode, plan, crop_y in zip(layers, modes, plans, crops):
-        if mode != "march" or lay["disp"].device.type != "cuda":
-            out.append(lay)
-            continue
-        srcs, prep, rows = _march_pack(lay, plan, crop_y)
-        out.append(dict(lay, march_src=srcs, march_prep=prep,
-                        march_rows=rows))
+    with profiling.span("lif.prep"):
+        for lay, mode, plan, crop_y in zip(layers, modes, plans, crops):
+            if mode != "march" or lay["disp"].device.type != "cuda":
+                out.append(lay)
+                continue
+            srcs, prep, rows = _march_pack(lay, plan, crop_y)
+            out.append(dict(lay, march_src=srcs, march_prep=prep,
+                            march_rows=rows))
     return out
 
 
@@ -537,13 +561,12 @@ def _plan_target_entry(lay, f2_host, out_w, out_h, rot_list, pos_list, cfg,
         bext = _sweep_target.bucket_extents(ext)
         nkey = src + (lay["focal_host"], f2_host, lay["izmin_host"],
                       lay["izmax_host"], bext.key())
-        tplan = _TARGET_NEIGHBORHOOD_CACHE.get(nkey)
+        tplan = _lru_get(_TARGET_NEIGHBORHOOD_CACHE, nkey,
+                         "target_neighborhood")
         if tplan is None:
             tplan = _sweep_target.plan_from_extents(*src, bext)[0]
             _lru_put(_TARGET_NEIGHBORHOOD_CACHE,
                      _TARGET_NEIGHBORHOOD_CACHE_MAX, nkey, tplan)
-        else:
-            _TARGET_NEIGHBORHOOD_CACHE.move_to_end(nkey)
         grids, k_t = _sweep_target.target_plane_grids(
             rot_list, pos_list, lay["focal_host"], f2_host, out_w, out_h,
             lay["w"], lay["h"], lay["izmin_host"], lay["izmax_host"],
@@ -558,14 +581,13 @@ def _plan_target_entry(lay, f2_host, out_w, out_h, rot_list, pos_list, cfg,
         ])
     except ValueError:
         return None
-    return (
-        "target",
-        (tplan, k_t),
-        {
-            "pose_sc": torch.as_tensor(poses, device=device),
-            "grids": torch.as_tensor(grids, device=device),
-        },
-    )
+    extras = {
+        "pose_sc": torch.as_tensor(poses, device=device),
+        "grids": torch.as_tensor(grids, device=device),
+    }
+    profiling.host_sync("sync.upload.poses", extras["pose_sc"].device)
+    profiling.host_sync("sync.upload.grids", extras["grids"].device)
+    return "target", (tplan, k_t), extras
 
 
 def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b,
@@ -609,10 +631,12 @@ def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b,
             lay["izmax_host"], step_px=cfg.rotated_step_px,
             num_planes=explicit_planes,
         )
+        grids_t = torch.as_tensor(grids, device=device)
+        profiling.host_sync("sync.upload.grids", grids_t.device)
         return (
             "scaled",
             (plan, k_l, fr, dx_user + float(d[0]), float(d[1])),
-            {"grids": torch.as_tensor(grids, device=device)},
+            {"grids": grids_t},
         )
     if dx_user == 0.0 and not skewed:
         key = (
@@ -622,15 +646,13 @@ def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b,
             np.asarray(rot_list, np.float64).tobytes(),
             np.asarray(pos_list, np.float64).tobytes(), str(device),
         )
-        entry = _TARGET_PLAN_CACHE.get(key)
+        entry = _lru_get(_TARGET_PLAN_CACHE, key, "target_plan")
         if entry is None:
             entry = _plan_target_entry(
                 lay, f2_host, out_w_true, out_h, rot_list, pos_list, cfg,
                 explicit_planes, device,
             ) or "ineligible"
             _lru_put(_TARGET_PLAN_CACHE, _TARGET_PLAN_CACHE_MAX, key, entry)
-        else:
-            _TARGET_PLAN_CACHE.move_to_end(key)
         if entry != "ineligible":
             return entry
     sk1_t = (float(sk1[0]), float(sk1[1]))
@@ -642,15 +664,14 @@ def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b,
         sk1=sk1_t, sk2=sk2_t,
     )
     grids = np.zeros((len(pos_list), 1), np.float32) if skip else grids
-    return (
-        "rotated",
-        (plan, wi, hi, max(k_l, 1), skip, sk1_t, sk2_t),
-        {
-            "aligned": torch.as_tensor(aligned, dtype=torch.float32,
-                                       device=device),
-            "grids": torch.as_tensor(grids, device=device),
-        },
-    )
+    extras = {
+        "aligned": torch.as_tensor(aligned, dtype=torch.float32,
+                                   device=device),
+        "grids": torch.as_tensor(grids, device=device),
+    }
+    profiling.host_sync("sync.upload.poses", extras["aligned"].device)
+    profiling.host_sync("sync.upload.grids", extras["grids"].device)
+    return "rotated", (plan, wi, hi, max(k_l, 1), skip, sk1_t, sk2_t), extras
 
 
 def _conj_swap_xy(rot) -> np.ndarray:
@@ -688,7 +709,7 @@ def _transposed_target_ok(tex_layers, f2_host, cam0, rot_list, pos_list):
         bext = _sweep_target.bucket_extents(ext)
         key = dims + (lay["focal_host"], f2_host, lay["izmin_host"],
                       lay["izmax_host"], bext.key())
-        ok = _TARGET_OK_CACHE.get(key)
+        ok = _lru_get(_TARGET_OK_CACHE, key, "target_ok")
         if ok is None:
             try:
                 _sweep_target.plan_from_extents(*dims, bext)
@@ -696,8 +717,6 @@ def _transposed_target_ok(tex_layers, f2_host, cam0, rot_list, pos_list):
             except ValueError:
                 ok = False
             _lru_put(_TARGET_OK_CACHE, _TARGET_OK_CACHE_MAX, key, ok)
-        else:
-            _TARGET_OK_CACHE.move_to_end(key)
         if not ok:
             return False
     return True
@@ -719,22 +738,23 @@ def _transposed_projector(projector: Projector) -> Projector:
         np.asarray(projector.invz_max).tobytes(),
         float(projector.baseline),
     )
-    hit = _TRANSPOSED_CACHE.get(key)
-    if hit is not None and all(a is b for a, b in zip(hit[0], refs)):
-        _TRANSPOSED_CACHE.move_to_end(key)
+    hit = _lru_get(_TRANSPOSED_CACHE, key, "transposed",
+                   lambda e: all(a is b for a, b in zip(e[0], refs)))
+    if hit is not None:
         return hit[1]
-    t = dataclasses.replace(
-        projector,
-        rgb=projector.rgb.transpose(1, 2).contiguous(),
-        disp=projector.disp.transpose(1, 2).contiguous(),
-        mask=projector.mask.transpose(1, 2).contiguous(),
-        layer_res=projector.layer_res[:, ::-1].copy(),
-        skew=projector.skew[::-1].copy(),
-        position=projector.position[list(_SWAP_XY)],
-        rotation=_conj_swap_xy(projector.rotation),
-        width=projector.height,
-        height=projector.width,
-    )
+    with profiling.span("lif.prep"):
+        t = dataclasses.replace(
+            projector,
+            rgb=projector.rgb.transpose(1, 2).contiguous(),
+            disp=projector.disp.transpose(1, 2).contiguous(),
+            mask=projector.mask.transpose(1, 2).contiguous(),
+            layer_res=projector.layer_res[:, ::-1].copy(),
+            skew=projector.skew[::-1].copy(),
+            position=projector.position[list(_SWAP_XY)],
+            rotation=_conj_swap_xy(projector.rotation),
+            width=projector.height,
+            height=projector.width,
+        )
     _lru_put(_TRANSPOSED_CACHE, _TRANSPOSED_CACHE_MAX, key, (refs, t))
     return t
 
@@ -782,8 +802,9 @@ def _layer_tier_batch(
     plan routes to it)."""
     zero_bg = np.zeros(4, np.float32)
     if mode == "sweep":
-        return _sweep_batch(lay, setup, c1_b, rot_b, f2, out_w, out_h,
-                            feathering=feathering, mask_mode=mask_mode)
+        with profiling.span("lif.sweep"):
+            return _sweep_batch(lay, setup, c1_b, rot_b, f2, out_w, out_h,
+                                feathering=feathering, mask_mode=mask_mode)
     if mode == "scaled":
         splan, k_s, fr, dxu, dyu = setup
         return _sweep_scaled.render_scaled_fetch_batch(
@@ -860,6 +881,7 @@ def _sweep_batch(lay, setup, c1_b, rot_b, f2, out_w, out_h, *, feathering,
     return torch.stack(frames)
 
 
+@profiling.entry
 def render_fast_batch(
     projector: Projector,
     cameras: Sequence[Camera],
@@ -931,20 +953,22 @@ def render_fast_batch(
     to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
     chunk = cfg.sweep_chunk if chunk is None else chunk
     refine = cfg.march_refine if refine is None else refine
-    tp = plan_tiers(projector, cameras, cfg, num_planes, method=method)
-    cam0 = cameras[0]
-    pos_b, rot_b, planned = tp.pos_b, tp.rot_b, tp.planned
-    out_w_eff, dx_pad = tp.out_w_eff, tp.dx_pad
-    mask_mode = _default_mask_mode(projector, mask_mode)
-    modes = [p[0] for p in planned]
-    if (
-        _transpose
-        and tp.rotated
-        and method != "sweep"
-        and any(m in ("rotated", "sweep") for m in modes)
-        and _transposed_target_ok(tp.tex_layers, tp.f2_host, cam0,
-                                  tp.rot_list, tp.pos_list)
-    ):
+    with profiling.span("lif.plan"):
+        tp = plan_tiers(projector, cameras, cfg, num_planes, method=method)
+        cam0 = cameras[0]
+        pos_b, rot_b, planned = tp.pos_b, tp.rot_b, tp.planned
+        out_w_eff, dx_pad = tp.out_w_eff, tp.dx_pad
+        mask_mode = _default_mask_mode(projector, mask_mode)
+        modes = [p[0] for p in planned]
+        transpose = (
+            _transpose
+            and tp.rotated
+            and method != "sweep"
+            and any(m in ("rotated", "sweep") for m in modes)
+            and _transposed_target_ok(tp.tex_layers, tp.f2_host, cam0,
+                                      tp.rot_list, tp.pos_list)
+        )
+    if transpose:
         return _render_transposed(
             projector, cameras, return_tiers, background=background,
             feathering=feathering, to_srgb=to_srgb, num_planes=num_planes,
@@ -968,25 +992,26 @@ def render_fast_batch(
     max_cx = float(np.abs(pos_b[:, 0]).max())
     k_sweep = num_planes or cfg.sweep_planes
     layers, setups, plans, crops, nums = [], [], [], [], []
-    for idx, (lay, (mode, setup, extra)) in enumerate(
-            zip(tp.tex_layers, planned)):
-        plan, crop_y, k_l = None, 0, None
-        if mode == "march":
-            plan, crop_y, phase, doff = _march_fold(
-                lay, projector.skew, cam0.skew, max_cx, out_w_eff,
-                cam0.height, dx_pad)
-            tab, k_l = _march_tables(projector, idx, cfg, num_planes,
-                                     pos_b[:, 0], phase)
-            extra = {"plane_invz": tab, "doff": doff}
-        elif mode == "sweep":
-            setup = (k_sweep, chunk, exact_color, tp.rotated)
-            extra = {"sweep_invz": _sweep_tables(
-                projector, tp.tex_layers, k_sweep)[idx]}
-        layers.append(dict(lay, **extra))
-        setups.append(setup)
-        plans.append(plan)
-        crops.append(crop_y)
-        nums.append(k_l)
+    with profiling.span("lif.plan"):
+        for idx, (lay, (mode, setup, extra)) in enumerate(
+                zip(tp.tex_layers, planned)):
+            plan, crop_y, k_l = None, 0, None
+            if mode == "march":
+                plan, crop_y, phase, doff = _march_fold(
+                    lay, projector.skew, cam0.skew, max_cx, out_w_eff,
+                    cam0.height, dx_pad)
+                tab, k_l = _march_tables(projector, idx, cfg, num_planes,
+                                         pos_b[:, 0], phase)
+                extra = {"plane_invz": tab, "doff": doff}
+            elif mode == "sweep":
+                setup = (k_sweep, chunk, exact_color, tp.rotated)
+                extra = {"sweep_invz": _sweep_tables(
+                    projector, tp.tex_layers, k_sweep)[idx]}
+            layers.append(dict(lay, **extra))
+            setups.append(setup)
+            plans.append(plan)
+            crops.append(crop_y)
+            nums.append(k_l)
     if _poses is not None:
         layers = [_chunk_layer(lay, _poses) for lay in layers]
         pos_b, rot_b = pos_b[_poses], rot_b[_poses]
@@ -1160,24 +1185,27 @@ def _fast_batch_core(
     outs = []
     for sl in _pose_chunks(len(c1_b), pose_chunk):
         # front-to-back LDI over-compositing of the chunk's layers
-        result_rgb = result_a = None
-        for lay, mode, setup, plan, k_l, crop_y in zip(
-            layers, modes, setups, plans, nums, crops
-        ):
-            layer = _layer_tier_batch(
-                _chunk_layer(lay, sl), mode, setup, plan, k_l, crop_y,
-                c1_b[sl], rot_b[sl], f2, out_w_true, out_h, **tier_kw,
-            )  # (B, H, W, 4), premultiplied
-            la = layer[..., 3]
-            if result_rgb is None:
-                result_rgb, result_a = layer[..., :3], la
-            else:
-                result_rgb = (result_rgb
-                              + (1.0 - result_a[..., None]) * layer[..., :3])
-                result_a = result_a + (1.0 - result_a) * la
-        outs.append(_composite.finish_over_background(
-            result_rgb, result_a, background, to_srgb
-        ))
+        with profiling.span("lif.chunk"):
+            result_rgb = result_a = None
+            for lay, mode, setup, plan, k_l, crop_y in zip(
+                layers, modes, setups, plans, nums, crops
+            ):
+                layer = _layer_tier_batch(
+                    _chunk_layer(lay, sl), mode, setup, plan, k_l, crop_y,
+                    c1_b[sl], rot_b[sl], f2, out_w_true, out_h, **tier_kw,
+                )  # (B, H, W, 4), premultiplied
+                with profiling.span("lif.composite"):
+                    la = layer[..., 3]
+                    if result_rgb is None:
+                        result_rgb, result_a = layer[..., :3], la
+                    else:
+                        result_rgb = (result_rgb + (1.0 - result_a[..., None])
+                                      * layer[..., :3])
+                        result_a = result_a + (1.0 - result_a) * la
+            with profiling.span("lif.composite"):
+                outs.append(_composite.finish_over_background(
+                    result_rgb, result_a, background, to_srgb
+                ))
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out[:, :, :out_w_true, :] if out.shape[2] != out_w_true else out
 
@@ -1276,6 +1304,7 @@ def render_stereo_view(
     )
 
 
+@profiling.entry
 def render_fast_view(
     projector: Projector,
     camera: Camera,
@@ -1329,36 +1358,38 @@ def render_fast_view(
     to_srgb = cfg.to_srgb if to_srgb is None else to_srgb
     chunk = cfg.sweep_chunk if chunk is None else chunk
     refine = cfg.march_refine if refine is None else refine
-    pos_np, rot_np = relative_view_pose(
-        projector.position, projector.rotation, camera.position,
-        camera.rotation,
-    )
-    rotated = not np.allclose(rot_np, np.eye(3), atol=1e-5)
-    tex_layers = _prepared_textures(projector)
-    f2_host = float(camera.focal_px)
-    kw = dict(background=background, feathering=feathering, to_srgb=to_srgb,
-              num_planes=num_planes, chunk=chunk, exact_color=exact_color,
-              method=method, mask_mode=mask_mode, refine=refine,
-              config=config)
-
-    # y-only translation: a transpose maps it onto the x-only march. Both
-    # world rotations must be identity so the transposed world poses give
-    # the swapped relative pose; every layer must be march-eligible
-    if (
-        method != "sweep"
-        and not rotated
-        and abs(pos_np[0]) < 1e-9
-        and abs(pos_np[2]) < 1e-9
-        and abs(pos_np[1]) > 1e-9
-        and np.allclose(projector.rotation, np.eye(3))
-        and np.allclose(camera.rotation, np.eye(3))
-        and all(
-            abs(lay["focal_host"] - f2_host) < 1e-6 * f2_host
-            and lay["w"] == camera.width
-            and lay["h"] == camera.height
-            for lay in tex_layers
+    with profiling.span("lif.plan"):
+        pos_np, rot_np = relative_view_pose(
+            projector.position, projector.rotation, camera.position,
+            camera.rotation,
         )
-    ):
+        rotated = not np.allclose(rot_np, np.eye(3), atol=1e-5)
+        tex_layers = _prepared_textures(projector)
+        f2_host = float(camera.focal_px)
+        kw = dict(background=background, feathering=feathering,
+                  to_srgb=to_srgb, num_planes=num_planes, chunk=chunk,
+                  exact_color=exact_color, method=method,
+                  mask_mode=mask_mode, refine=refine, config=config)
+
+        # y-only translation: a transpose maps it onto the x-only march. Both
+        # world rotations must be identity so the transposed world poses give
+        # the swapped relative pose; every layer must be march-eligible
+        transposed = (
+            method != "sweep"
+            and not rotated
+            and abs(pos_np[0]) < 1e-9
+            and abs(pos_np[2]) < 1e-9
+            and abs(pos_np[1]) > 1e-9
+            and np.allclose(projector.rotation, np.eye(3))
+            and np.allclose(camera.rotation, np.eye(3))
+            and all(
+                abs(lay["focal_host"] - f2_host) < 1e-6 * f2_host
+                and lay["w"] == camera.width
+                and lay["h"] == camera.height
+                for lay in tex_layers
+            )
+        )
+    if transposed:
         cam_t = Camera.create(
             camera.height, camera.width, focal_px=f2_host,
             position=np.asarray(camera.position)[[1, 0, 2]],
@@ -1371,89 +1402,94 @@ def render_fast_view(
     if method != "sweep" and nonlateral:
         return render_fast_batch(projector, [camera], **kw)[0]
 
-    marching = method != "sweep"  # and, from here on, a lateral pose
-    if marching:
-        _check_plane_mode(cfg)
-    mask_mode = _default_mask_mode(projector, mask_mode)
-    sk1 = np.asarray(projector.skew, np.float64)
-    sk2 = np.asarray(camera.skew, np.float64)
-    skewed = bool(np.abs(sk1 - sk2).sum() > 1e-12)
-    if skewed and not marching:
-        raise ValueError(
-            "skewed frustums are supported only on the lateral march "
-            "path (no rotation, x-only translation)"
-        )
-    # equal nonzero skews cancel only for unrotated views; the rotated
-    # sweep ignores skew
-    if rotated and (np.abs(sk1).sum() + np.abs(sk2).sum()) > 1e-12:
-        raise ValueError(
-            "render_fast_view does not support skew on rotated poses; "
-            "use render_mono_view (the exact march handles it)"
-        )
-
-    # non-8-divisible widths: march a wpad-wider band carrying a constant
-    # wpad/2 x-offset and slice the true width, only when every layer
-    # marches (a sweep layer renders around the true image centre)
-    wpad = _width_pad(camera.width)
-    out_w_eff, dx_pad = camera.width + wpad, wpad / 2.0
-
-    def eligible(lay, w_eff):
-        return marching and _march_eligible(lay, f2_host, w_eff,
-                                            camera.height,
-                                            out_w_true=camera.width)
-
-    if wpad and not all(eligible(lay, out_w_eff) for lay in tex_layers):
-        out_w_eff, dx_pad = camera.width, 0.0
-    modes = []
-    for idx, lay in enumerate(tex_layers):
-        m = eligible(lay, out_w_eff)
-        if not m and method == "auto":
-            _warn_sweep_fallback(
-                idx, "layer is not march-eligible at this camera "
-                "(mismatched focal/dims or non-8-divisible width)",
-            )
-        if method == "march" and not m:
+    with profiling.span("lif.plan"):
+        marching = method != "sweep"  # and, from here on, a lateral pose
+        if marching:
+            _check_plane_mode(cfg)
+        mask_mode = _default_mask_mode(projector, mask_mode)
+        sk1 = np.asarray(projector.skew, np.float64)
+        sk2 = np.asarray(camera.skew, np.float64)
+        skewed = bool(np.abs(sk1 - sk2).sum() > 1e-12)
+        if skewed and not marching:
             raise ValueError(
-                "method='march' needs a lateral view (no rotation/skew, "
-                "x-only translation, matched focal, output dims == layer "
-                "dims); use method='auto' to fall back automatically"
+                "skewed frustums are supported only on the lateral march "
+                "path (no rotation, x-only translation)"
             )
-        modes.append("march" if m else "sweep")
-    if skewed and "sweep" in modes:
-        raise ValueError(
-            "skewed frustums need every layer on the march path "
-            "(matched focal and dims)"
-        )
+        # equal nonzero skews cancel only for unrotated views; the rotated
+        # sweep ignores skew
+        if rotated and (np.abs(sk1).sum() + np.abs(sk2).sum()) > 1e-12:
+            raise ValueError(
+                "render_fast_view does not support skew on rotated poses; "
+                "use render_mono_view (the exact march handles it)"
+            )
 
-    k_sweep = num_planes or cfg.sweep_planes
-    layers, setups, plans, crops, nums = [], [], [], [], []
-    for idx, (lay, mode) in enumerate(zip(tex_layers, modes)):
-        if mode == "sweep":
-            layers.append(dict(lay, sweep_invz=_sweep_tables(
-                projector, tex_layers, k_sweep)[idx]))
-            setups.append((k_sweep, chunk, exact_color, rotated))
-            plans.append(None)
-            crops.append(0)
-            nums.append(None)
-            continue
-        # the skew fold, as in render_fast_batch, on this pose's own grid
-        plan, crop_y, phase, doff = _march_fold(
-            lay, projector.skew, camera.skew, abs(float(pos_np[0])),
-            out_w_eff, camera.height, dx_pad)
-        if cfg.plane_mode == "snap":
-            tab, k_l = _sweep_march.snap_plane_table(
-                lay["focal_host"], float(pos_np[0]), lay["izmin_host"],
-                lay["izmax_host"], num_planes=num_planes, phase_px=phase,
+        # non-8-divisible widths: march a wpad-wider band carrying a constant
+        # wpad/2 x-offset and slice the true width, only when every layer
+        # marches (a sweep layer renders around the true image centre)
+        wpad = _width_pad(camera.width)
+        out_w_eff, dx_pad = camera.width + wpad, wpad / 2.0
+
+        def eligible(lay, w_eff):
+            return marching and _march_eligible(lay, f2_host, w_eff,
+                                                camera.height,
+                                                out_w_true=camera.width)
+
+        if wpad and not all(eligible(lay, out_w_eff) for lay in tex_layers):
+            out_w_eff, dx_pad = camera.width, 0.0
+        modes = []
+        for idx, lay in enumerate(tex_layers):
+            m = eligible(lay, out_w_eff)
+            if not m and method == "auto":
+                # stacklevel 4: past profiling.entry's wrapper, at the
+                # caller of render_fast_view
+                _warn_sweep_fallback(
+                    idx, "layer is not march-eligible at this camera "
+                    "(mismatched focal/dims or non-8-divisible width)",
+                    stacklevel=4,
+                )
+            if method == "march" and not m:
+                raise ValueError(
+                    "method='march' needs a lateral view (no rotation/skew, "
+                    "x-only translation, matched focal, output dims == layer "
+                    "dims); use method='auto' to fall back automatically"
+                )
+            modes.append("march" if m else "sweep")
+        if skewed and "sweep" in modes:
+            raise ValueError(
+                "skewed frustums need every layer on the march path "
+                "(matched focal and dims)"
             )
-            tab = torch.as_tensor(tab[None], device=projector.device)
-        else:
-            tab, k_l = _march_tables(projector, idx, cfg, num_planes,
-                                     pos_np[:1], phase)
-        layers.append(dict(lay, doff=doff, plane_invz=tab))
-        setups.append(None)
-        plans.append(plan)
-        crops.append(crop_y)
-        nums.append(k_l)
+
+        k_sweep = num_planes or cfg.sweep_planes
+        layers, setups, plans, crops, nums = [], [], [], [], []
+        for idx, (lay, mode) in enumerate(zip(tex_layers, modes)):
+            if mode == "sweep":
+                layers.append(dict(lay, sweep_invz=_sweep_tables(
+                    projector, tex_layers, k_sweep)[idx]))
+                setups.append((k_sweep, chunk, exact_color, rotated))
+                plans.append(None)
+                crops.append(0)
+                nums.append(None)
+                continue
+            # the skew fold, as in render_fast_batch, on this pose's own grid
+            plan, crop_y, phase, doff = _march_fold(
+                lay, projector.skew, camera.skew, abs(float(pos_np[0])),
+                out_w_eff, camera.height, dx_pad)
+            if cfg.plane_mode == "snap":
+                tab, k_l = _sweep_march.snap_plane_table(
+                    lay["focal_host"], float(pos_np[0]), lay["izmin_host"],
+                    lay["izmax_host"], num_planes=num_planes, phase_px=phase,
+                )
+                tab = torch.as_tensor(tab[None], device=projector.device)
+                profiling.host_sync("sync.upload.plane_table", tab.device)
+            else:
+                tab, k_l = _march_tables(projector, idx, cfg, num_planes,
+                                         pos_np[:1], phase)
+            layers.append(dict(lay, doff=doff, plane_invz=tab))
+            setups.append(None)
+            plans.append(plan)
+            crops.append(crop_y)
+            nums.append(k_l)
     return _fast_batch_core(
         layers, modes, setups, pos_np[None], rot_np[None], background,
         plans=plans, nums=nums, crops=crops, refine=refine,
@@ -1588,6 +1624,7 @@ def _stereo_eye(projector, cameras, num_layers, mask_mode, cfg, num_planes):
     return eye
 
 
+@profiling.entry
 def render_stereo_fast_batch(
     left: Projector,
     right: Projector,
@@ -1650,12 +1687,17 @@ def render_stereo_fast_batch(
     # the dilated hard discard where LDI masks exist
     # (rayCastStereoLDI.glsl:304-305); taper only for a single layer
     mask_mode = "hard" if num_layers > 1 else "none"
-    eyes = [_stereo_eye(p, cameras, num_layers, mask_mode, cfg, num_planes)
-            for p in (left, right)]
-    # per-pose blend weight: the render camera at the origin of its frame
-    w_r = _stereo.view_weight(np.zeros(3), eyes[0].pos_b, eyes[1].pos_b)
+    with profiling.span("lif.plan"):
+        eyes = [_stereo_eye(p, cameras, num_layers, mask_mode, cfg,
+                            num_planes)
+                for p in (left, right)]
+        # per-pose blend weight: the render camera at the origin of its
+        # frame
+        w_r = _stereo.view_weight(np.zeros(3), eyes[0].pos_b,
+                                  eyes[1].pos_b).to(left.device)
+        profiling.host_sync("sync.upload.weights", w_r.device)
     out = _stereo_core(
-        eyes, w_r.to(left.device)[:, None, None, None], background,
+        eyes, w_r[:, None, None, None], background,
         refine=refine, rot_refine=cfg.rotated_refine,
         t_refine=cfg.target_refine, feathering=feathering,
         mask_mode=mask_mode, to_srgb=to_srgb, f2=float(cam0.focal_px),
@@ -1691,24 +1733,30 @@ def _stereo_core(eyes, w_r, background, *, refine, rot_refine, t_refine,
     )
     outs = []
     for sl in _pose_chunks(len(w_r), pose_chunk):
-        acc = None
-        for i in range(len(eyes[0].layers)):
-            views, confs = [], []
-            for eye in eyes:
-                lay = _chunk_layer(eye.layers[i], sl)
-                rgba, alpha, hit, invz = _layer_tier_batch(
-                    lay, eye.modes[i], eye.setups[i], eye.plans[i],
-                    eye.nums[i], eye.crops[i], eye.pos_b[sl], eye.rot_b[sl],
-                    f2, out_w, out_h, **tier_kw,
-                )
-                views.append(torch.cat([rgba[..., :3], alpha[..., None]],
-                                       dim=-1))
-                confs.append(_stretch_conf(lay, eye.pos_b[sl], eye.rot_b[sl],
-                                           hit, invz, f2, out_w, out_h))
-            acc = _composite.over(acc, _stereo.occlusion_blend(
-                *views, *confs, w_r[sl]))
-        outs.append(_composite.finish_over_background(*acc, background,
-                                                      to_srgb))
+        with profiling.span("lif.chunk"):
+            acc = None
+            for i in range(len(eyes[0].layers)):
+                views, confs = [], []
+                for eye in eyes:
+                    lay = _chunk_layer(eye.layers[i], sl)
+                    rgba, alpha, hit, invz = _layer_tier_batch(
+                        lay, eye.modes[i], eye.setups[i], eye.plans[i],
+                        eye.nums[i], eye.crops[i], eye.pos_b[sl],
+                        eye.rot_b[sl], f2, out_w, out_h, **tier_kw,
+                    )
+                    views.append(torch.cat([rgba[..., :3],
+                                            alpha[..., None]], dim=-1))
+                    with profiling.span("lif.stereo.conf"):
+                        confs.append(_stretch_conf(
+                            lay, eye.pos_b[sl], eye.rot_b[sl], hit, invz,
+                            f2, out_w, out_h))
+                with profiling.span("lif.stereo.blend"):
+                    blend = _stereo.occlusion_blend(*views, *confs, w_r[sl])
+                with profiling.span("lif.composite"):
+                    acc = _composite.over(acc, blend)
+            with profiling.span("lif.composite"):
+                outs.append(_composite.finish_over_background(
+                    *acc, background, to_srgb))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
@@ -1744,6 +1792,7 @@ def _stretch_conf(lay, c1_b, rot_b, hit, invz, f2, out_w, out_h):
     p = mm(fskr1, inv3(mat_from_focal(f2 / _F32(out_w), f2 / _F32(out_h))))
     c_vec = (fskr1 @ -torch.as_tensor(np.asarray(c1_b, np.float32))[..., None])
     p, c_vec = p.to(dev)[..., None, None], c_vec[..., 0].to(dev)[..., None, None]
+    profiling.host_sync("sync.upload.poses", dev, 2)
     den = p[:, 2, 0] * s2x + p[:, 2, 1] * s2y + p[:, 2, 2]
     qx = (p[:, 0, 0] * s2x + p[:, 0, 1] * s2y + p[:, 0, 2]) / den
     qy = (p[:, 1, 0] * s2x + p[:, 1, 1] * s2y + p[:, 1, 2]) / den
@@ -1784,6 +1833,7 @@ class _FusedView(NamedTuple):
     nums: list
 
 
+@profiling.entry
 def render_fused_fast_batch(
     projectors: Sequence[Projector],
     cameras: Sequence[Camera],
@@ -1842,47 +1892,59 @@ def render_fused_fast_batch(
                 "width/height/focal/skew"
             )
     views = []
-    for proj in projectors:
-        pos_list = []
-        for cam in cameras:
-            pos_np, rot_np = relative_view_pose(
-                proj.position, proj.rotation, cam.position, cam.rotation,
-            )
-            if not np.allclose(rot_np, np.eye(3), atol=1e-5) or (
-                abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
-            ):
-                raise ValueError(
-                    "render_fused_fast needs lateral poses; use "
-                    "parallel.sharding.render_fused_projectors for "
-                    "arbitrary poses"
-                )
-            pos_list.append(pos_np)
-        pos_b = np.stack(pos_list)
-        _check_plane_mode(cfg)
-        max_cx = float(np.abs(pos_b[:, 0]).max())
-        view = _FusedView(
-            pos_b, _default_mask_mode(proj, mask_mode), [], [], [])
-        for idx, lay in enumerate(_prepared_textures(proj)):
-            if not _march_eligible(lay, f2_host, cam0.width, cam0.height) or (
-                lay["w"] != cam0.width or lay["h"] != cam0.height
-            ):
-                raise ValueError(
-                    "render_fused_fast needs matched focal/dims per layer "
-                    "and an 8-divisible width"
-                )
-            plan, _, phase, doff = _march_fold(
-                lay, proj.skew, sk2, max_cx, cam0.width, cam0.height, 0.0)
-            tab, k_l = _march_tables(proj, idx, cfg, num_planes,
-                                     pos_b[:, 0], phase)
-            view.layers.append(dict(lay, plane_invz=tab, doff=doff))
-            view.plans.append(plan)
-            view.nums.append(k_l)
-        views.append(view)
+    with profiling.span("lif.plan"):
+        for proj in projectors:
+            views.append(_fused_view(proj, cameras, cfg, num_planes,
+                                     mask_mode))
     return _fused_fast_core(
         views, background, refine=cfg.march_refine, feathering=feathering,
         to_srgb=to_srgb, fuse_tol=float(cfg.fuse_tol),
         pose_chunk=cfg.pose_chunk, out_h=cam0.height, out_w=cam0.width,
     )
+
+
+def _fused_view(proj, cameras, cfg, num_planes, mask_mode) -> _FusedView:
+    """Plan one projector of render_fused_fast_batch (its relative poses,
+    and per layer the skew fold and the march's plane tables); raises
+    ValueError for a pose or layer the lateral march cannot take."""
+    cam0 = cameras[0]
+    f2_host = float(cam0.focal_px)
+    sk2 = np.asarray(cam0.skew, np.float64)
+    pos_list = []
+    for cam in cameras:
+        pos_np, rot_np = relative_view_pose(
+            proj.position, proj.rotation, cam.position, cam.rotation,
+        )
+        if not np.allclose(rot_np, np.eye(3), atol=1e-5) or (
+            abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
+        ):
+            raise ValueError(
+                "render_fused_fast needs lateral poses; use "
+                "parallel.sharding.render_fused_projectors for "
+                "arbitrary poses"
+            )
+        pos_list.append(pos_np)
+    pos_b = np.stack(pos_list)
+    _check_plane_mode(cfg)
+    max_cx = float(np.abs(pos_b[:, 0]).max())
+    view = _FusedView(
+        pos_b, _default_mask_mode(proj, mask_mode), [], [], [])
+    for idx, lay in enumerate(_prepared_textures(proj)):
+        if not _march_eligible(lay, f2_host, cam0.width, cam0.height) or (
+            lay["w"] != cam0.width or lay["h"] != cam0.height
+        ):
+            raise ValueError(
+                "render_fused_fast needs matched focal/dims per layer "
+                "and an 8-divisible width"
+            )
+        plan, _, phase, doff = _march_fold(
+            lay, proj.skew, sk2, max_cx, cam0.width, cam0.height, 0.0)
+        tab, k_l = _march_tables(proj, idx, cfg, num_planes,
+                                 pos_b[:, 0], phase)
+        view.layers.append(dict(lay, plane_invz=tab, doff=doff))
+        view.plans.append(plan)
+        view.nums.append(k_l)
+    return view
 
 
 # Device bytes the fused core holds per projector, output pixel and pose
@@ -1899,9 +1961,10 @@ def _free_device_bytes(device) -> int | None:
     holds unused. None off CUDA."""
     if device.type != "cuda":
         return None
-    free, _ = torch.cuda.mem_get_info(device)
-    return (free + torch.cuda.memory_reserved(device)
-            - torch.cuda.memory_allocated(device))
+    with profiling.span("lif.mem_probe"):
+        free, _ = torch.cuda.mem_get_info(device)
+        return (free + torch.cuda.memory_reserved(device)
+                - torch.cuda.memory_allocated(device))
 
 
 def _fused_pose_chunk(n_views, out_h, out_w, pose_chunk, free_bytes):
@@ -1938,34 +2001,41 @@ def _fused_fast_core(views, background, *, refine, feathering, to_srgb,
     chunk = _fused_pose_chunk(len(views), out_h, out_w, pose_chunk,
                               _free_device_bytes(device))
     for sl in _pose_chunks(batch, chunk):
-        view_rgb, view_a, view_front = [], [], []
-        for view in views:
-            acc_rgb = acc_a = front = None
-            for lay, plan, k_l in zip(view.layers, view.plans, view.nums):
-                rgba, alpha, _, izs = _layer_tier_batch(
-                    _chunk_layer(lay, sl), "march", None, plan, k_l, 0,
-                    view.pos_b[sl], None, None, None, None, refine=refine,
-                    rot_refine=0, t_refine=0, feathering=feathering,
-                    mask_mode=view.mask_mode, raw=True,
-                )
-                if acc_rgb is None:
-                    acc_rgb = alpha[..., None] * rgba[..., :3]
-                    acc_a = alpha
-                    front = torch.where(alpha > 0.0, izs, 0.0)
-                else:
-                    acc_rgb = acc_rgb + (1.0 - acc_a[..., None]) * alpha[
-                        ..., None] * rgba[..., :3]
-                    new_hit = (alpha > 0.0) & (front == 0.0)
-                    front = torch.where(new_hit, izs, front)
-                    acc_a = acc_a + (1.0 - acc_a) * alpha
-            view_rgb.append(acc_rgb)
-            view_a.append(acc_a)
-            view_front.append(front)
-        color, alpha = _fuse_views(torch.stack(view_rgb),
-                                   torch.stack(view_a),
-                                   torch.stack(view_front), fuse_tol)
-        out[sl] = _composite.finish_over_background(color, alpha, background,
-                                                    to_srgb)
+        with profiling.span("lif.chunk"):
+            view_rgb, view_a, view_front = [], [], []
+            for view in views:
+                acc_rgb = acc_a = front = None
+                for lay, plan, k_l in zip(view.layers, view.plans,
+                                          view.nums):
+                    rgba, alpha, _, izs = _layer_tier_batch(
+                        _chunk_layer(lay, sl), "march", None, plan, k_l, 0,
+                        view.pos_b[sl], None, None, None, None,
+                        refine=refine, rot_refine=0, t_refine=0,
+                        feathering=feathering, mask_mode=view.mask_mode,
+                        raw=True,
+                    )
+                    with profiling.span("lif.composite"):
+                        if acc_rgb is None:
+                            acc_rgb = alpha[..., None] * rgba[..., :3]
+                            acc_a = alpha
+                            front = torch.where(alpha > 0.0, izs, 0.0)
+                        else:
+                            acc_rgb = acc_rgb + (
+                                1.0 - acc_a[..., None]
+                            ) * alpha[..., None] * rgba[..., :3]
+                            new_hit = (alpha > 0.0) & (front == 0.0)
+                            front = torch.where(new_hit, izs, front)
+                            acc_a = acc_a + (1.0 - acc_a) * alpha
+                view_rgb.append(acc_rgb)
+                view_a.append(acc_a)
+                view_front.append(front)
+            with profiling.span("lif.merge"):
+                color, alpha = _fuse_views(torch.stack(view_rgb),
+                                           torch.stack(view_a),
+                                           torch.stack(view_front), fuse_tol)
+            with profiling.span("lif.composite"):
+                out[sl] = _composite.finish_over_background(
+                    color, alpha, background, to_srgb)
     return out
 
 
@@ -2114,6 +2184,7 @@ def plan_billboard(projector: Projector, cameras: Sequence[Camera],
                          float(intr["cx"]), cy_gl)
 
 
+@profiling.entry
 def render_billboard_fast_batch(
     projector: Projector,
     cameras: Sequence[Camera],
@@ -2139,7 +2210,8 @@ def render_billboard_fast_batch(
     dual is no longer exact, raises ValueError instead of rendering wrong
     images. plan_billboard gives the planning alone. reference:
     holoVertex.glsl:130-149, 243-273 (billboard quads + z-buffer)."""
-    bp = plan_billboard(projector, cameras, point_size)
+    with profiling.span("lif.plan"):
+        bp = plan_billboard(projector, cameras, point_size)
     lay = bp.layer
     return _splat_march.render_billboard_batch(
         lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.color import linear_to_srgb
+from ..utils import profiling
 
 __all__ = ["edge_alpha", "finish_over_background", "over", "smoothstep"]
 
@@ -53,6 +54,9 @@ def finish_over_background(rgb_premult, alpha, background, to_srgb: bool):
     """(…, 3) premultiplied rgb + (…,) alpha over a (4,) background.
     Returns (…, 4)."""
     bg = torch.as_tensor(background, dtype=torch.float32, device=alpha.device)
+    if not (isinstance(background, torch.Tensor)
+            and background.device == alpha.device):
+        profiling.host_sync("sync.upload.background", alpha.device)
     out_rgb = bg[:3] * bg[3] * (1.0 - alpha[..., None]) + rgb_premult
     out_a = bg[3] + alpha * (1.0 - bg[3])
     if to_srgb:

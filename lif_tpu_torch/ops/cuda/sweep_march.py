@@ -30,6 +30,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ...utils import profiling
 from ..bounds import plane_loop_bounds
 from ..sweep_march import (
     TranslationPlan,
@@ -275,9 +276,9 @@ def lateral_kernel_inputs(prepared, invz_min, invz_max, c1, f1, plane_invz,
     src, cm3, cmin3 = prepared
     dev = src.device
     izt = plane_invz.to(device=dev, dtype=torch.float32).contiguous()
-    ix_t, fx_t, _, _ = plane_tables(
-        plan, izt, torch.as_tensor(c1, device=dev), f1, dx=offset[0]
-    )
+    c1_t = torch.as_tensor(c1, device=dev)
+    profiling.host_sync("sync.upload.poses", dev)
+    ix_t, fx_t, _, _ = plane_tables(plan, izt, c1_t, f1, dx=offset[0])
     izmin, izmax = np.float32(invz_min), np.float32(invz_max)
     # plane thresholds in texel units: texel > tkt <=> decoded d > izt,
     # or texel < tkt where the decode falls as the texel rises: the scan
@@ -321,13 +322,18 @@ def render_translation_batch_cuda(
     tables, its y part (a skew fold's) must already be pre-applied to the
     source (ops.sweep_march.preshift_source), and the full offset places
     the hit test at the true source position in _finalize."""
-    found, invz_star, rgba_star = march_translation_cuda(
-        rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz, plan,
-        num_planes, offset=(offset[0], 0.0), prepared=prepared,
-        refine=refine, rows=rows,
-    )
-    c1_t = torch.as_tensor(np.asarray(c1, np.float32), device=found.device)
-    return _finalize(
-        plan, found, invz_star, rgba_star, c1_t, f1, background, feathering,
-        mask_mode, to_srgb, raw=raw, offset=offset, crop_y=crop_y,
-    )
+    with profiling.span("lif.kernel.lateral"):
+        found, invz_star, rgba_star = march_translation_cuda(
+            rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz, plan,
+            num_planes, offset=(offset[0], 0.0), prepared=prepared,
+            refine=refine, rows=rows,
+        )
+    with profiling.span("lif.epilogue.lateral"):
+        c1_t = torch.as_tensor(np.asarray(c1, np.float32),
+                               device=found.device)
+        profiling.host_sync("sync.upload.poses", found.device)
+        return _finalize(
+            plan, found, invz_star, rgba_star, c1_t, f1, background,
+            feathering, mask_mode, to_srgb, raw=raw, offset=offset,
+            crop_y=crop_y,
+        )

@@ -35,6 +35,7 @@ import torch
 
 from . import composite as _composite
 from ..core.transforms import inv3, mat_from_focal, mat_from_skew, mm, shader_rotation
+from ..utils import profiling
 from .sampling import bilinear_sample_packed, pack_rgbm, read_disp
 from .sweep_scaled import (
     ScaledPlan,
@@ -305,34 +306,40 @@ def render_rotated_march_batch(
         izmap = torch.where(found > 0.5, izs, 0.0)
 
     # ---- Phase B ----
-    p_ts, p_ti, c_vec = (
-        t.to(dev) for t in _pose_maps(f1, f2, w, h, out_w, out_h, wi, hi,
-                                      rot_b, c1_b, sk1, sk2)
-    )
-    jx = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
-    iy = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
-    s2x = (_tdiv(jx + 0.5, out_w) - 0.5).expand(out_h, out_w)
-    s2y = (_tdiv(iy + 0.5, out_h) - 0.5).expand(out_h, out_w)
-    six, siy, _ = _proj_apply(p_ti, s2x, s2y)
-    qx, qy, den = _proj_apply(p_ts, s2x, s2y)
+    with profiling.span("lif.epilogue.rotated"):
+        p_ts, p_ti, c_vec = (
+            t.to(dev) for t in _pose_maps(f1, f2, w, h, out_w, out_h, wi, hi,
+                                          rot_b, c1_b, sk1, sk2)
+        )
+        profiling.host_sync("sync.upload.poses", dev, 3)
+        jx = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+        iy = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+        s2x = (_tdiv(jx + 0.5, out_w) - 0.5).expand(out_h, out_w)
+        s2y = (_tdiv(iy + 0.5, out_h) - 0.5).expand(out_h, out_w)
+        six, siy, _ = _proj_apply(p_ti, s2x, s2y)
+        qx, qy, den = _proj_apply(p_ts, s2x, s2y)
 
-    quad = _corner_quad(izmap, six + 0.5, siy + 0.5)
-    covered = (torch.abs(six) < 0.5) & (torch.abs(siy) < 0.5)
-    invz_hat, invz2 = _bracket_march(disp.to(torch.float32), qx, qy, den,
-                                     c_vec, quad, izmin, izmax, w, h,
-                                     bracket_steps)
-    found_hat = ((quad > 0.0).any(dim=-1)) & (invz2 > 0.0)
+        with profiling.span("lif.corner"):
+            quad = _corner_quad(izmap, six + 0.5, siy + 0.5)
+        covered = (torch.abs(six) < 0.5) & (torch.abs(siy) < 0.5)
+        with profiling.span("lif.bracket"):
+            invz_hat, invz2 = _bracket_march(disp.to(torch.float32), qx, qy,
+                                             den, c_vec, quad, izmin, izmax, w,
+                                             h, bracket_steps)
+        found_hat = ((quad > 0.0).any(dim=-1)) & (invz2 > 0.0)
 
-    cx, cy, cz = (c_vec[:, i, None, None] for i in range(3))
-    u1 = cx * invz_hat + (1.0 - cz * invz_hat) * qx + 0.5
-    v1 = cy * invz_hat + (1.0 - cz * invz_hat) * qy + 0.5
-    sampled = bilinear_sample_packed(pack_rgbm(rgb, mask), u1, v1, w, h)
-    hit, alpha = _composite.edge_alpha(
-        (found_hat & covered).to(torch.float32), u1, v1, feathering,
-        sampled[..., 3], mask_mode,
-    )
-    if raw:
-        return sampled, alpha, hit, torch.where(found_hat, invz_hat, 0.0)
-    return _composite.finish_over_background(
-        sampled[..., :3] * alpha[..., None], alpha, background, to_srgb
-    )
+        cx, cy, cz = (c_vec[:, i, None, None] for i in range(3))
+        u1 = cx * invz_hat + (1.0 - cz * invz_hat) * qx + 0.5
+        v1 = cy * invz_hat + (1.0 - cz * invz_hat) * qy + 0.5
+        with profiling.span("lif.fetch"):
+            sampled = bilinear_sample_packed(pack_rgbm(rgb, mask), u1, v1,
+                                             w, h)
+        hit, alpha = _composite.edge_alpha(
+            (found_hat & covered).to(torch.float32), u1, v1, feathering,
+            sampled[..., 3], mask_mode,
+        )
+        if raw:
+            return sampled, alpha, hit, torch.where(found_hat, invz_hat, 0.0)
+        return _composite.finish_over_background(
+            sampled[..., :3] * alpha[..., None], alpha, background, to_srgb
+        )

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.color import linear_to_srgb
+from ..utils import profiling
 from .cuda.splat_march import check_su_half, sweep_billboard
 from .sweep_march import TranslationPlan
 
@@ -247,6 +248,7 @@ def finish_billboard(found, tex, rgba, background, to_srgb: bool,
     alpha 1 on a hit, the background elsewhere (lif_tpu's epilogue)."""
     bg = torch.as_tensor(np.asarray(background, np.float32),
                          device=found.device)
+    profiling.host_sync("sync.upload.background", found.device)
     hit = found > 0.0
     rgb = torch.stack([tex] * 3, dim=-1) if show_depth else rgba[..., :3]
     rgb = torch.where(hit[..., None], rgb, bg[:3] * bg[3])
@@ -283,10 +285,15 @@ def render_billboard_batch(
     Output semantics of ops.splat.forward_splat (footprint 2, matched
     focal): the z-buffered nearest point texel, alpha 1 on a hit,
     background elsewhere. Returns (B, H, W, 4)."""
-    found, tex, rgba = billboard_march_batch(
-        *billboard_inputs(rgb, disp, mask, invz_min, invz_max, c1x, f1, ixs,
-                          mms, plan, num_planes, cx0, cy0, point_size))
-    return finish_billboard(found, tex, rgba, background, to_srgb, show_depth)
+    with profiling.span("lif.kernel.billboard"):
+        with profiling.span("lif.inputs"):
+            inputs = billboard_inputs(rgb, disp, mask, invz_min, invz_max,
+                                      c1x, f1, ixs, mms, plan, num_planes,
+                                      cx0, cy0, point_size)
+        found, tex, rgba = billboard_march_batch(*inputs)
+    with profiling.span("lif.epilogue.billboard"):
+        return finish_billboard(found, tex, rgba, background, to_srgb,
+                                show_depth)
 
 
 def billboard_inputs(rgb, disp, mask, invz_min, invz_max, c1x, f1, ixs, mms,
@@ -309,6 +316,8 @@ def billboard_inputs(rgb, disp, mask, invz_min, invz_max, c1x, f1, ixs, mms,
                                  h)
     rgbm = torch.cat([rgb.to(torch.float32),
                       mask.to(torch.float32)[..., None]], dim=-1)
+    profiling.host_sync("sync.upload.grids", dev, 2)
+    profiling.host_sync("sync.upload.poses", dev)
     return (
         disp.to(torch.float32).contiguous(), rgbm.contiguous(),
         torch.as_tensor(ixs, device=dev), torch.as_tensor(mms, device=dev),

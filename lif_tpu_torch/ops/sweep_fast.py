@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core.transforms import inv3, mat_from_focal, mm, shader_rotation
+from ..utils import profiling
 from . import composite as _composite
 from .composite import smoothstep
 from .rotated_march import _proj_apply
@@ -44,10 +45,16 @@ _F32 = np.float32
 
 def _f32(x, device) -> torch.Tensor:
     """A float32 tensor on `device` (host numbers and arrays round to
-    float32 as jnp.asarray(x, float32) does)."""
+    float32 as jnp.asarray(x, float32) does); a host value put on a CUDA
+    device counts as a sync.upload.sweep."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        out = x.to(device=device, dtype=torch.float32)
+        if x.device.type == "cpu":
+            profiling.host_sync("sync.upload.sweep", out.device)
+        return out
+    out = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    profiling.host_sync("sync.upload.sweep", out.device)
+    return out
 
 
 def _axis_visibility(scale, shift_px, n_out: int, n_in: int, feathering):
@@ -432,6 +439,7 @@ def _rotated_phase_b(rgb, mask, invz_map, c1, rot1, f1, f2, f_i, out_w: int,
     six, siy, _ = (t[0] for t in _proj_apply(p_ti[None].to(dev), s2x, s2y))
     invz_hat = bilinear_sample(invz_map, six + 0.5, siy + 0.5, out_w, out_h)
     qx, qy, _ = (t[0] for t in _proj_apply(p_ts[None].to(dev), s2x, s2y))
+    profiling.host_sync("sync.upload.sweep", dev, 2)
     cx, cy, cz = (float(v) for v in c_vec)
     s1x = cx * invz_hat + (1.0 - cz * invz_hat) * qx
     s1y = cy * invz_hat + (1.0 - cz * invz_hat) * qy

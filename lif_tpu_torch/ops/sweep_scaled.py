@@ -52,6 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import composite as _composite
 from .sampling import bilinear_sample_packed, pack_rgbm
 from .sweep_march import decodes_down
@@ -806,9 +807,10 @@ def _march_batch(disp, invz_min, invz_max, tabs, plan: ScaledPlan,
     if disp.device.type == "cuda":
         from .cuda.sweep_scaled import march_scaled_cuda
 
-        return march_scaled_cuda(disp, invz_min, invz_max, tabs, plan,
-                                 refine=refine, rgbm=rgbm,
-                                 skip_tables=skip_tables)
+        with profiling.span("lif.kernel.scaled"):
+            return march_scaled_cuda(disp, invz_min, invz_max, tabs, plan,
+                                     refine=refine, rgbm=rgbm,
+                                     skip_tables=skip_tables)
     if disp.device.type != "cpu":
         raise NotImplementedError(
             f"the scaled march runs on CUDA or CPU tensors, not "
@@ -875,6 +877,8 @@ def render_scaled_batch(
     _check_plan(plan, disp)
     dev = disp.device
     c1_t = _as_f32(c1_b, dev)
+    if not isinstance(c1_b, torch.Tensor):
+        profiling.host_sync("sync.upload.poses", dev)
     tabs = scaled_table_stack(plan, torch.as_tensor(
         plane_invz, dtype=torch.float32, device=dev), c1_t, f1, fr,
         dx_user, dy_user)
@@ -929,11 +933,16 @@ def render_scaled_fetch_batch(
         None, plan, num_planes, refine=refine, dx_user=dx_user,
         dy_user=dy_user, depth_only=True, skip_tables=skip_tables,
     )
-    invz_star = torch.where(found > 0.5, izs, 0.0)
-    c1_t = _as_f32(c1_b, dev)
-    u1, v1 = _solved_uv(plan, invz_star, c1_t, f1, fr, dx_user, dy_user,
-                        crop_y)
-    sampled = bilinear_sample_packed(pack_rgbm(rgb, mask), u1, v1, w, h)
-    ha = _composite.edge_alpha(found, u1, v1, feathering, sampled[..., 3],
-                               mask_mode)
-    return _finish(invz_star, sampled, ha, background, to_srgb, raw)
+    with profiling.span("lif.epilogue.scaled"):
+        invz_star = torch.where(found > 0.5, izs, 0.0)
+        c1_t = _as_f32(c1_b, dev)
+        if not isinstance(c1_b, torch.Tensor):
+            profiling.host_sync("sync.upload.poses", dev)
+        u1, v1 = _solved_uv(plan, invz_star, c1_t, f1, fr, dx_user, dy_user,
+                            crop_y)
+        with profiling.span("lif.fetch"):
+            sampled = bilinear_sample_packed(pack_rgbm(rgb, mask), u1, v1,
+                                             w, h)
+        ha = _composite.edge_alpha(found, u1, v1, feathering,
+                                   sampled[..., 3], mask_mode)
+        return _finish(invz_star, sampled, ha, background, to_srgb, raw)

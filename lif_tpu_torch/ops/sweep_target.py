@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import composite as _composite
 from .sampling import bilinear_sample_packed, pack_rgbm
 
@@ -1037,9 +1038,10 @@ def _march_batch(disp, invz_min, invz_max, pose_b, plane_invz,
     if disp.device.type == "cuda":
         from .cuda.sweep_target import march_target_cuda
 
-        return march_target_cuda(disp, invz_min, invz_max, pose, plane,
-                                 plan, refine=refine, rgbm=rgbm,
-                                 tables=skip_tables)
+        with profiling.span("lif.kernel.target"):
+            return march_target_cuda(disp, invz_min, invz_max, pose, plane,
+                                     plan, refine=refine, rgbm=rgbm,
+                                     tables=skip_tables)
     if disp.device.type != "cpu":
         raise NotImplementedError(
             f"the target march runs on CUDA or CPU tensors, not "
@@ -1118,9 +1120,12 @@ def render_target_fetch_batch(
     found, vstar = _march_batch(disp, izmin, izmax, pose_b, plane_invz,
                                 plan, num_planes, refine,
                                 skip_tables=skip_tables)
-    pose = torch.as_tensor(pose_b, dtype=torch.float32, device=disp.device)
-    u1, v1 = _solved_uv(pose, vstar, izmin, izmax, plan.out_w, plan.out_h,
-                        w, h)
-    rgba = bilinear_sample_packed(pack_rgbm(rgb, mask), u1, v1, w, h)
-    return _finish(found, vstar, rgba, u1, v1, background, feathering,
-                   mask_mode, to_srgb, raw)
+    with profiling.span("lif.epilogue.target"):
+        pose = torch.as_tensor(pose_b, dtype=torch.float32,
+                               device=disp.device)
+        u1, v1 = _solved_uv(pose, vstar, izmin, izmax, plan.out_w,
+                            plan.out_h, w, h)
+        with profiling.span("lif.fetch"):
+            rgba = bilinear_sample_packed(pack_rgbm(rgb, mask), u1, v1, w, h)
+        return _finish(found, vstar, rgba, u1, v1, background, feathering,
+                       mask_mode, to_srgb, raw)

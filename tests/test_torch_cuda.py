@@ -1066,17 +1066,6 @@ def test_stereo_rotated_eyes_on_cuda_match_cpu(cuda):
     assert (got[..., 3] > 0.5).float().mean().item() > 0.5
 
 
-def test_benchmark_fn_times_on_the_card(cuda):
-    """utils.profiling.benchmark_fn: CUDA-event seconds per call of a
-    matmul, positive, and its rate their inverse."""
-    from lif_tpu_torch.utils.profiling import benchmark_fn
-
-    a = torch.ones(256, 256, device=cuda)
-    res = benchmark_fn(torch.matmul, a, a, label="matmul", iters=5)
-    assert res["label"] == "matmul" and res["seconds_per_call"] > 0
-    assert abs(res["calls_per_sec"] * res["seconds_per_call"] - 1) < 1e-9
-
-
 def test_fused_fast_on_cuda_matches_cpu(cuda):
     """render_fused_fast_batch on the card, two 2-layer LDI projectors at
     three poses: exactly one lateral launch per projector and layer (one
@@ -1190,3 +1179,98 @@ def test_fit_step_on_cuda_matches_cpu(cuda):
         assert params.disp.device.type == torch.device(dev).type
         histories.append(losses)
     np.testing.assert_allclose(histories[0], histories[1], rtol=1e-4)
+
+
+def _traced_routes(cuda):
+    """route -> a call on the card of each fast entry point and tier."""
+    h, w = 112, 128
+    rgb0, disp0, mask0 = _scene(30, h, w)
+    rgb1, disp1, _ = _scene(31, h + 16, w + 32)
+    kw = dict(focal_px=0.78 * w, invz_min=2.0, invz_max=0.6, baseline=1.0)
+    ldi = lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, mask0, device="cpu", **kw,
+        extra_layers=[dict(rgb=rgb1, disp=disp1, focal_px=0.78 * w,
+                           invz_min=0.5, invz_max=0.1)]).to(cuda)
+    one = lif_tpu_torch.projector_from_arrays(rgb0, disp0, device=cuda, **kw)
+    other = lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, device=cuda, position=(0.02, 0.0, 0.0), **kw)
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(pose_chunk=2)
+
+    def cams(poses):
+        return [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                            position=c, rotation=r)
+                for r, c in poses]
+
+    lateral = cams([(np.eye(3), [x, 0.0, 0.0]) for x in (0.01, 0.02, 0.03)])
+    return {
+        "lateral": lambda: lif_tpu_torch.render_fast_batch(
+            ldi, lateral, config=cfg),
+        "view": lambda: lif_tpu_torch.render_fast_view(ldi, lateral[1]),
+        "dolly": lambda: lif_tpu_torch.render_fast_batch(ldi, cams(
+            [(np.eye(3), [0.03, 0.01, 0.02]),
+             (np.eye(3), [0.0, -0.01, 0.04])]), config=cfg),
+        "orbit": lambda: lif_tpu_torch.render_fast_batch(ldi, cams(
+            [(_roty(-6.0), [-0.1, 0.0, 0.01]),
+             (_roty(8.0), [0.15, 0.0, -0.01])]), config=cfg),
+        "tilt": lambda: lif_tpu_torch.render_fast_batch(ldi, cams(
+            [(_rotx(6.0), [0.1, 0.0, 0.0]), (_rotx(-4.0), [0.0, 0.05, 0.0])]),
+            config=cfg),
+        "rotated": lambda: lif_tpu_torch.render_fast_batch(ldi, cams(
+            [(_rotx(3.0) @ _roty(4.0), [0.05, 0.01, 0.0]),
+             (_rotx(-2.0) @ _roty(-3.0), [-0.04, 0.0, 0.01])]), config=cfg),
+        "fused": lambda: lif_tpu_torch.render_fused_fast_batch(
+            [one, other], lateral, config=cfg),
+        "stereo": lambda: lif_tpu_torch.render_stereo_fast_batch(
+            ldi, ldi, lateral, config=cfg),
+        "billboard": lambda: lif_tpu_torch.render_billboard_fast_batch(
+            one, lateral),
+        "sweep": lambda: lif_tpu_torch.render_fast_batch(
+            ldi, lateral[:2], method="sweep", num_planes=32),
+        "sweep_rotated": lambda: lif_tpu_torch.render_fast_batch(
+            ldi, cams([(_roty(-6.0), [-0.1, 0.0, 0.01])]), method="sweep",
+            num_planes=32),
+    }
+
+
+@pytest.mark.parametrize("route", ["lateral", "view", "dolly", "orbit",
+                                   "tilt", "rotated", "fused", "stereo",
+                                   "billboard", "sweep", "sweep_rotated"])
+def test_host_syncs_counted_on_the_card(cuda, route):
+    """utils.profiling on the card: over two calls of each route (after a
+    warm-up, so the caches hold their entries as in a steady loop, and
+    once more with every cache cleared) the sync.* counters equal the
+    cudaStreamSynchronize runtime calls in the profiler's events, the
+    snapshot has one root a call, and every kernel span that recorded
+    also annotates the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lif_tpu_torch.utils import profiling
+
+    fn = _traced_routes(cuda)[route]
+    fn()
+    torch.cuda.synchronize()
+    for cold in (False, True):
+        if cold:
+            for name in dir(trenderer):
+                if name.endswith("_CACHE"):
+                    getattr(trenderer, name).clear()
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        snap = profiling.snapshot()
+        events = list(prof.profiler.kineto_results.events())
+        waits = sum(e.name() == "cudaStreamSynchronize" for e in events)
+        syncs = sum(n for k, n in snap["counters"].items()
+                    if k.startswith("sync."))
+        assert snap["calls"] == 2
+        assert syncs == waits, (cold, snap["counters"])
+        annotated = {e.name() for e in events
+                     if e.device_type() == DeviceType.CUDA
+                     and e.is_user_annotation()}
+        kernels = {k for k in snap["spans"] if k.startswith("lif.kernel.")}
+        assert kernels <= annotated
+        assert kernels or route.startswith("sweep")

@@ -11,9 +11,8 @@ row band bit for bit against the full frame's rows, render_scaled's CPU
 dispatch equal to the plain twin and held to lif_tpu's render_scaled as
 tests/test_torch_sweep_scaled.py holds the twin, pick() on
 tests/test_apps.py's flat and miss cases and on an LDI against lif_tpu's
-pick (hit, layer, point within 1e-4 m), FpsCounter on the same clock
-stamps; trace() writes a Chrome trace; benchmark_fn raises without a card
-(tests/test_torch_cuda.py runs it on one).
+pick (hit, layer, point within 1e-4 m); trace() writes a Chrome trace
+(its spans and counters: tests/test_torch_tracing.py).
 """
 
 import json
@@ -33,7 +32,6 @@ from lif_tpu.ops import raycast as jraycast
 from lif_tpu.ops import sampling as jsampling
 from lif_tpu.ops import sweep_scaled as jss
 from lif_tpu.utils import debug as jdebug
-from lif_tpu.utils import profiling as jprofiling
 from lif_tpu_torch.apps import picking as tpicking
 from lif_tpu_torch.core import camera as tcamera
 from lif_tpu_torch.core import color as tcolor
@@ -296,28 +294,9 @@ def test_montage_depth_and_wireframe_match_lif_tpu(rng, tmp_path):
 # --- profiling -------------------------------------------------------------
 
 
-def test_fps_counter_matches_lif_tpu():
-    stamps = 100.0 + np.cumsum(np.r_[0.0, np.full(30, 0.1), [0.02, 0.7]])
-    for window in (0.5, 10.0):
-        tc = tprofiling.FpsCounter(window_seconds=window)
-        jc = jprofiling.FpsCounter(window_seconds=window)
-        assert [tc.tick(t) for t in stamps] == [jc.tick(t) for t in stamps]
-    fps = tprofiling.FpsCounter(window_seconds=10.0)
-    assert abs([fps.tick(100.0 + i * 0.1) for i in range(11)][-1]
-               - 10.0) < 0.5
-
-
 def test_trace_writes_a_timeline(tmp_path):
     with tprofiling.trace(str(tmp_path / "prof")) as prof:
         torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
     doc = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert doc["traceEvents"]
     assert any("matmul" in e.key for e in prof.key_averages())
-
-
-def test_benchmark_fn_needs_a_card(monkeypatch):
-    """A CPU timing is never a device number: benchmark_fn raises where
-    torch sees no card."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tprofiling.benchmark_fn(lambda: None)

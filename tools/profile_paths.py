@@ -20,16 +20,23 @@ through render_fused_fast_batch. Each drive prints:
 
 - the call's device time (CUDA events around the call, median of 5 after
   2 warm-up calls) and its host wall time;
-- stage times: CUDA events around each stage's function, median over the
-  same 5 calls (the scaled and target marches with their kernel, the
-  packed color fetch, the rotated tier's corner fetch and bracket march,
-  the billboard's input stack, kernel and epilogue, the lateral march's
-  skew pre-shift, source stack, kernel with its tables and _finalize,
-  the stereo eyes' stretch confidence and fill/blend, the fusion merge
-  across projectors, and the renderer's compositing epilogue); the rest of the call is planning and glue;
-- torch.profiler over 3 calls: the kernels' device time per call, the
-  device's idle share (1 - kernel time / call time) and the kernels that
-  take the most device time.
+- torch.profiler over 3 calls: each of the renderer's spans
+  (lif_tpu_torch.utils.profiling; PERF.md lists them) with its device
+  time per call, the span's device-side annotation (from the first kernel
+  launched inside it to the end of the last), and its host time per call
+  (the span's own record). Nested spans are in their parent's time: the
+  kernels with their inputs ("lif.kernel.<tier>", the billboard's input
+  stack "lif.inputs" inside its kernel span), each tier's work after its
+  kernel ("lif.epilogue.<tier>", with the packed colour fetch "lif.fetch"
+  and the rotated tier's corner fetch "lif.corner" and bracket march
+  "lif.bracket" inside), the stereo stretch confidence and fill/blend
+  ("lif.stereo.conf", "lif.stereo.blend"), the fusion merge
+  ("lif.merge"), the renderer's compositing ("lif.composite"), the
+  pose-independent source prep on a cache miss (the skew pre-shift and
+  the march source stack, "lif.prep") and the planning ("lif.plan");
+- from the same profile: the kernels' device time per call, the device's
+  idle share (1 - kernel time / call time) and the kernels that take the
+  most device time.
 
 Needs torch with CUDA, nvcc and numpy; imports neither jax nor lif_tpu.
 """
@@ -58,56 +65,24 @@ def _events():
             torch.cuda.Event(enable_timing=True))
 
 
-def instrument(stages: dict):
-    """Wrap each stage's function (in every module that calls it) so that
-    CUDA events bracket it; the event pairs collect in `stages`."""
-    import types
+def span_rows(prof, calls: int):
+    """(span name, device ms per call, host ms per call) of every
+    renderer span the profiler saw, largest device time first: the device
+    time sums the span's device-side annotations, the host time its
+    records (utils.profiling.snapshot)."""
+    from torch.autograd import DeviceType
 
-    from lif_tpu_torch.models import renderer
-    from lif_tpu_torch.ops import (composite, rotated_march, splat_march,
-                                   stereo, sweep_march, sweep_scaled,
-                                   sweep_target)
-    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+    from lif_tpu_torch.utils import profiling
 
-    def timed(label, fn):
-        def wrap(*args, **kwargs):
-            start, end = _events()
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            stages.setdefault(label, []).append((start, end))
-            return out
-        return wrap
-
-    for mod, name, label in (
-        (sweep_scaled, "_march_batch", "scaled march (kernel)"),
-        (sweep_target, "_march_batch", "target march (kernel)"),
-        (sweep_scaled, "bilinear_sample_packed", "packed color fetch"),
-        (sweep_target, "bilinear_sample_packed", "packed color fetch"),
-        (rotated_march, "bilinear_sample_packed", "packed color fetch"),
-        (rotated_march, "_corner_quad", "corner fetch"),
-        (rotated_march, "_bracket_march", "bracket march"),
-        (splat_march, "billboard_inputs", "billboard input stack"),
-        (splat_march, "billboard_march_batch", "billboard march (kernel)"),
-        (splat_march, "finish_billboard", "billboard epilogue"),
-        (sweep_march, "preshift_source", "skew pre-shift"),
-        (renderer, "prepare_translation_src", "march source stack"),
-        (kmarch, "march_translation_cuda", "lateral march (kernel, tables)"),
-        (kmarch, "_finalize", "lateral _finalize"),
-        (renderer, "_stretch_conf", "stereo stretch confidence"),
-        (stereo, "occlusion_blend", "stereo fill/blend"),
-        (renderer, "_fuse_views", "fusion merge"),
-    ):
-        setattr(mod, name, timed(label, getattr(mod, name)))
-    # the renderer's own compositing epilogue: a copy of the composite
-    # module for the renderer alone, so the tiers' epilogues (inside the
-    # stages above) are not timed twice
-    renderer._composite = types.SimpleNamespace(
-        **{name: getattr(composite, name) for name in composite.__all__})
-    for name in ("over", "finish_over_background"):
-        setattr(renderer._composite, name,
-                timed("renderer epilogue (over, finish_over_background)",
-                      getattr(composite, name)))
+    dev = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA and e.is_user_annotation()
+                and e.name().startswith("lif.")):
+            dev[e.name()] = dev.get(e.name(), 0.0) + e.duration_ns() * 1e-6
+    host = profiling.snapshot()["spans"]
+    rows = [(name, dev.get(name, 0.0) / calls, s["total_ms"] / calls)
+            for name, s in host.items()]
+    return sorted(rows, key=lambda r: -r[1])
 
 
 def drive_cameras(cs, lt, focal, drive):
@@ -128,12 +103,13 @@ def drive_cameras(cs, lt, focal, drive):
 
 def kernel_rows(prof, calls: int):
     """(name, device ms per call) of every CUDA kernel the profiler saw,
-    largest first."""
+    largest first (the renderer's spans annotate the device too: they are
+    left out)."""
     from torch.autograd import DeviceType
 
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.key.startswith("lif."):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -162,8 +138,10 @@ def drive_call(lt, drive):
                                                             **kw, **extra)
 
 
-def profile_drive(lt, proj, cams, drive, card, stages):
+def profile_drive(lt, proj, cams, drive, card):
     import torch
+
+    from lif_tpu_torch.utils import profiling
 
     render = drive_call(lt, drive)
     if drive == "billboard":
@@ -179,7 +157,6 @@ def profile_drive(lt, proj, cams, drive, card, stages):
         _, tiers = render(proj, cams, return_tiers=True)
     render(proj, cams)
     torch.cuda.synchronize()
-    stages.clear()
     calls, walls = [], []
     for _ in range(5):
         start, end = _events()
@@ -196,24 +173,18 @@ def profile_drive(lt, proj, cams, drive, card, stages):
           f"{call_ms:.3f} ms per call (CUDA events, median of 5) = "
           f"{len(cams) / (call_ms / 1e3):.1f} frames/s; host wall "
           f"{statistics.median(walls):.3f} ms [{card}]", flush=True)
-    staged = 0.0
-    for label, pairs in stages.items():
-        per_call = len(pairs) // 5
-        ms = [sum(a.elapsed_time(b) for a, b in pairs[i:i + per_call])
-              for i in range(0, len(pairs), per_call)]
-        med = statistics.median(ms)
-        staged += med
-        print(f"  {label}: {med:.3f} ms per call "
-              f"({100 * med / call_ms:.1f}%)")
-    if stages:
-        print(f"  the rest (planning, epilogue, glue): "
-              f"{call_ms - staged:.3f} ms per call")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    profiling.reset()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(3):
             render(proj, cams)
         torch.cuda.synchronize()
+    print("  spans (device ms per call, its share of the call; host ms per "
+          "call):")
+    for name, dev_ms, host_ms in span_rows(prof, 3):
+        print(f"    {name}: {dev_ms:.3f} ms ({100 * dev_ms / call_ms:.1f}%); "
+              f"host {host_ms:.3f} ms")
     rows = kernel_rows(prof, 3)
     busy = sum(ms for _, ms in rows)
     print(f"  torch.profiler over 3 calls: kernels {busy:.3f} ms per call, "
@@ -265,22 +236,20 @@ def main(argv) -> int:
         cams4 = [lt.Camera.create(cs.W4, cs.H4, focal_px=focal4, position=[
             cs.FUSED_CAM_X + cs.FUSED_CAM_DX * j, 0.0, 0.0])
             for j in range(cs.N_FUSED)]
-    stages: dict = {}
-    instrument(stages)
     for drive in drives:
         if drive.startswith("view"):
             view = views[int(drive[4:])]
             cams = [cs.lif_cams(lt, view, center)["lateral"]]
-            profile_drive(lt, view, cams, drive, card, stages)
+            profile_drive(lt, view, cams, drive, card)
         elif drive == "stereo":
             cams = cs.stereo_cams(lt, float(pair[0].focal[0]),
                                   float(pair[0].baseline) / 2.0)["pairs"]
-            profile_drive(lt, pair, cams, drive, card, stages)
+            profile_drive(lt, pair, cams, drive, card)
         elif drive == "fused":
-            profile_drive(lt, projs4, cams4, drive, card, stages)
+            profile_drive(lt, projs4, cams4, drive, card)
         else:
             profile_drive(lt, proj, drive_cameras(cs, lt, focal, drive),
-                          drive, card, stages)
+                          drive, card)
     return 0
 
 

@@ -9,8 +9,7 @@ chip_smoke.py's seeded 1280x800 scene: render_fast_batch over main path
 1's first 16 poses with method='sweep' (soft and exact_color),
 render_fast_view of the zoomed camera (its layer falls back to the
 sweep) and render_fast_batch of the 4 rotated poses no march tier
-covers. Each prints, as tools/profile_paths.py does for the march
-drives:
+covers. Each prints:
 
 - the call's device time (CUDA events around the call, median of 5 after
   2 warm-up calls) and its host wall time;
@@ -77,7 +76,7 @@ def instrument(stages: dict):
         (sweep_fast, "_rotated_phase_b", "rotated phase B (two fetches)"),
     ):
         setattr(owner, name, timed(label, getattr(owner, name)))
-    # the renderer's own epilogue, as tools/profile_paths.py times it
+    # the renderer's own compositing epilogue
     renderer._composite = types.SimpleNamespace(
         **{name: getattr(composite, name) for name in composite.__all__})
     for name in ("over", "finish_over_background"):
