@@ -265,17 +265,17 @@ def _snap_tables(lay, cxs, explicit_planes, phase_px, stride, device):
     """Per-pose snap-plane grids (B, K) on `device` plus K, memoized on
     the exact pose batch (the uniform and hybrid grids are one table a
     layer, cached by _sweep_tables)."""
+    cxs = np.asarray(cxs, np.float64)
     key = (
         lay["focal_host"], lay["izmin_host"], lay["izmax_host"],
-        np.asarray(cxs, np.float64).tobytes(), explicit_planes,
-        float(phase_px), int(stride), str(device),
+        cxs.tobytes(), explicit_planes, float(phase_px), int(stride),
+        str(device),
     )
     hit = _lru_get(_TABLE_CACHE, key, "table")
     if hit is not None:
         return hit
     tab, k = _sweep_march.snap_plane_tables_batch(
-        lay["focal_host"], [float(c) for c in cxs],
-        lay["izmin_host"], lay["izmax_host"],
+        lay["focal_host"], cxs, lay["izmin_host"], lay["izmax_host"],
         num_planes=explicit_planes, phase_px=phase_px, stride=stride,
     )
     entry = (torch.as_tensor(tab, device=device), k)
@@ -1043,6 +1043,24 @@ class TierPlan(NamedTuple):
     dx_pad: float  # the pad's constant x-offset
 
 
+def _shared_intrinsics(cameras) -> bool:
+    """Whether every camera has cameras[0]'s width, height, focal (to
+    1e-6 px) and skew (np.allclose), checked for the batch at once."""
+    cam0 = cameras[0]
+    dims = np.array([(c.width, c.height) for c in cameras])
+    focal = np.array([float(c.focal_px) for c in cameras])
+    skews = [np.asarray(c.skew) for c in cameras]
+    if len({s.dtype for s in skews}) == 1:
+        skew_ok = np.isclose(np.stack(skews), skews[0])[1:].all()
+    else:  # each pair in its own promoted precision, as np.allclose does
+        skew_ok = all(np.allclose(s, skews[0]) for s in skews[1:])
+    return bool(
+        (dims == (cam0.width, cam0.height)).all()
+        and not (np.abs(focal - float(cam0.focal_px)) > 1e-6).any()
+        and skew_ok
+    )
+
+
 def plan_tiers(projector: Projector, cameras: Sequence[Camera],
                config: RenderConfig | None = None,
                num_planes: int | None = None,
@@ -1063,17 +1081,11 @@ def plan_tiers(projector: Projector, cameras: Sequence[Camera],
     if len(cameras) == 0:
         raise ValueError("render_fast_batch needs at least one camera")
     cam0 = cameras[0]
-    for cam in cameras[1:]:
-        if (
-            cam.width != cam0.width
-            or cam.height != cam0.height
-            or abs(float(cam.focal_px) - float(cam0.focal_px)) > 1e-6
-            or not np.allclose(cam.skew, cam0.skew)
-        ):
-            raise ValueError(
-                "render_fast_batch cameras must share intrinsics "
-                "(width/height/focal/skew)"
-            )
+    if not _shared_intrinsics(cameras):
+        raise ValueError(
+            "render_fast_batch cameras must share intrinsics "
+            "(width/height/focal/skew)"
+        )
 
     pos_list, rot_list = zip(*(
         relative_view_pose(

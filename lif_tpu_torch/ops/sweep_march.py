@@ -89,16 +89,18 @@ def snap_plane_table(
     count would exceed max_planes, integers are subsampled at 2-, 4-, ...
     pixel stride (still phase-aligned, so warps stay exact; only bracket
     width grows). When num_planes is given it overrides the bucketed size
-    (must be >= the snap count after subsampling).
+    (must be >= the snap count after subsampling). snap_plane_tables_batch
+    builds the same ladders for a pose batch at once. The scalars are host
+    floats (float64 math).
     """
+    izmin, izmax, phase_px = float(izmin), float(izmax), float(phase_px)
     a = -float(f1) * float(cx)  # total shift(invz) = a*invz + phase_px
-    s = abs(a)
     r = izmin - izmax
     cap = min(max_planes, num_planes) if num_planes else max_planes
-    if s * r < 1.0 or cap < 4:
+    if abs(a) * r < 1.0 or cap < 4:
         # sub-pixel total parallax: the endpoints alone are exact (the
         # whole range is one linear bracket)
-        grid = [izmin, izmax]
+        grid = np.array([izmin, izmax], np.float64)
     else:
         # planes where the TOTAL shift a*invz + phase_px is an integer
         s_lo, s_hi = sorted((a * izmax + phase_px, a * izmin + phase_px))
@@ -110,22 +112,19 @@ def snap_plane_table(
         vals = (
             np.arange(m_lo, m_hi + 1, stride, dtype=np.float64) - phase_px
         ) / a
-        vals = np.sort(vals)[::-1]  # descending invz
-        grid = [izmin]
+        if a > 0:  # v is monotone in m: near (large invz) first
+            vals = vals[::-1]
         eps = r * 1e-7
-        for v in vals:
-            if izmax + eps < v < izmin - eps:
-                grid.append(float(v))
-        grid.append(izmax)
+        grid = np.concatenate((
+            [izmin], vals[(vals > izmax + eps) & (vals < izmin - eps)],
+            [izmax]))
     k_real = len(grid)
     k_tot = num_planes if num_planes else max(bucket, _round_up(k_real, bucket))
     # pad above izmin, continuing the integer spacing upward (thresholds
     # land > 1: never crossed)
     pad = k_tot - k_real
-    step_top = (grid[0] - grid[1]) if len(grid) > 1 else r / 64.0
-    top = izmin + step_top * np.arange(pad, 0, -1, dtype=np.float64)
-    plane = np.concatenate([top, np.asarray(grid, np.float64)])
-    return plane.astype(np.float32), k_tot
+    top = izmin + (grid[0] - grid[1]) * np.arange(pad, 0, -1, dtype=np.float64)
+    return np.concatenate([top, grid]).astype(np.float32), k_tot
 
 
 def snap_plane_tables_batch(
@@ -139,24 +138,91 @@ def snap_plane_tables_batch(
     phase_px: float = 0.0,
     stride: int = 1,
 ):
-    """Per-pose snap grids padded to one shared bucketed K.
+    """Per-pose snap grids padded to one shared bucketed K: row b is
+    snap_plane_table(f1, cxs[b], ..., num_planes=K) bit for bit, built for
+    the whole batch in one pass of array operations.
     Returns (plane_invz float32 (B, K), K)."""
+    izmin, izmax, phase_px = float(izmin), float(izmax), float(phase_px)
+    cap = min(max_planes, num_planes) if num_planes else max_planes
+    shifts = _snap_shifts(f1, cxs, izmin, izmax, phase_px)
+    counts = _snap_counts(shifts, cap, stride)
+    lad = _snap_ladders(shifts, counts, izmin, izmax, phase_px)
     if num_planes:
         k = num_planes
     else:
-        k = max(
-            snap_plane_table(f1, cx, izmin, izmax, bucket=bucket,
-                             max_planes=max_planes, phase_px=phase_px,
-                             stride=stride)[1]
-            for cx in cxs
-        )
-    tabs = [
-        snap_plane_table(f1, cx, izmin, izmax, num_planes=k, bucket=bucket,
-                         max_planes=max_planes, phase_px=phase_px,
-                         stride=stride)[0]
-        for cx in cxs
-    ]
-    return np.stack(tabs), k
+        k = max(bucket, _round_up(int(lad[1].sum(1).max()) + 2, bucket))
+        # the rows are built at num_planes=k, which caps each ladder at k
+        # planes: a ladder whose endpoint integers were filtered out can
+        # pass k by its integer count, and doubles its stride there
+        at_k = _snap_counts(shifts, min(max_planes, k), stride)
+        if not all(np.array_equal(x, y) for x, y in zip(at_k, counts)):
+            lad = _snap_ladders(shifts, at_k, izmin, izmax, phase_px)
+    width = max(k, int(lad[1].sum(1).max()) + 2)  # wider only if k < 2
+    return _snap_place(*lad, izmin, izmax, width), k
+
+
+def _snap_shifts(f1, cxs, izmin, izmax, phase_px):
+    """Per pose: the shift slope a (total shift a*invz + phase_px), whether
+    the parallax is sub-pixel, and the integer shifts m_lo .. m_lo + span
+    that the range covers; snap_plane_table's float64 operations, element
+    by element."""
+    a = -float(f1) * np.asarray(cxs, np.float64).reshape(-1)
+    sub = np.abs(a) * (izmin - izmax) < 1.0
+    s0 = a * izmax + phase_px
+    s1 = a * izmin + phase_px
+    m_lo = np.ceil(np.minimum(s0, s1)).astype(np.int64)
+    return a, sub, m_lo, np.floor(np.maximum(s0, s1)).astype(np.int64) - m_lo
+
+
+def _snap_counts(shifts, cap, stride):
+    """Per pose: the stride, doubled until the ladder fits `cap` planes,
+    and the number of integer shifts on it; 0 where the pose is flat
+    (sub-pixel parallax or cap < 4: the endpoints alone are exact, the
+    whole range one linear bracket)."""
+    _, sub, _, span = shifts
+    flat = sub | (cap < 4)
+    st = np.full(span.shape, max(1, int(stride)), np.int64)
+    while True:
+        over = ~flat & (span // st + 3 > cap)
+        if not over.any():
+            break
+        st[over] *= 2
+    return st, np.where(flat, 0, np.maximum(span // st + 1, 0))
+
+
+def _snap_ladders(shifts, counts, izmin, izmax, phase_px):
+    """Every ladder's planes (m - phase_px)/a, near (large invz) first, as
+    a (B, N) float64 grid, and the mask of the planes strictly inside
+    (izmax, izmin) by eps, one run a row since v is monotone in m."""
+    a, _, m_lo, _ = shifts
+    st, n = counts
+    j = np.arange(max(int(n.max(initial=0)), 1), dtype=np.float64)
+    # near to far is m falling where a > 0 and rising where a < 0
+    start = np.where(a > 0, m_lo + (n - 1) * st, m_lo).astype(np.float64)
+    step = np.where(a > 0, -st, st).astype(np.float64)
+    m = start[:, None] + step[:, None] * j  # integers, exact in float64
+    vals = (m - phase_px) / np.where(n > 0, a, 1.0)[:, None]
+    eps = (izmin - izmax) * 1e-7
+    keep = (j < n[:, None]) & (vals > izmax + eps) & (vals < izmin - eps)
+    return vals, keep
+
+
+def _snap_place(vals, keep, izmin, izmax, width):
+    """Each ladder [izmin, inside planes, izmax] right-aligned in `width`
+    planes after its top padding izmin + step*(pad - j), which continues
+    the ladder's top spacing above izmin; cast to float32 once."""
+    rows = np.arange(len(keep))
+    pad = width - 2 - keep.sum(1)
+    c = np.arange(width)
+    plane = np.empty((len(keep), width), np.float64)
+    plane[(c > pad[:, None]) & (c < width - 1)] = vals[keep]
+    plane[:, -1] = izmax
+    plane[rows, pad] = izmin
+    step = izmin - plane[rows, pad + 1]
+    c = c[: pad.max()]
+    top = izmin + step[:, None] * (pad[:, None] - c).astype(np.float64)
+    plane[:, : len(c)] = np.where(c < pad[:, None], top, plane[:, : len(c)])
+    return plane.astype(np.float32)
 
 
 class TranslationPlan(NamedTuple):

@@ -397,3 +397,104 @@ def test_plan_tiers_is_the_plan_render_fast_batch_renders(rng, case):
         return
     assert tabs.shape == (len(poses), 5, k)
     assert bool(torch.isfinite(tabs).all())
+
+
+_SK0 = (0.01, -0.02)
+_INTRINSICS_TEXT = ("render_fast_batch cameras must share intrinsics "
+                    "(width/height/focal/skew)")
+
+
+def _allclose_edge(y, dtype):
+    """The largest x of `dtype` above y that np.allclose(x, y) accepts, and
+    the next one up, which it rejects (bisection on the bit patterns)."""
+    ints = {np.float32: np.int32, np.float64: np.int64}[dtype]
+    lo = np.asarray(y, dtype).view(ints)
+    hi = np.asarray(float(y) + 1e-6, dtype).view(ints)
+    while hi - lo > 1:
+        mid = lo + (hi - lo) // 2
+        if np.allclose(np.asarray(mid).view(dtype), y):
+            lo = mid
+        else:
+            hi = mid
+    return (np.asarray(lo).view(dtype)[()], np.asarray(hi).view(dtype)[()])
+
+
+def _loop_shares_intrinsics(cameras):
+    """lif_tpu's per-camera intrinsics check in render_fast_batch."""
+    cam0 = cameras[0]
+    return not any(
+        cam.width != cam0.width or cam.height != cam0.height
+        or abs(float(cam.focal_px) - float(cam0.focal_px)) > 1e-6
+        or not np.allclose(np.asarray(cam.skew), np.asarray(cam0.skew))
+        for cam in cameras[1:]
+    )
+
+
+@pytest.mark.parametrize("case,shared", [
+    ("same", True), ("skew_in", True), ("skew_out", False),
+    ("skew_in_f64", True), ("skew_out_f64", False), ("focal", False),
+    ("width", False), ("height", False),
+])
+def test_plan_tiers_checks_a_lateral_batch_as_the_loop(rng, monkeypatch,
+                                                       case, shared):
+    """plan_tiers on 432 lateral cameras: its batch check of shared
+    intrinsics accepts and raises, with the same text and before any
+    texture prep, where lif_tpu's per-camera loop does, at skews just
+    inside and just outside np.allclose's tolerance (float32, and a
+    float64 skew among float32 ones), a focal one float32 ulp off and a
+    width or height off. An accepted batch plans 'march', its pos_b and
+    rot_b are lif_tpu's relative_view_pose per camera bit for bit, and its
+    snap tables are lif_tpu's per-pose ladders at K."""
+    import dataclasses
+
+    from lif_tpu.core.pose import relative_view_pose
+    from lif_tpu.ops import sweep_march as jsm
+
+    _, tp = _projectors(rng, h=112)
+    w, h, f = 128, 112, 0.78 * 128
+    cams = [lif_tpu_torch.Camera.create(
+        w, h, focal_px=f, position=(0.115 + 0.02 * i / 432, 0.0, 0.0),
+        skew=_SK0) for i in range(432)]
+    sk0 = np.asarray(cams[0].skew)
+    edge32 = _allclose_edge(sk0[0], np.float32)
+    edge64 = _allclose_edge(sk0[0], np.float64)
+    change = {
+        "same": {},
+        "skew_in": dict(skew=np.array([edge32[0], sk0[1]], np.float32)),
+        "skew_out": dict(skew=np.array([edge32[1], sk0[1]], np.float32)),
+        "skew_in_f64": dict(skew=np.array([edge64[0], sk0[1]], np.float64)),
+        "skew_out_f64": dict(skew=np.array([edge64[1], sk0[1]], np.float64)),
+        "focal": dict(focal_px=np.nextafter(cams[0].focal_px, np.float32(1e9))),
+        "width": dict(width=w + 8),
+        "height": dict(height=h + 1),
+    }[case]
+    cams[217] = dataclasses.replace(cams[217], **change)
+    assert _loop_shares_intrinsics(cams) is shared
+    if not shared:
+        def no_prep(_):
+            raise AssertionError("textures prepared before the check")
+
+        monkeypatch.setattr(trenderer, "_prepared_textures", no_prep)
+        with pytest.raises(ValueError) as err:
+            trenderer.plan_tiers(tp, cams)
+        assert str(err.value) == _INTRINSICS_TEXT
+        return
+    plan = trenderer.plan_tiers(tp, cams)
+    assert [p[0] for p in plan.planned] == ["march"]
+    pos, rot = zip(*(relative_view_pose(tp.position, tp.rotation,
+                                        c.position, c.rotation)
+                     for c in cams))
+    for got, want in ((plan.pos_b, pos), (plan.rot_b, rot)):
+        assert got.dtype == np.float64
+        assert np.array_equal(got.view(np.uint64),
+                              np.stack(want).view(np.uint64))
+    lay = plan.tex_layers[0]
+    phase = trenderer._march_fold(
+        lay, tp.skew, cams[0].skew, float(np.abs(plan.pos_b[:, 0]).max()),
+        plan.out_w_eff, h, plan.dx_pad)[2]
+    tab, k = trenderer._march_tables(tp, 0, trenderer.DEFAULT_CONFIG, None,
+                                     plan.pos_b[:, 0], phase)
+    want = np.stack([jsm.snap_plane_table(
+        lay["focal_host"], cx, lay["izmin_host"], lay["izmax_host"],
+        num_planes=k, phase_px=phase)[0] for cx in plan.pos_b[:, 0]])
+    assert np.array_equal(tab.numpy().view(np.uint32), want.view(np.uint32))

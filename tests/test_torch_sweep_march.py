@@ -57,6 +57,48 @@ def test_snap_plane_tables_equal(cx, stride, phase):
     assert ka == kb and np.array_equal(ta, tb)
 
 
+_SFMOMA = (0.78 * 1280, 0.09 / 0.045, 0.0001 / 0.045)  # f1, izmin, izmax
+_BATCH_CASES = {
+    # flat poses (sub-pixel parallax) among large ones
+    "flat_mixed": (_SFMOMA, [1e-7, 0.155, -2e-7, 0.03, 0.0], {}),
+    # both signs of cx and cx = 0 in one batch, at a phase
+    "signs_phase": (_SFMOMA, [-0.06, -0.01, 0.0, 0.01, 0.06],
+                    dict(phase_px=0.37)),
+    "stride": (_SFMOMA, [0.115, -0.08, 0.02], dict(stride=3, phase_px=-0.3)),
+    # 0.9 and -1.2 pass max_planes: their strides double, 0.02 keeps 1
+    "doubling": (_SFMOMA, [0.9, 0.02, -1.2], {}),
+    "doubling_small_cap": (_SFMOMA, [0.155, 0.05], dict(max_planes=64)),
+    "explicit": (_SFMOMA, [0.115, -0.155, 0.0], dict(num_planes=512)),
+    "explicit_cap": (_SFMOMA, [0.155, 0.01], dict(num_planes=128)),
+    "single": (_SFMOMA, [0.135], {}),
+    # the trajectory cell's batch: 432 poses along x
+    "trajectory": (_SFMOMA, [0.115 + 0.02 * i / 432 for i in range(432)],
+                   {}),
+    # both range endpoints on integer shifts are filtered out, so the
+    # 62-plane ladder buckets to K = 64 but caps there at stride 2
+    "endpoints_filtered": ((100.0, 2.0, 0.0), [-0.3125, 0.3125, 0.01], {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BATCH_CASES))
+def test_snap_plane_tables_batch_bit_equal(case):
+    """The one-pass batch builder: every row is lif_tpu's per-pose
+    snap_plane_table at the returned K, bit for bit (uint32 views), and K
+    is lif_tpu's batch K."""
+    (f1, izmin, izmax), cxs, kw = _BATCH_CASES[case]
+    tab, k = tsm.snap_plane_tables_batch(f1, cxs, izmin, izmax, **kw)
+    _, kj = jsm.snap_plane_tables_batch(f1, cxs, izmin, izmax, **kw)
+    assert k == kj and tab.shape == (len(cxs), k) and tab.dtype == np.float32
+    for row, cx in zip(tab, cxs):
+        want, kw_k = jsm.snap_plane_table(f1, cx, izmin, izmax,
+                                          **dict(kw, num_planes=k))
+        assert kw_k == k
+        assert np.array_equal(row.view(np.uint32), want.view(np.uint32))
+    if case.startswith("doubling"):  # more integer shifts than planes
+        span = f1 * max(map(abs, cxs)) * (izmin - izmax)
+        assert k <= kw.get("max_planes", 1024) < span
+
+
 @pytest.mark.parametrize("dims", [(128, 96, 128, 96), (160, 112, 128, 96),
                                   (1280, 800, 1280, 800)])
 @pytest.mark.parametrize("shift", [(0.0, 0.0), (9.6, 0.0), (310.2, 4.0)])
