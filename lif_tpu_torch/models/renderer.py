@@ -162,6 +162,12 @@ _LRU_COUNTERS = {
 }
 
 
+# the tier each layer of a render_fast_batch call renders on, counted by
+# the call that renders it (the pitch route's inner call)
+_ROUTE_COUNTERS = {mode: f"route.{mode}" for mode in
+                   ("march", "scaled", "target", "rotated", "sweep")}
+
+
 def _lru_get(cache: OrderedDict, key, name: str, valid=None):
     """The entry of `cache` under `key`, moved to the LRU end, or None
     where there is none or `valid(entry)` is false; counted as a hit or a
@@ -618,41 +624,45 @@ def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b,
     skewed = bool(np.abs(d).sum() > 1e-12)
     if not rotated:
         fr = lay["focal_host"] / f2_host
-        plan = _sweep_scaled.scaled_plan(
-            lay["w"], lay["h"], out_w, out_h, lay["focal_host"], fr,
-            float(np.abs(pos_b[:, 0]).max()), float(np.abs(pos_b[:, 1]).max()),
-            float(min(pos_b[:, 2].min(), 0.0)),
-            float(max(pos_b[:, 2].max(), 0.0)),
-            lay["izmin_host"], lay["izmax_host"],
-            dx_user=dx_user + float(d[0]), dy_user=float(d[1]),
-        )
-        grids, k_l = _sweep_scaled.parallax_step_grids_batch(
-            lay["focal_host"], pos_b, fr, out_w, out_h, lay["izmin_host"],
-            lay["izmax_host"], step_px=cfg.rotated_step_px,
-            num_planes=explicit_planes,
-        )
-        grids_t = torch.as_tensor(grids, device=device)
-        profiling.host_sync("sync.upload.grids", grids_t.device)
+        with profiling.span("lif.plan.scaled"):
+            plan = _sweep_scaled.scaled_plan(
+                lay["w"], lay["h"], out_w, out_h, lay["focal_host"], fr,
+                float(np.abs(pos_b[:, 0]).max()),
+                float(np.abs(pos_b[:, 1]).max()),
+                float(min(pos_b[:, 2].min(), 0.0)),
+                float(max(pos_b[:, 2].max(), 0.0)),
+                lay["izmin_host"], lay["izmax_host"],
+                dx_user=dx_user + float(d[0]), dy_user=float(d[1]),
+            )
+            grids, k_l = _sweep_scaled.parallax_step_grids_batch(
+                lay["focal_host"], pos_b, fr, out_w, out_h,
+                lay["izmin_host"], lay["izmax_host"],
+                step_px=cfg.rotated_step_px, num_planes=explicit_planes,
+            )
+            grids_t = torch.as_tensor(grids, device=device)
+            profiling.host_sync("sync.upload.grids", grids_t.device)
         return (
             "scaled",
             (plan, k_l, fr, dx_user + float(d[0]), float(d[1])),
             {"grids": grids_t},
         )
     if dx_user == 0.0 and not skewed:
-        key = (
-            lay["w"], lay["h"], out_w_true, out_h, lay["focal_host"],
-            f2_host, lay["izmin_host"], lay["izmax_host"],
-            cfg.target_step_px, explicit_planes,
-            np.asarray(rot_list, np.float64).tobytes(),
-            np.asarray(pos_list, np.float64).tobytes(), str(device),
-        )
-        entry = _lru_get(_TARGET_PLAN_CACHE, key, "target_plan")
-        if entry is None:
-            entry = _plan_target_entry(
-                lay, f2_host, out_w_true, out_h, rot_list, pos_list, cfg,
-                explicit_planes, device,
-            ) or "ineligible"
-            _lru_put(_TARGET_PLAN_CACHE, _TARGET_PLAN_CACHE_MAX, key, entry)
+        with profiling.span("lif.plan.target"):
+            key = (
+                lay["w"], lay["h"], out_w_true, out_h, lay["focal_host"],
+                f2_host, lay["izmin_host"], lay["izmax_host"],
+                cfg.target_step_px, explicit_planes,
+                np.asarray(rot_list, np.float64).tobytes(),
+                np.asarray(pos_list, np.float64).tobytes(), str(device),
+            )
+            entry = _lru_get(_TARGET_PLAN_CACHE, key, "target_plan")
+            if entry is None:
+                entry = _plan_target_entry(
+                    lay, f2_host, out_w_true, out_h, rot_list, pos_list,
+                    cfg, explicit_planes, device,
+                ) or "ineligible"
+                _lru_put(_TARGET_PLAN_CACHE, _TARGET_PLAN_CACHE_MAX, key,
+                         entry)
         if entry != "ineligible":
             return entry
     sk1_t = (float(sk1[0]), float(sk1[1]))
@@ -988,6 +998,8 @@ def render_fast_batch(
             "focal and dims) — the sweep fallback cannot apply the "
             "frustum shift"
         )
+    for mode in modes:
+        profiling.count(_ROUTE_COUNTERS[mode])
 
     max_cx = float(np.abs(pos_b[:, 0]).max())
     k_sweep = num_planes or cfg.sweep_planes

@@ -19,7 +19,8 @@ every span inside carries that call's id. Names are constant strings
 ("lif.plan", "lif.kernel.lateral", ...; PERF.md lists them), so a trace's
 idle gaps sum by name. Counters count where the work happens: "sync.*"
 each point where the host waits for a CUDA stream (host_sync),
-"cache.<name>.hit" / ".miss" the renderer's caches. snapshot() sums the
+"cache.<name>.hit" / ".miss" the renderer's caches, "route.<tier>" the
+tier each layer of a render_fast_batch call renders on. snapshot() sums the
 records; reset() clears them; trace() resets on entry and writes them
 beside the timeline.
 """

@@ -216,3 +216,91 @@ def test_trace_writes_spans_and_resets(rng, tmp_path):
     assert doc["snapshot"] == json.loads(json.dumps(profiling.snapshot()))
     assert doc["records"][0]["name"] == "lif.render_fast_batch"
     assert {r["call"] for r in doc["records"]} == {1}
+
+
+# the three motions of a camera path on a 128-wide frame (the target tier
+# plans whole 128-column groups): each batch takes one tier
+W_PATH, H_PATH = 128, 48
+MOTIONS = {
+    "lateral": ("march", [([0.011 + 0.002 * i, 0.0, 0.0], None)
+                          for i in range(3)]),
+    "orbit": ("target", [lt.orbit_pose([0.0, 0.0, -1.0], 1.0, np.deg2rad(t))
+                         for t in (-3.0, 0.5, 4.0)]),
+    "zoom": ("scaled", [([0.0, 0.0, 0.01 * (i + 1)], None)
+                        for i in range(3)]),
+}
+
+
+def _path_call(rng, motion, layers=1):
+    """A render_fast_batch call of one motion's 3 poses on a projector of
+    `layers` layers, and the tier it must take."""
+    disp = (0.3 + 0.4 * rng.random((layers, H_PATH, W_PATH))).astype(
+        np.float32)
+    rgb = rng.random((layers, H_PATH, W_PATH, 3)).astype(np.float32)
+    f = 0.78 * W_PATH
+    extra = [dict(rgb=rgb[i], disp=disp[i], focal_px=f, invz_min=2.0,
+                  invz_max=0.1) for i in range(1, layers)]
+    proj = lt.projector_from_arrays(
+        rgb[0], disp[0], focal_px=f, invz_min=2.0, invz_max=0.1,
+        baseline=1.0, device="cpu", extra_layers=extra)
+    tier, poses = MOTIONS[motion]
+    cams = [lt.Camera.create(W_PATH, H_PATH, focal_px=f, position=p,
+                             rotation=r) for p, r in poses]
+    return (lambda: lt.render_fast_batch(proj, cams, return_tiers=True)), tier
+
+
+@pytest.mark.parametrize("motion", sorted(MOTIONS))
+def test_route_counts_the_tier_of_each_layer(rng, motion):
+    """A lateral, an orbit and a zoom batch each count one route.<tier> a
+    call for the tier they render on, and no other route."""
+    fn, tier = _path_call(rng, motion)
+    assert fn()[1] == (tier,)
+    _traced(fn, calls=2)
+    routes = {k: n for k, n in profiling.snapshot()["counters"].items()
+              if k.startswith("route.")}
+    assert routes == {f"route.{tier}": 2}
+
+
+def test_route_counts_every_layer(rng):
+    """A two-layer projector's lateral batch counts route.march twice a
+    call, once a layer."""
+    fn, _ = _path_call(rng, "lateral", layers=2)
+    assert fn()[1] == ("march", "march")
+    _traced(fn, calls=1)
+    assert profiling.snapshot()["counters"]["route.march"] == 2
+
+
+@pytest.mark.parametrize("motion,span", [("orbit", "lif.plan.target"),
+                                         ("zoom", "lif.plan.scaled")])
+def test_tier_planners_nest_in_plan(rng, motion, span):
+    """The target and scaled planners are their own spans, one a layer
+    and call, each inside a lif.plan span of its call; the lateral batch
+    opens neither."""
+    fn, _ = _path_call(rng, motion)
+    _traced(fn, calls=2)
+    recs = profiling.records()
+    mine = [r for r in recs if r["name"] == span]
+    assert len(mine) == 2 and {r["call"] for r in mine} == {1, 2}
+    for r in mine:
+        assert recs[r["parent"]]["name"] == "lif.plan"
+    assert profiling.snapshot()["spans"][span]["n"] == 2
+    fn, _ = _path_call(rng, "lateral")
+    _traced(fn, calls=1)
+    names = set(profiling.snapshot()["spans"])
+    assert not names & {"lif.plan.target", "lif.plan.scaled"}
+
+
+@pytest.mark.parametrize("motion", sorted(MOTIONS))
+def test_untraced_path_records_nothing(rng, monkeypatch, motion):
+    """Without a profiler the route counters and the planners' spans
+    record nothing and make no range."""
+    fn, _ = _path_call(rng, motion)
+    profiling.reset()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function made with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    fn()
+    assert profiling.snapshot() == {"calls": 0, "spans": {}, "counters": {}}
+    assert profiling.records() == []
