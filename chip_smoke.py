@@ -23,7 +23,12 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
    alpha coverage in (0.5, 1]; pose 0 >= 40 dB against the 640-step
    exact march;
 5. lateral timing: CUDA events, median of 5 runs after a warm-up, the
-   kernel beside its previous design's time;
+   kernel beside its previous design's time; then the lateral epilogue
+   kernel (lateral_epilogue, in csrc/sweep_march.cu) at the main path's
+   shape (one 48-pose chunk at 1280x800, the default config) against its
+   plain version, the PyTorch chain, on the card (max abs 0), each timed,
+   with its bound (40 bytes a pixel at 3.35 TB/s); main path 1 launches
+   it once a chunk;
 6. target kernel vs plain: the same scene, 8 orbit poses
    orbit_pose([0, 0, -1], 1, theta), theta over +-15 deg; depth-only at
    refine 0, depth-only on a 2-px ladder with refine 1, and full color,
@@ -237,7 +242,8 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     tools/reference_bench_psnr.py), tile parity at every world size, and
     each of the four kernels launched and held.
 
-Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1), main
+Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1; main
+path 1 also 2 epilogue launches), main
 paths 8, 9, 10, 14 and 15 each step's against the tiers it took, main
 path 13 each rank's against its block of poses. The
 second-to-last line is the kernels' JSON record (with each kernel's bound:
@@ -289,6 +295,7 @@ N_CHECK = 8  # poses of the kernel-vs-plain check
 N_MIRROR = 2  # of them, poses checked against a skip walk's plain mirror
 BENCH_HELD = 2  # poses of each of main path 15's launches held to plain
 N_MAIN = 96  # poses of the main-path run: two chunks of the default 48
+N_EPILOGUE = 48  # poses of the epilogue check: one chunk of the default 48
 PSNR_MIN = 40.0  # dB against the converged (640-step) march
 N_ORBIT = 120  # orbit poses: three chunks of 40
 ORBIT_DEG = 15.0  # orbit half-angle
@@ -745,6 +752,7 @@ def run():
 
     def reset_counts():
         counter(reset=True)
+        kmarch.lateral_epilogue.launches = 0
 
     def launch_counts():
         return counter()
@@ -820,13 +828,15 @@ def run():
     )
     torch.cuda.synchronize()
     launches = kmarch.sweep_lateral.launches
-    record_path("main path 1", launch_counts())
+    epilogues = kmarch.lateral_epilogue.launches
+    record_path("main path 1", with_epilogue(launch_counts()))
     coverage = float(out[..., 3].mean())
     print(f"main path: render_fast_batch({N_MAIN} poses) -> "
           f"{tuple(out.shape)}, tiers {tiers}, lateral_march launches "
           f"{launches}, alpha coverage {coverage:.4f}", flush=True)
     check(tiers == ("march",), f"tiers {tiers}")
     check(launches == 2, f"{launches} lateral launches for two pose chunks")
+    check(epilogues == 2, f"{epilogues} epilogue launches for two chunks")
     check(tuple(out.shape) == (N_MAIN, H, W, 4), f"shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite output")
     check(0.5 < coverage <= 1.0, f"alpha coverage {coverage}")
@@ -871,6 +881,7 @@ def run():
         "lateral_march", "lif_tpu_torch/csrc/sweep_march.cu",
         "lif_tpu/ops/pallas/sweep_march.py:124", launches, err_lateral,
         kernel_ms / N_CHECK, plain_ms / N_CHECK, lateral_bound)
+    epilogue = epilogue_phase(proj, lay, cam, epilogues, card)
     target = orbit_phases(proj, focal, lay, reset_counts, card)
     scaled = scaled_phases(proj, focal, lay, reset_counts, card)
     billboard = billboard_phases(proj, focal, lay, cams, reset_counts,
@@ -886,7 +897,7 @@ def run():
     errs14, lateral["uniform_grid"] = plane_mode_phase(
         proj, focal, lay, reset_counts, launch_counts, card)
     errs15 = bench_phase(reset_counts, launch_counts, card)
-    kernels = [lateral, target, scaled, billboard]
+    kernels = [lateral, epilogue, target, scaled, billboard]
     for rec in kernels:
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  *(e.get(rec["name"], 0.0) for e in (
@@ -896,6 +907,69 @@ def run():
             for path, counts in LAUNCHES_BY_PATH.items()
             if counts.get(rec["name"])}
     return {"kernels": kernels}, card
+
+
+def epilogue_phase(proj, lay, cam, launches, card):
+    """Phase 5, second half: the lateral epilogue kernel at the main
+    path's shape, one pose chunk of N_EPILOGUE lateral poses at W x H
+    under the default config, on the lateral kernel's outputs: equal to
+    its plain version (the PyTorch chain) on the card, both timed, beside
+    the bound of its 40 bytes a pixel. `launches`: main path 1's.
+    Returns its kernel record."""
+    import torch
+
+    import lif_tpu_torch
+    from lif_tpu_torch.core.pose import relative_view_pose
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    cfg = lif_tpu_torch.DEFAULT_CONFIG
+    dev = lay["disp"].device
+    c1 = np.stack([
+        relative_view_pose(proj.position, proj.rotation, c.position,
+                           c.rotation)[0]
+        for c in (cam(0.135 + 0.02 * i / N_EPILOGUE)
+                  for i in range(N_EPILOGUE))
+    ]).astype(np.float32)
+    plan = renderer._march_plan(lay, float(np.abs(c1[:, 0]).max()), W, H)
+    planes, k = renderer._snap_tables(lay, c1[:, 0], None, 0.0, 1, dev)
+    prep = kmarch.prepare_translation_src(lay["rgb"], lay["disp"],
+                                          lay["mask"], plan)
+    poses = kmarch.upload_poses(c1, dev)
+    found, invz, rgba = kmarch.sweep_lateral(*kmarch.lateral_kernel_inputs(
+        prep, lay["izmin_host"], lay["izmax_host"], c1, lay["focal_host"],
+        planes, plan, k, poses=poses), rows=lay["skip_rows"])
+    args = (found, invz, rgba, poses, plan, lay["focal_host"],
+            cfg.background)
+    kw = dict(feathering=cfg.feathering, mask_mode="none",
+              to_srgb=cfg.to_srgb)
+    out = torch.empty((N_EPILOGUE, H, W, 4), device=dev)
+    twin = torch.empty_like(out)
+    kmarch.lateral_epilogue(*args, out, **kw)
+    kmarch.lateral_epilogue_plain(*args, twin, **kw)
+    torch.cuda.synchronize()
+    err = float((out - twin).abs().max())
+    print(f"lateral epilogue kernel vs its plain version ({N_EPILOGUE} "
+          f"poses, {W}x{H}, background {cfg.background}, sRGB "
+          f"{cfg.to_srgb}): max abs {err:.3g}, equal "
+          f"{torch.equal(out, twin)}, alpha coverage "
+          f"{float(out[..., 3].mean()):.4f}", flush=True)
+    check(torch.equal(out, twin), "the epilogue kernel is not exact")
+    ms = device_timer(kmarch.lateral_epilogue, *args, out, iters=10,
+                      repeats=5, **kw) / N_EPILOGUE
+    plain_ms = device_timer(kmarch.lateral_epilogue_plain, *args, twin,
+                            iters=3, repeats=5, **kw) / N_EPILOGUE
+    nbytes = tensor_bytes(found, invz, rgba, out)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3 / N_EPILOGUE
+    print(f"lateral_epilogue kernel: {ms:.5f} ms/frame, bound {bound:.5f} "
+          f"ms/frame (bytes: {nbytes / N_EPILOGUE / (W * H):.0f} B/px), the "
+          f"PyTorch chain {plain_ms:.5f} ms/frame ({N_EPILOGUE}-pose "
+          f"chunk) [{card}]", flush=True)
+    return kernel_record(
+        "lateral_epilogue", "lif_tpu_torch/csrc/sweep_march.cu",
+        "none: lif_tpu leaves the lateral epilogue to XLA's fusion",
+        launches, err, ms, plain_ms, (bound, "bytes"))
 
 
 def orbit_phases(proj, focal, lay, reset_counts, card):
@@ -1546,6 +1620,16 @@ def hold_to_plain(calls, step, poses=None):
 LAUNCHES_BY_PATH: dict = {}
 
 
+def with_epilogue(counts):
+    """A step's kernel launches and the lateral epilogue kernel's, which
+    the steps' exact launch checks leave out (it launches once after each
+    lateral launch of a call whose every layer marches): the counts since
+    the step's reset_counts."""
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+
+    return dict(counts, lateral_epilogue=kmarch.lateral_epilogue.launches)
+
+
 def record_path(path, counts):
     """Add a main path's launches (a step's counts) to LAUNCHES_BY_PATH."""
     tally = LAUNCHES_BY_PATH.setdefault(path, {})
@@ -1578,7 +1662,7 @@ class MainPath:
             out = fn(*args, **kwargs)
         torch.cuda.synchronize()
         counts = self.launch_counts()
-        record_path(self.name, counts)
+        record_path(self.name, with_epilogue(counts))
         return out, counts, calls
 
     def expect(self, tiers):
@@ -1605,7 +1689,7 @@ class MainPath:
             yield
         torch.cuda.synchronize()
         counts = self.launch_counts()
-        record_path(self.name, counts)
+        record_path(self.name, with_epilogue(counts))
         self.steps[name] = counts
         self.held(calls, name, poses)
 
@@ -1812,7 +1896,9 @@ def plain_lateral():
     """Inside, the renderer's lateral tier runs its plain version on the
     card's tensors: no march pack is attached (each call cuts the source
     from the layer's own textures and mask, _march_sources) and the plain
-    march and _finalize run pose by pose where the kernel would launch.
+    march and _finalize run pose by pose where the kernel would launch
+    (on the epilogue kernel's route, the plain march pose by pose and the
+    epilogue's plain version, the PyTorch chain, for the batch).
     A render inside is the plain-version twin of the same render outside;
     the kernel is exact against the plain march, so the two must be
     equal."""
@@ -1824,7 +1910,20 @@ def plain_lateral():
 
     def plain_batch(rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz,
                     background, plan, num_planes, prepared=None, rows=None,
-                    **kw):
+                    out=None, first=True, last=True, **kw):
+        if out is not None:  # the epilogue kernel's route: its plain twin
+            marches = [smarch.march_translation_plain(
+                rgb, disp, mask, invz_min, invz_max, cc, f1, pp, plan,
+                num_planes, refine=kw["refine"], offset=kw["offset"])
+                for cc, pp in zip(c1, plane_invz)]
+            found, invz, rgba = (torch.stack(t) for t in zip(*marches))
+            c1_t = torch.as_tensor(np.asarray(c1, np.float32),
+                                   device=disp.device)
+            return kmarch.lateral_epilogue_plain(
+                found, invz, rgba, c1_t, plan, f1, background, out,
+                feathering=kw["feathering"], mask_mode=kw["mask_mode"],
+                to_srgb=kw["to_srgb"], offset=kw["offset"],
+                crop_y=kw["crop_y"], first=first, last=last)
         outs = [smarch.render_translation_plain(
             rgb, disp, mask, invz_min, invz_max, cc, f1, pp, background, plan,
             num_planes, **kw) for cc, pp in zip(c1, plane_invz)]

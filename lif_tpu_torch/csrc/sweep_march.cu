@@ -429,3 +429,197 @@ extern "C" int lif_lateral_march(
       n8, n32, izmin, izmax, refine);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// The lateral epilogue: what follows the march for one layer of a pose
+// chunk, written into the call's output.
+//
+// Replaces no TPU kernel: lif_tpu leaves this stage to XLA's fusion
+// (render_translation_xla's hit test and blend). In the port it was about 45
+// PyTorch operators over (B, H, W) planes (ops/sweep_march.py::_finalize's
+// hit test, edge taper, mask and premultiply over a zero background, the
+// LDI over-compositing of models/renderer.py::_fast_batch_core,
+// ops/composite.py::finish_over_background's blend and sRGB) and three
+// full-frame copies (two channel concatenations and the pose chunks'
+// concatenation). One thread finishes one pixel of the true width: it
+// reads the march's found, invz* and rgba* (24 bytes), the layers in
+// front of this one from the output (16 bytes, every layer but the first)
+// and writes 16 bytes once, into the caller's (B, H, W_true, 4) frames;
+// the march's width-pad columns are neither read nor written.
+//
+// Bound on the H100: bytes, 40 a pixel for a one-layer call (56 a pixel
+// for each layer behind the first) at 3.35 TB/s; its few dozen float
+// operations a pixel are far below the operation bound. Loads and the
+// store are coalesced, the colour ones 16 bytes a thread.
+//
+// Arithmetic: the float32 operations of those PyTorch operators, in their
+// order, each an explicitly rounded intrinsic (and the library is built
+// with --fmad=false), with PyTorch's CUDA semantics: a division by a
+// Python number is the product with the number's float32 reciprocal,
+// taken on the host; each Python constant is a double rounded to float;
+// clamps pass NaN through; the zero-background blend of each layer is
+// kept (it turns -0 into +0). The plain version is
+// lif_tpu_torch/ops/cuda/sweep_march.py::lateral_epilogue_plain.
+
+namespace {
+
+constexpr int kEpilogueThreads = 256;
+
+struct EpiloguePlan {
+  float f1, bx, by, off_x, off_y, crop_y;
+  float inv_src_w, inv_src_h;  // 1 / src_w, 1 / (src_h + 2 crop_y)
+  float inv_f;                 // smoothstep(0, f): 1 / f
+  float e0, inv_e;             // smoothstep(1 - f, 1): 1 - f, its 1 / width
+  float bg[4];                 // the background, unless given on the device
+  int mask_mode;               // 0 none, 1 multiply, 2 hard
+  int to_srgb, first, last;
+};
+
+// clamp(x, lo, hi) as PyTorch's CUDA clamp: NaN passes through
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+// GLSL smoothstep(e0, e1, x), inv = 1 / (e1 - e0): t * t * (3 - 2 t)
+__device__ __forceinline__ float smoothstep_rn(float x, float e0, float inv) {
+  const float t = clamp_nan(__fmul_rn(__fsub_rn(x, e0), inv), 0.0f, 1.0f);
+  return __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.0f, __fmul_rn(2.0f, t)));
+}
+
+// core/color.py::linear_to_srgb
+__device__ __forceinline__ float srgb_rn(float x) {
+  if (x <= static_cast<float>(0.0031308)) {
+    return __fmul_rn(x, static_cast<float>(12.92));
+  }
+  const float b = isnan(x) ? x : fmaxf(x, static_cast<float>(1e-12));
+  return __fsub_rn(
+      __fmul_rn(powf(b, static_cast<float>(1.0 / 2.4)),
+                static_cast<float>(1.055)),
+      static_cast<float>(0.055));
+}
+
+__global__ void __launch_bounds__(kEpilogueThreads) lateral_epilogue_kernel(
+    const float* __restrict__ found,  // (B, H, W) 0/1
+    const float* __restrict__ invz,   // (B, H, W) invz*
+    const float4* __restrict__ rgba,  // (B, H, W) rgba*
+    const float* __restrict__ c1,     // (B, 3) the poses
+    const float* __restrict__ bgp,    // (4,) the background, or null
+    float4* __restrict__ out,         // (B, H, Wt) premultiplied rgb, alpha
+    long long n, int H, int W, int Wt, EpiloguePlan p) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (q >= n) return;
+  const int j = static_cast<int>(q % Wt);
+  const long long r = q / Wt;  // b * H + i
+  const int i = static_cast<int>(r % H);
+  const int b = static_cast<int>(r / H);
+  const long long s = r * W + j;
+  const float iz = invz[s];
+  const float4 c = rgba[s];
+
+  // _finalize's hit test at the true source position (hit_and_alpha)
+  const float sx = __fmul_rn(c1[3 * b], p.f1);
+  const float sy = __fmul_rn(c1[3 * b + 1], p.f1);
+  const float gx = __fadd_rn(
+      __fsub_rn(__fadd_rn(static_cast<float>(j), p.bx), __fmul_rn(sx, iz)),
+      p.off_x);
+  const float gy = __fadd_rn(
+      __fsub_rn(__fadd_rn(static_cast<float>(i), p.by), __fmul_rn(sy, iz)),
+      p.off_y);
+  const float u = __fmul_rn(__fadd_rn(gx, 0.5f), p.inv_src_w);
+  const float v = __fmul_rn(__fadd_rn(__fadd_rn(gy, p.crop_y), 0.5f),
+                            p.inv_src_h);
+  // composite.edge_alpha
+  const float inside =
+      (u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f) ? 1.0f : 0.0f;
+  const float tap = __fmul_rn(
+      __fmul_rn(__fmul_rn(smoothstep_rn(u, 0.0f, p.inv_f),
+                          __fsub_rn(1.0f, smoothstep_rn(u, p.e0, p.inv_e))),
+                smoothstep_rn(v, 0.0f, p.inv_f)),
+      __fsub_rn(1.0f, smoothstep_rn(v, p.e0, p.inv_e)));
+  float alpha = __fmul_rn(__fmul_rn(found[s], inside), tap);
+  if (p.mask_mode == 1) {
+    alpha = __fmul_rn(alpha, clamp_nan(c.w, 0.0f, 1.0f));
+  } else if (p.mask_mode == 2) {
+    alpha = __fmul_rn(alpha, c.w >= 0.5f ? 1.0f : 0.0f);
+  }
+  // premultiplied over the zero background: 0 * 0 * (1 - alpha) + rgb * alpha
+  const float z = __fmul_rn(__fmul_rn(0.0f, 0.0f), __fsub_rn(1.0f, alpha));
+  float rgb[3] = {__fadd_rn(z, __fmul_rn(c.x, alpha)),
+                  __fadd_rn(z, __fmul_rn(c.y, alpha)),
+                  __fadd_rn(z, __fmul_rn(c.z, alpha))};
+  float a = __fadd_rn(0.0f, __fmul_rn(alpha, __fsub_rn(1.0f, 0.0f)));
+
+  // front-to-back over the layers in front (_fast_batch_core)
+  if (!p.first) {
+    const float4 acc = out[q];
+    const float t = __fsub_rn(1.0f, acc.w);
+    rgb[0] = __fadd_rn(acc.x, __fmul_rn(t, rgb[0]));
+    rgb[1] = __fadd_rn(acc.y, __fmul_rn(t, rgb[1]));
+    rgb[2] = __fadd_rn(acc.z, __fmul_rn(t, rgb[2]));
+    a = __fadd_rn(acc.w, __fmul_rn(t, a));
+  }
+  // finish_over_background
+  if (p.last) {
+    float bg[4];
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) bg[ch] = bgp ? bgp[ch] : p.bg[ch];
+    const float t = __fsub_rn(1.0f, a);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      rgb[ch] = __fadd_rn(__fmul_rn(__fmul_rn(bg[ch], bg[3]), t), rgb[ch]);
+      if (p.to_srgb) rgb[ch] = srgb_rn(rgb[ch]);
+    }
+    a = __fadd_rn(bg[3], __fmul_rn(a, __fsub_rn(1.0f, bg[3])));
+  }
+  out[q] = make_float4(rgb[0], rgb[1], rgb[2], a);
+}
+
+}  // namespace
+
+// Launch on `stream`; returns cudaGetLastError() right after the launch, or
+// cudaErrorInvalidValue for an empty or ill-shaped call. W is the march's
+// (padded) width, Wt <= W the true width of `out`; the doubles are the
+// Python numbers the PyTorch chain takes (feather = max(feathering, 1e-6),
+// e0 = 1 - feather, e_span = 1 - e0), rounded here as PyTorch rounds them.
+extern "C" int lif_lateral_epilogue(
+    const void* found, const void* invz, const void* rgba, const void* c1,
+    const void* bg_ptr, void* out, int B, int H, int W, int Wt, double f1,
+    double bx, double by, double off_x, double off_y, int crop_y, int src_w,
+    int src_h_total, double feather, double e0, double e_span, float bg0,
+    float bg1, float bg2, float bg3, int mask_mode, int to_srgb, int first,
+    int last, void* stream) {
+  if (B < 1 || H < 1 || Wt < 1 || Wt > W || mask_mode < 0 || mask_mode > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  EpiloguePlan p;
+  p.f1 = static_cast<float>(f1);
+  p.bx = static_cast<float>(bx);
+  p.by = static_cast<float>(by);
+  p.off_x = static_cast<float>(off_x);
+  p.off_y = static_cast<float>(off_y);
+  p.crop_y = static_cast<float>(crop_y);
+  p.inv_src_w = 1.0f / static_cast<float>(src_w);
+  p.inv_src_h = 1.0f / static_cast<float>(src_h_total);
+  p.inv_f = 1.0f / static_cast<float>(feather);
+  p.e0 = static_cast<float>(e0);
+  p.inv_e = 1.0f / static_cast<float>(e_span);
+  p.bg[0] = bg0;
+  p.bg[1] = bg1;
+  p.bg[2] = bg2;
+  p.bg[3] = bg3;
+  p.mask_mode = mask_mode;
+  p.to_srgb = to_srgb;
+  p.first = first;
+  p.last = last;
+  const long long n = static_cast<long long>(B) * H * Wt;
+  const unsigned blocks =
+      static_cast<unsigned>((n + kEpilogueThreads - 1) / kEpilogueThreads);
+  lateral_epilogue_kernel<<<blocks, kEpilogueThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(found), static_cast<const float*>(invz),
+      static_cast<const float4*>(rgba), static_cast<const float*>(c1),
+      static_cast<const float*>(bg_ptr), static_cast<float4*>(out), n, H, W,
+      Wt, p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -844,17 +844,30 @@ def _layer_tier_batch(
         )
     if mode != "march":
         raise ValueError(f"unknown tier: {mode!r}")
+    return _march_layer_batch(
+        lay, plan, k_l, crop_y, c1_b, zero_bg, refine=refine,
+        feathering=feathering, mask_mode=mask_mode, to_srgb=False, raw=raw,
+    )
+
+
+def _march_layer_batch(lay, plan, k_l, crop_y, c1_b, background, *, refine,
+                       feathering, mask_mode, to_srgb, raw=False, out=None,
+                       first=True, last=True):
+    """ONE 'march' layer's pose batch on the lateral tier
+    (render_translation_batch): from the hoisted march pack where
+    _attach_march_prep attached one, else from the layer's own textures.
+    out/first/last: _fused_lateral_core's route into the call's frames."""
     if "march_src" in lay:  # hoisted (CUDA): the cached pack
         rgb_l, disp_l, mask_l = lay["march_src"]
     else:
         rgb_l, disp_l, mask_l = _march_sources(lay, plan, crop_y)
     return _sweep_march.render_translation_batch(
         rgb_l, disp_l, mask_l, lay["izmin_host"], lay["izmax_host"],
-        c1_b, lay["focal_host"], lay["plane_invz"], zero_bg,
+        c1_b, lay["focal_host"], lay["plane_invz"], background,
         plan=plan, num_planes=k_l, refine=refine, feathering=feathering,
-        mask_mode=mask_mode, to_srgb=False, raw=raw, offset=lay["doff"],
+        mask_mode=mask_mode, to_srgb=to_srgb, raw=raw, offset=lay["doff"],
         crop_y=crop_y, prepared=lay.get("march_prep"),
-        skip_rows=lay.get("march_rows"),
+        skip_rows=lay.get("march_rows"), out=out, first=first, last=last,
     )
 
 
@@ -1200,8 +1213,15 @@ def _fast_batch_core(
     """The body of render_fast_batch and of render_fast_view's lateral
     path: hoists the march's source prep, then renders balanced pose
     chunks of at most `pose_chunk` poses (a bound on the per-chunk
-    intermediates; None: one chunk) and slices the width pad off."""
+    intermediates; None: one chunk) and slices the width pad off. A call
+    whose every layer marches on CUDA takes _fused_lateral_core instead."""
     layers = _attach_march_prep(layers, modes, plans, crops)
+    if _fuses_lateral(modes, layers[0]["disp"].device):
+        return _fused_lateral_core(
+            layers, plans, nums, crops, c1_b, background, refine=refine,
+            feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
+            out_h=out_h, out_w_true=out_w_true, pose_chunk=pose_chunk,
+        )
     tier_kw = dict(
         refine=refine, rot_refine=rot_refine, t_refine=t_refine,
         feathering=feathering, mask_mode=mask_mode,
@@ -1232,6 +1252,42 @@ def _fast_batch_core(
                 ))
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out[:, :, :out_w_true, :] if out.shape[2] != out_w_true else out
+
+
+def _fuses_lateral(modes, device) -> bool:
+    """Whether a mono call takes _fused_lateral_core: every layer routed
+    'march' and the textures on CUDA. Any other tier mix keeps the
+    per-chunk frames and their concatenation: there the call's output
+    allocated up front would stand beside the other tiers' intermediates
+    and raise the call's peak."""
+    return device.type == "cuda" and all(m == "march" for m in modes)
+
+
+def _fused_lateral_core(layers, plans, nums, crops, c1_b, background, *,
+                        refine, feathering, mask_mode, to_srgb, out_h,
+                        out_w_true, pose_chunk):
+    """_fast_batch_core for a call whose every layer marches on CUDA: the
+    call's (B, H, W_true, 4) frames allocated once, and each layer of each
+    pose chunk finished into its rows by the epilogue kernel (one launch
+    after each march launch: the hit test and blend, the over onto the
+    layers in front, the background and sRGB after the last layer), so no
+    frame is copied after it is written and the width pad is never
+    stored."""
+    out = torch.empty((len(c1_b), out_h, out_w_true, 4), dtype=torch.float32,
+                      device=layers[0]["disp"].device)
+    last = len(layers) - 1
+    for sl in _pose_chunks(len(c1_b), pose_chunk):
+        with profiling.span("lif.chunk"):
+            for idx, (lay, plan, k_l, crop_y) in enumerate(
+                zip(layers, plans, nums, crops)
+            ):
+                _march_layer_batch(
+                    _chunk_layer(lay, sl), plan, k_l, crop_y, c1_b[sl],
+                    background, refine=refine, feathering=feathering,
+                    mask_mode=mask_mode, to_srgb=to_srgb, out=out[sl],
+                    first=idx == 0, last=idx == last,
+                )
+    return out
 
 
 def render_mono_view(

@@ -21,6 +21,12 @@ The kernel's plain version is ops.sweep_march.march_translation_plain
 (inside the twin render_translation_plain), and the plain mirror of its
 skip walk ops.sweep_march.march_translation_skip_plain; a CUDA tensor
 never reaches either from here.
+
+The same library holds the lateral epilogue kernel (lateral_epilogue):
+the hit test, taper, mask, premultiply, LDI over-compositing, background
+blend and sRGB of one layer of a pose chunk, written into the caller's
+output. Its plain version, lateral_epilogue_plain, is the PyTorch chain
+it replaces, which the wrapper runs for CPU tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from ...utils import profiling
+from .. import composite as _composite
 from ..bounds import plane_loop_bounds
 from ..sweep_march import (
     TranslationPlan,
@@ -44,12 +51,15 @@ from .build import load_library
 
 __all__ = [
     "SEGMENT_PLANES",
+    "lateral_epilogue",
+    "lateral_epilogue_plain",
     "lateral_kernel_inputs",
     "lateral_loop_bounds",
     "march_translation_cuda",
     "prepare_translation_src",
     "render_translation_batch_cuda",
     "sweep_lateral",
+    "upload_poses",
 ]
 
 # planes of one shared-memory segment of the kernel's tables (kMaxPlanes):
@@ -246,6 +256,7 @@ def march_translation_cuda(
     refine: int = 0,
     *,
     rows,
+    poses=None,
 ):
     """The lateral march of a pose batch through the kernel: plane tables,
     plane-range tables, one launch. Returns found (B, H, W), invz*
@@ -255,29 +266,38 @@ def march_translation_cuda(
     Serves the LATERAL case: c1 (B, 3) host array with c1[:, 1] == 0,
     f1 == f2, source height equal to the output height. plane_invz:
     (B, K) float32 tensor. prepared: prepare_translation_src's pack; rows:
-    the (r8, r32) row skip tables of the (cropped) disparity."""
+    the (r8, r32) row skip tables of the (cropped) disparity; poses: c1
+    already on the device (upload_poses), else uploaded here."""
     if prepared is None:
         prepared = prepare_translation_src(rgb, disp, mask, plan)
     return sweep_lateral(*lateral_kernel_inputs(
         prepared, invz_min, invz_max, c1, f1, plane_invz, plan, num_planes,
-        offset=offset,
+        offset=offset, poses=poses,
     ), refine=refine, rows=rows)
+
+
+def upload_poses(c1, device):
+    """The (B, 3) host poses c1 as a float32 tensor on `device`: one
+    pageable upload, a wait on the stream."""
+    c1_t = torch.as_tensor(np.asarray(c1, np.float32), device=device)
+    profiling.host_sync("sync.upload.poses", c1_t.device)
+    return c1_t
 
 
 def lateral_kernel_inputs(prepared, invz_min, invz_max, c1, f1, plane_invz,
                           plan: TranslationPlan, num_planes: int,
-                          offset=(0.0, 0.0)):
+                          offset=(0.0, 0.0), poses=None):
     """The arguments of sweep_lateral for a pose batch: warp shifts,
     plane depths and the plane-range tables, from the prepared source
-    (prepare_translation_src) and the (B, 3) host poses c1."""
+    (prepare_translation_src) and the (B, 3) host poses c1 (poses: the
+    same already on the device, else uploaded here)."""
     c1 = np.asarray(c1, np.float32)
     if np.abs(c1[:, 1]).max() > 0.0 or offset[1] != 0.0:
         raise ValueError("the lateral kernel serves x-only translations")
     src, cm3, cmin3 = prepared
     dev = src.device
     izt = plane_invz.to(device=dev, dtype=torch.float32).contiguous()
-    c1_t = torch.as_tensor(c1, device=dev)
-    profiling.host_sync("sync.upload.poses", dev)
+    c1_t = upload_poses(c1, dev) if poses is None else poses
     ix_t, fx_t, _, _ = plane_tables(plan, izt, c1_t, f1, dx=offset[0])
     izmin, izmax = np.float32(invz_min), np.float32(invz_max)
     # plane thresholds in texel units: texel > tkt <=> decoded d > izt,
@@ -315,20 +335,38 @@ def render_translation_batch_cuda(
     prepared=None,
     *,
     rows,
+    out=None,
+    first: bool = True,
+    last: bool = True,
 ):
     """The CUDA path of ops.sweep_march.render_translation_batch:
     march_translation_cuda + _finalize (one kernel launch per batch).
     offset: the constant source shift; its x part rides the kernel's warp
     tables, its y part (a skew fold's) must already be pre-applied to the
     source (ops.sweep_march.preshift_source), and the full offset places
-    the hit test at the true source position in _finalize."""
+    the hit test at the true source position in _finalize.
+
+    out: the caller's (B, H, W_true, 4) frames; given, the epilogue kernel
+    (lateral_epilogue, one more launch) finishes this layer into it in
+    place of _finalize, over the layers in front unless `first`, over the
+    background and to sRGB if `last`, and the poses are uploaded once.
+    Returns out."""
     with profiling.span("lif.kernel.lateral"):
+        poses = upload_poses(c1, disp.device) if out is not None else None
         found, invz_star, rgba_star = march_translation_cuda(
             rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz, plan,
             num_planes, offset=(offset[0], 0.0), prepared=prepared,
-            refine=refine, rows=rows,
+            refine=refine, rows=rows, poses=poses,
         )
     with profiling.span("lif.epilogue.lateral"):
+        if out is not None:
+            profiling.count("epilogue.lateral.fused")
+            return lateral_epilogue(
+                found, invz_star, rgba_star, poses, plan, f1, background,
+                out, feathering=feathering, mask_mode=mask_mode,
+                to_srgb=to_srgb, offset=offset, crop_y=crop_y, first=first,
+                last=last,
+            )
         c1_t = torch.as_tensor(np.asarray(c1, np.float32),
                                device=found.device)
         profiling.host_sync("sync.upload.poses", found.device)
@@ -337,3 +375,126 @@ def render_translation_batch_cuda(
             feathering, mask_mode, to_srgb, raw=raw, offset=offset,
             crop_y=crop_y,
         )
+
+
+_MASK_MODES = {"none": 0, "multiply": 1, "hard": 2}
+
+_EPILOGUE_ARGTYPES = (
+    # found, invz, rgba, c1, background (or None), out
+    [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 4  # B, H, W (the march's), W_true
+    + [ctypes.c_double] * 5  # f1, bx, by, offset x, offset y
+    + [ctypes.c_int] * 3  # crop_y, src_w, src_h + 2 crop_y
+    + [ctypes.c_double] * 3  # feathering f, 1 - f, 1 - (1 - f)
+    + [ctypes.c_float] * 4  # the background, unless on the device
+    + [ctypes.c_int] * 4  # mask mode, to_srgb, first, last
+    + [ctypes.c_void_p]  # stream
+)
+
+
+def _epilogue_lib():
+    lib = load_library("sweep_march")
+    fn = lib.lif_lateral_epilogue
+    if fn.argtypes is None:
+        fn.argtypes = _EPILOGUE_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def lateral_epilogue_plain(found, invz_star, rgba_star, c1,
+                           plan: TranslationPlan, f1: float, background,
+                           out, *, feathering: float, mask_mode: str,
+                           to_srgb: bool, offset=(0.0, 0.0), crop_y: int = 0,
+                           first: bool = True, last: bool = True):
+    """The epilogue kernel's plain version, on any device: the PyTorch
+    chain it replaces, operator for operator. _finalize over a zero
+    background (as _layer_tier_batch renders each layer), the front-to-back
+    over of models/renderer.py::_fast_batch_core onto the layers in front
+    held in `out` (unless `first`), finish_over_background (if `last`),
+    then the true width into `out`. The chain runs at the march's padded
+    width, as the renderer runs it: on the CPU a vectorised pow rounds by
+    its place in the loop, so the layout is part of the result."""
+    layer = _finalize(plan, found, invz_star, rgba_star, c1, f1,
+                      np.zeros(4, np.float32), feathering, mask_mode, False,
+                      offset=offset, crop_y=crop_y)
+    w_true = out.shape[2]
+    if first:
+        rgb, a = layer[..., :3], layer[..., 3]
+    else:
+        pad = (0, 0, 0, layer.shape[2] - w_true)
+        acc = torch.nn.functional.pad(out, pad)
+        rgb = acc[..., :3] + (1.0 - acc[..., 3][..., None]) * layer[..., :3]
+        a = acc[..., 3] + (1.0 - acc[..., 3]) * layer[..., 3]
+    if last:
+        done = _composite.finish_over_background(rgb, a, background, to_srgb)
+    else:
+        done = torch.cat([rgb, a[..., None]], dim=-1)
+    out.copy_(done[:, :, :w_true])
+    return out
+
+
+def lateral_epilogue(found, invz_star, rgba_star, c1, plan: TranslationPlan,
+                     f1: float, background, out, *, feathering: float,
+                     mask_mode: str, to_srgb: bool, offset=(0.0, 0.0),
+                     crop_y: int = 0, first: bool = True, last: bool = True):
+    """Finish one layer of a lateral pose chunk into `out`, the caller's
+    (B, H, W_true, 4) frames (a slice of the call's output): the epilogue
+    kernel for CUDA tensors (one launch, counted in
+    `lateral_epilogue.launches`), lateral_epilogue_plain for CPU tensors.
+
+    found/invz_star: (B, H, W) and rgba_star (B, H, W, 4), the march's
+    outputs at its padded width W = plan.out_w >= W_true; c1: the (B, 3)
+    float32 poses on the device; background: (4,) host values, or a CUDA
+    tensor read on the device; offset and crop_y as _finalize takes them.
+    `first`: this is the front layer (else `out` holds the layers in
+    front, premultiplied); `last`: blend over the background (and sRGB)
+    after it. Returns out."""
+    if found.device.type == "cpu":
+        return lateral_epilogue_plain(
+            found, invz_star, rgba_star, c1, plan, f1, background, out,
+            feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
+            offset=offset, crop_y=crop_y, first=first, last=last)
+    b, h, w = found.shape
+    w_true = out.shape[2] if out.ndim == 4 else -1
+    _check(found, "found", torch.float32, (b, h, w))
+    _check(invz_star, "invz_star", torch.float32, (b, h, w))
+    _check(rgba_star, "rgba_star", torch.float32, (b, h, w, 4))
+    _check(c1, "c1", torch.float32, (b, 3))
+    _check(out, "out", torch.float32, (b, h, w_true, 4))
+    if (plan.out_w, plan.out_h) != (w, h) or not 0 < w_true <= w:
+        raise ValueError(f"plan {plan} and a true width of {w_true} do not "
+                         f"fit the march's {w}x{h} outputs")
+    if mask_mode not in _MASK_MODES:
+        raise ValueError(f"unsupported mask_mode: {mask_mode}")
+    bg_dev = None
+    bg = (0.0, 0.0, 0.0, 0.0)
+    on_card = (isinstance(background, torch.Tensor)
+               and background.device.type == "cuda")
+    if on_card:  # read on the device: no wait on the stream
+        bg_dev = background.to(device=found.device,
+                                dtype=torch.float32).reshape(4).contiguous()
+    else:
+        bg = torch.as_tensor(background,
+                             dtype=torch.float32).reshape(4).tolist()
+    f = max(float(feathering), 1e-6)
+    fn = _epilogue_lib()
+    with torch.cuda.device(found.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            found.data_ptr(), invz_star.data_ptr(), rgba_star.data_ptr(),
+            c1.data_ptr(), None if bg_dev is None else bg_dev.data_ptr(),
+            out.data_ptr(), b, h, w, w_true, float(f1),
+            (plan.src_w - plan.out_w) / 2.0, (plan.src_h - plan.out_h) / 2.0,
+            float(offset[0]), float(offset[1]), int(crop_y), plan.src_w,
+            plan.src_h + 2 * int(crop_y), f, 1.0 - f, 1.0 - (1.0 - f), *bg,
+            _MASK_MODES[mask_mode], int(bool(to_srgb)), int(bool(first)),
+            int(bool(last)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"lif_lateral_epilogue launch failed: CUDA error {err}")
+    lateral_epilogue.launches += 1
+    return out
+
+
+lateral_epilogue.launches = 0

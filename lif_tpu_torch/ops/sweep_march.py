@@ -992,6 +992,9 @@ def render_translation_batch(
     crop_y: int = 0,
     prepared=None,
     skip_rows=None,
+    out=None,
+    first: bool = True,
+    last: bool = True,
 ):
     """Pose-batched march, dispatched on the device of the textures: a
     CUDA tensor launches the lateral kernel (ONE launch for the batch),
@@ -1004,7 +1007,10 @@ def render_translation_batch(
     test). prepared: optional hoisted source pack from
     ops.cuda.sweep_march.prepare_translation_src, skip_rows the kernel's
     (r8, r32) row_skip_tables of the same (shifted, cropped) source rows
-    (CUDA path only).
+    (CUDA path only). out, first, last: finish the layer into the
+    caller's (B, H, W_true, 4) frames (ops.cuda.sweep_march's
+    lateral_epilogue: its kernel, or its plain version for CPU tensors)
+    and return them.
     Returns (B, H, W, 4), or the raw tuple with a leading B axis."""
     c1 = np.asarray(c1, np.float32)
     plane = torch.as_tensor(plane_invz, dtype=torch.float32)
@@ -1017,12 +1023,30 @@ def render_translation_batch(
             rgb, disp, mask, invz_min, invz_max, c1, f1, plane, background,
             plan, num_planes, feathering=feathering, mask_mode=mask_mode,
             to_srgb=to_srgb, refine=refine, raw=raw, offset=offset,
-            crop_y=crop_y, prepared=prepared, rows=skip_rows,
+            crop_y=crop_y, prepared=prepared, rows=skip_rows, out=out,
+            first=first, last=last,
         )
     if disp.device.type != "cpu":
         raise NotImplementedError(
             f"the lateral march runs on CUDA or CPU tensors, not "
             f"{disp.device.type}"
+        )
+    if out is not None:  # the plain version of the epilogue kernel's route
+        from .cuda.sweep_march import lateral_epilogue
+
+        marches = [
+            march_translation_plain(
+                rgb, disp, mask, invz_min, invz_max, cc, f1, pp, plan,
+                num_planes, refine=refine, offset=offset,
+            )
+            for cc, pp in zip(c1, plane)
+        ]
+        found, invz_star, rgba_star = (torch.stack(t) for t in zip(*marches))
+        return lateral_epilogue(
+            found, invz_star, rgba_star, torch.as_tensor(c1), plan, f1,
+            background, out, feathering=feathering, mask_mode=mask_mode,
+            to_srgb=to_srgb, offset=offset, crop_y=crop_y, first=first,
+            last=last,
         )
     outs = [
         render_translation_plain(

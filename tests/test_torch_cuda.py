@@ -1274,3 +1274,167 @@ def test_host_syncs_counted_on_the_card(cuda, route):
         kernels = {k for k in snap["spans"] if k.startswith("lif.kernel.")}
         assert kernels <= annotated
         assert kernels or route.startswith("sweep")
+
+
+def _epilogue_projector(layers, h, w, skew=(0.0, 0.0), cuda=None):
+    """One layer, or three: the back two outpainted by even margins (16
+    and 8 rows, 32 and 16 columns), every layer masked; on the card."""
+    rgb0, disp0, mask0 = _scene(w + h, h, w)
+    extra = []
+    for i, (dh, dw) in enumerate(((16, 32), (8, 16))[: layers - 1]):
+        rgb, disp, mask = _scene(w + h + i + 1, h + dh, w + dw)
+        extra.append(dict(rgb=rgb, disp=disp, mask=mask, focal_px=0.78 * w,
+                          invz_min=0.5 - 0.1 * i, invz_max=0.1))
+    return lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, mask0 if layers > 1 else None, focal_px=0.78 * w,
+        invz_min=2.0, invz_max=0.6, baseline=1.0, skew=skew, device=cuda,
+        extra_layers=extra)
+
+
+def _fused_against_chain(proj, cams, monkeypatch, **kw):
+    """(frames through the epilogue kernel, frames through the PyTorch
+    chain on the card, epilogue launches, epilogue.lateral.fused count)
+    of one render_fast_batch call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lif_tpu_torch.utils import profiling
+
+    kw = dict(kw, method="march")
+    lateral = tcuda.sweep_lateral.launches
+    before = tcuda.lateral_epilogue.launches
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = lif_tpu_torch.render_fast_batch(proj, cams, **kw)
+        torch.cuda.synchronize()
+    fused = profiling.snapshot()["counters"].get("epilogue.lateral.fused", 0)
+    launches = tcuda.lateral_epilogue.launches - before
+    assert tcuda.sweep_lateral.launches - lateral == launches
+    with monkeypatch.context() as m:
+        m.setattr(trenderer, "_fuses_lateral", lambda modes, dev: False)
+        ref = lif_tpu_torch.render_fast_batch(proj, cams, **kw)
+    assert tcuda.lateral_epilogue.launches - before == launches
+    return got, ref, launches, fused
+
+
+_BG = (0.1, 0.2, 0.3, 0.7)
+
+
+@pytest.mark.parametrize("case", [
+    # (layers, width, poses, pose_chunk, mask_mode, to_srgb, skewed, bg)
+    (3, 128, 5, 2, "none", True, False, "host"),
+    (3, 128, 5, 2, "multiply", True, False, "host"),
+    (3, 128, 5, 2, "hard", True, False, "host"),
+    (3, 128, 3, 2, "multiply", False, False, "host"),
+    (3, 124, 3, 2, "multiply", True, False, "host"),
+    (3, 128, 3, 2, "multiply", True, True, "host"),
+    (1, 124, 3, 2, None, True, False, "cuda"),
+], ids=["ldi-none", "ldi-multiply", "ldi-hard", "ldi-linear",
+        "ldi-odd-width", "ldi-skew-outpainted", "cuda-background"])
+def test_lateral_epilogue_kernel_equals_the_chain(cuda, case, monkeypatch):
+    """render_fast_batch through the epilogue kernel equals the same call
+    through the PyTorch chain on the card bit for bit (max |diff| 0),
+    with one epilogue launch (and one epilogue.lateral.fused count) for
+    each march launch: pose chunks x layers."""
+    layers, w, n, chunk, mask_mode, to_srgb, skewed, bg = case
+    h = 96
+    skew = (0.021, -0.0137) if skewed else (0.0, 0.0)
+    proj = _epilogue_projector(layers, h, w, skew, cuda)
+    cams = [lif_tpu_torch.Camera.create(
+        w, h, focal_px=0.78 * w, position=[0.01 + 0.007 * i, 0.0, 0.0],
+        skew=(0.004, 0.0061) if skewed else (0.0, 0.0)) for i in range(n)]
+    background = torch.tensor(_BG, device=cuda) if bg == "cuda" else _BG
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(pose_chunk=chunk)
+    got, ref, launches, fused = _fused_against_chain(
+        proj, cams, monkeypatch, config=cfg, background=background,
+        to_srgb=to_srgb, mask_mode=mask_mode)
+    chunks = len(trenderer._pose_chunks(n, chunk))
+    assert launches == fused == chunks * layers
+    assert got.shape == ref.shape == (n, h, w, 4)
+    assert (got - ref).abs().max().item() == 0.0
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("n", [432, 430])
+def test_lateral_epilogue_kernel_at_the_main_path_shape(cuda, n,
+                                                        monkeypatch):
+    """The main path's call: a one-layer 1280x800 projector, n lateral
+    poses in chunks of 48 (430: a ragged last chunk of 46), through the
+    epilogue kernel and through the PyTorch chain: max |diff| 0, one
+    epilogue launch a chunk."""
+    h, w = 800, 1280
+    rgb, disp, _ = _scene(7, h, w)
+    proj = lif_tpu_torch.projector_from_arrays(
+        rgb, disp, focal_px=0.78 * w, invz_min=0.09 / 0.045,
+        invz_max=0.0001 / 0.045, baseline=0.045, device=cuda)
+    cams = [lif_tpu_torch.Camera.create(
+        w, h, focal_px=0.78 * w, position=[0.135 + 0.02 * i / n, 0.0, 0.0])
+        for i in range(n)]
+    got, ref, launches, fused = _fused_against_chain(proj, cams,
+                                                     monkeypatch)
+    assert launches == fused == 9
+    assert (got - ref).abs().max().item() == 0.0
+    del got, ref
+
+
+def test_mixed_tier_ldi_takes_no_fused_launch(cuda):
+    """An LDI whose back layer is not march-eligible (another focal: the
+    scaled tier) keeps the per-chunk frames and their concatenation: no
+    epilogue launch, no epilogue.lateral.fused count; the single view
+    of the march-only projector does take it (one launch a layer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lif_tpu_torch.utils import profiling
+
+    h, w = 96, 128
+    rgb0, disp0, mask0 = _scene(40, h, w)
+    rgb1, disp1, mask1 = _scene(41, h, w)
+    mixed = lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
+        baseline=1.0, device=cuda,
+        extra_layers=[dict(rgb=rgb1, disp=disp1, mask=mask1,
+                           focal_px=0.9 * w, invz_min=0.5, invz_max=0.1)])
+    cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                        position=[x, 0.0, 0.0])
+            for x in (0.01, 0.02, 0.03)]
+    before = tcuda.lateral_epilogue.launches
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _, tiers = lif_tpu_torch.render_fast_batch(mixed, cams,
+                                                   return_tiers=True)
+        torch.cuda.synchronize()
+    assert tiers == ("march", "scaled")
+    assert tcuda.lateral_epilogue.launches == before
+    assert "epilogue.lateral.fused" not in profiling.snapshot()["counters"]
+    ldi = _epilogue_projector(3, h, w, cuda=cuda)
+    lif_tpu_torch.render_fast_view(ldi, cams[1])
+    torch.cuda.synchronize()
+    assert tcuda.lateral_epilogue.launches == before + 3
+
+
+def test_lateral_epilogue_rejects_bad_inputs(cuda):
+    """The wrapper raises on what the kernel does not take: a true width
+    beyond the march's, a plan of other dims, a CPU pose table, an
+    unknown mask mode."""
+    b, h, w = 2, 16, 32
+    found = torch.ones((b, h, w), device=cuda)
+    invz = torch.full((b, h, w), 0.5, device=cuda)
+    rgba = torch.rand((b, h, w, 4), device=cuda)
+    c1 = torch.zeros((b, 3), device=cuda)
+    plan = tsm.translation_plan(w, h, w, h, 4.0, 0.0)
+    kw = dict(feathering=0.1, mask_mode="none", to_srgb=True)
+    out = torch.empty((b, h, w, 4), device=cuda)
+    tcuda.lateral_epilogue(found, invz, rgba, c1, plan, 30.0, _BG, out, **kw)
+    with pytest.raises(ValueError):
+        tcuda.lateral_epilogue(found, invz, rgba, c1, plan, 30.0, _BG,
+                               torch.empty((b, h, w + 8, 4), device=cuda),
+                               **kw)
+    with pytest.raises(ValueError):
+        tcuda.lateral_epilogue(found, invz, rgba, c1,
+                               tsm.translation_plan(w, h, w + 8, h, 4.0, 0.0),
+                               30.0, _BG, out, **kw)
+    with pytest.raises(ValueError):
+        tcuda.lateral_epilogue(found, invz, rgba, c1.cpu(), plan, 30.0, _BG,
+                               out, **kw)
+    with pytest.raises(ValueError):
+        tcuda.lateral_epilogue(found, invz, rgba, c1, plan, 30.0, _BG, out,
+                               **dict(kw, mask_mode="soft"))
