@@ -520,7 +520,7 @@ def interactive_planning(ctx):
                                   cam.rotation)
         t0 = time.perf_counter()
         mode, _, _ = renderer._plan_march_tier(
-            lay, ctx.focal, s.w, s.w, s.h, p[None], [r], [p], True,
+            lay, ctx.focal, s.w, s.w, s.h, p[None], r[None], True,
             lt.DEFAULT_CONFIG, None, ctx.dev)
         common.sync(ctx.dev)
         dt = (time.perf_counter() - t0) * 1e3

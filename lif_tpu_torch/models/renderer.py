@@ -43,7 +43,9 @@ oracle is parallel.sharding.render_fused_projectors.
 
 Host-side planning (relative poses, plane grids, pad plans, the tiers'
 extents and pose packs) runs in numpy; the textures and every per-pixel
-operation stay on the projector's device.
+operation stay on the projector's device. Every fast entry point reads
+a camera batch's relative poses, and decides whether it is lateral, in
+_read_poses, and plans a 'march' layer in _plan_march_layer.
 """
 
 from __future__ import annotations
@@ -133,6 +135,12 @@ _F32 = np.float32
 # x<->y axis swap: transposing every image conjugates all camera-space
 # quantities by this permutation. Applied by INDEXING, so it is exact.
 _SWAP_XY = (1, 0, 2)
+
+# _read_poses' rotation test, np.allclose(rot, I, atol=1e-5) element for
+# element (|rot - I| <= atol + rtol * |I|; NaN and inf never close)
+# without np.allclose's fixed cost, which a single view pays every frame
+_EYE3 = np.eye(3)
+_ROT_TOL = 1e-5 + 1e-5 * _EYE3
 
 
 class TierFallbackWarning(UserWarning):
@@ -455,6 +463,66 @@ def _march_fold(lay, sk1, sk2, max_cx, out_w, out_h, dx_pad):
             (float(d[0]) + dx_pad, float(d[1])))
 
 
+def _plan_march_layer(projector, idx, lay, cfg, num_planes, cxs, sk2, out_w,
+                      out_h, dx_pad=0.0, view=False):
+    """Plan layer idx of the projector (`lay`, its _prepared_textures
+    entry) on the 'march' tier for a lateral batch at x positions `cxs`,
+    as every fast entry point plans it: the skew fold against the
+    camera's skew sk2 with the width pad's dx_pad (_march_fold), then the
+    plane tables of config.plane_mode's grid (_march_tables). view=True
+    plans render_fast_view's one pose as lif_tpu's view does: on 'snap',
+    the pose's own snap_plane_table (march_stride ignored), built and
+    uploaded every call: at num_planes=None a one-row
+    snap_plane_tables_batch builds its ladder at the bucketed K, which
+    can double the stride where an endpoint plane is filtered. Returns
+    (the layer dict with its `plane_invz` and `doff`, the plan, crop_y,
+    K)."""
+    plan, crop_y, phase, doff = _march_fold(
+        lay, projector.skew, sk2, float(np.abs(cxs).max()), out_w, out_h,
+        dx_pad)
+    if view and cfg.plane_mode == "snap":
+        tab, k_l = _sweep_march.snap_plane_table(
+            lay["focal_host"], float(cxs[0]), lay["izmin_host"],
+            lay["izmax_host"], num_planes=num_planes, phase_px=phase,
+        )
+        tab = torch.as_tensor(tab[None], device=projector.device)
+        profiling.host_sync("sync.upload.plane_table", tab.device)
+    else:
+        tab, k_l = _march_tables(projector, idx, cfg, num_planes, cxs, phase)
+    return dict(lay, plane_invz=tab, doff=doff), plan, crop_y, k_l
+
+
+def _plan_layers(projector, tex_layers, modes, cfg, num_planes, cxs, sk2,
+                 out_w, out_h, dx_pad, sweep_opts, planned=None, view=False):
+    """_fast_batch_core's per-layer lists (layer dicts, setups, plans,
+    crops, plane counts) for the tiers `modes`: a 'march' layer through
+    _plan_march_layer (view: see there), a 'sweep' layer on its cached
+    'hybrid' table with the setup (K, *sweep_opts), any other tier with
+    the setup and extras plan_tiers planned for it (`planned`, per layer
+    (mode, setup, extras))."""
+    k_sweep = num_planes or cfg.sweep_planes
+    layers, setups, plans, crops, nums = [], [], [], [], []
+    for idx, (lay, mode) in enumerate(zip(tex_layers, modes)):
+        plan, crop_y, k_l, setup = None, 0, None, None
+        if mode == "march":
+            lay, plan, crop_y, k_l = _plan_march_layer(
+                projector, idx, lay, cfg, num_planes, cxs, sk2, out_w,
+                out_h, dx_pad, view=view)
+        elif mode == "sweep":
+            setup = (k_sweep, *sweep_opts)
+            lay = dict(lay, sweep_invz=_sweep_tables(
+                projector, tex_layers, k_sweep)[idx])
+        else:
+            _, setup, extra = planned[idx]
+            lay = dict(lay, **extra)
+        layers.append(lay)
+        setups.append(setup)
+        plans.append(plan)
+        crops.append(crop_y)
+        nums.append(k_l)
+    return layers, setups, plans, crops, nums
+
+
 def _march_sources(lay, plan, crop_y):
     """The march tier's source pipeline: the frustum-skew y pre-lerp by
     the layer's doff[1] (before the outpaint crop: the shift must read
@@ -596,9 +664,9 @@ def _plan_target_entry(lay, f2_host, out_w, out_h, rot_list, pos_list, cfg,
     return "target", (tplan, k_t), extras
 
 
-def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b,
-                     rot_list, pos_list, rotated, cfg, explicit_planes,
-                     device, dx_user=0.0, sk1=None, sk2=None):
+def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b, rot_b,
+                     rotated, cfg, explicit_planes, device, dx_user=0.0,
+                     sk1=None, sk2=None):
     """The non-lateral tier cascade of lif_tpu (one definition, as its
     _plan_march_tier): 'scaled' (the aligned xyz/zoom march) for
     unrotated poses; else 'target' (the single-phase target-ray march of
@@ -652,13 +720,12 @@ def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b,
                 lay["w"], lay["h"], out_w_true, out_h, lay["focal_host"],
                 f2_host, lay["izmin_host"], lay["izmax_host"],
                 cfg.target_step_px, explicit_planes,
-                np.asarray(rot_list, np.float64).tobytes(),
-                np.asarray(pos_list, np.float64).tobytes(), str(device),
+                rot_b.tobytes(), pos_b.tobytes(), str(device),
             )
             entry = _lru_get(_TARGET_PLAN_CACHE, key, "target_plan")
             if entry is None:
                 entry = _plan_target_entry(
-                    lay, f2_host, out_w_true, out_h, rot_list, pos_list,
+                    lay, f2_host, out_w_true, out_h, rot_b, pos_b,
                     cfg, explicit_planes, device,
                 ) or "ineligible"
                 _lru_put(_TARGET_PLAN_CACHE, _TARGET_PLAN_CACHE_MAX, key,
@@ -669,11 +736,11 @@ def _plan_march_tier(lay, f2_host, out_w, out_w_true, out_h, pos_b,
     sk2_t = (float(sk2[0]), float(sk2[1]))
     plan, wi, hi, aligned, grids, k_l, skip = _rotated_march.plan_rotated(
         lay["w"], lay["h"], out_w_true, out_h, lay["focal_host"], f2_host,
-        rot_list, pos_list, lay["izmin_host"], lay["izmax_host"],
+        rot_b, pos_b, lay["izmin_host"], lay["izmax_host"],
         step_px=cfg.rotated_step_px, num_planes=explicit_planes,
         sk1=sk1_t, sk2=sk2_t,
     )
-    grids = np.zeros((len(pos_list), 1), np.float32) if skip else grids
+    grids = np.zeros((len(pos_b), 1), np.float32) if skip else grids
     extras = {
         "aligned": torch.as_tensor(aligned, dtype=torch.float32,
                                    device=device),
@@ -989,7 +1056,7 @@ def render_fast_batch(
             and method != "sweep"
             and any(m in ("rotated", "sweep") for m in modes)
             and _transposed_target_ok(tp.tex_layers, tp.f2_host, cam0,
-                                      tp.rot_list, tp.pos_list)
+                                      tp.rot_b, tp.pos_b)
         )
     if transpose:
         return _render_transposed(
@@ -1014,29 +1081,11 @@ def render_fast_batch(
     for mode in modes:
         profiling.count(_ROUTE_COUNTERS[mode])
 
-    max_cx = float(np.abs(pos_b[:, 0]).max())
-    k_sweep = num_planes or cfg.sweep_planes
-    layers, setups, plans, crops, nums = [], [], [], [], []
     with profiling.span("lif.plan"):
-        for idx, (lay, (mode, setup, extra)) in enumerate(
-                zip(tp.tex_layers, planned)):
-            plan, crop_y, k_l = None, 0, None
-            if mode == "march":
-                plan, crop_y, phase, doff = _march_fold(
-                    lay, projector.skew, cam0.skew, max_cx, out_w_eff,
-                    cam0.height, dx_pad)
-                tab, k_l = _march_tables(projector, idx, cfg, num_planes,
-                                         pos_b[:, 0], phase)
-                extra = {"plane_invz": tab, "doff": doff}
-            elif mode == "sweep":
-                setup = (k_sweep, chunk, exact_color, tp.rotated)
-                extra = {"sweep_invz": _sweep_tables(
-                    projector, tp.tex_layers, k_sweep)[idx]}
-            layers.append(dict(lay, **extra))
-            setups.append(setup)
-            plans.append(plan)
-            crops.append(crop_y)
-            nums.append(k_l)
+        layers, setups, plans, crops, nums = _plan_layers(
+            projector, tp.tex_layers, modes, cfg, num_planes, pos_b[:, 0],
+            cam0.skew, out_w_eff, cam0.height, dx_pad,
+            (chunk, exact_color, tp.rotated), planned)
     if _poses is not None:
         layers = [_chunk_layer(lay, _poses) for lay in layers]
         pos_b, rot_b = pos_b[_poses], rot_b[_poses]
@@ -1059,8 +1108,6 @@ class TierPlan(NamedTuple):
     planned: list  # per layer (mode, setup, extras); 'sweep': (None, {})
     pos_b: np.ndarray  # (B, 3) relative projector positions
     rot_b: np.ndarray  # (B, 3, 3) relative rotations
-    pos_list: tuple
-    rot_list: tuple
     rotated: bool
     skewed: bool
     f2_host: float  # camera focal, px
@@ -1068,22 +1115,53 @@ class TierPlan(NamedTuple):
     dx_pad: float  # the pad's constant x-offset
 
 
-def _shared_intrinsics(cameras) -> bool:
-    """Whether every camera has cameras[0]'s width, height, focal (to
-    1e-6 px) and skew (np.allclose), checked for the batch at once."""
+def _intrinsics_mismatch(cameras) -> str | None:
+    """None where every camera has cameras[0]'s width, height, focal (to
+    1e-6 px) and skew (np.allclose), checked for the batch at once; else
+    what the first camera that differs gets wrong: 'dims' (width, height
+    or focal) before 'skew', as a per-camera loop would find it."""
     cam0 = cameras[0]
     dims = np.array([(c.width, c.height) for c in cameras])
     focal = np.array([float(c.focal_px) for c in cameras])
     skews = [np.asarray(c.skew) for c in cameras]
     if len({s.dtype for s in skews}) == 1:
-        skew_ok = np.isclose(np.stack(skews), skews[0])[1:].all()
+        skew_off = ~np.isclose(np.stack(skews), skews[0]).all(axis=-1)
     else:  # each pair in its own promoted precision, as np.allclose does
-        skew_ok = all(np.allclose(s, skews[0]) for s in skews[1:])
-    return bool(
-        (dims == (cam0.width, cam0.height)).all()
-        and not (np.abs(focal - float(cam0.focal_px)) > 1e-6).any()
-        and skew_ok
-    )
+        skew_off = np.array([not np.allclose(s, skews[0]) for s in skews])
+    skew_off[0] = False  # a NaN skew is not close to itself
+    dims_off = ((dims != (cam0.width, cam0.height)).any(axis=1)
+                | (np.abs(focal - float(cam0.focal_px)) > 1e-6))
+    off = dims_off | skew_off
+    if not off.any():
+        return None
+    return "dims" if dims_off[off.argmax()] else "skew"
+
+
+class _Poses(NamedTuple):
+    """A camera batch's poses relative to one projector (_read_poses)."""
+
+    pos_b: np.ndarray  # (B, 3) relative projector positions, float64
+    rot_b: np.ndarray  # (B, 3, 3) relative rotations, float64
+    rotated: bool  # some relative rotation is off identity by over 1e-5
+    lateral: bool  # unrotated, with |y| and |z| under 1e-9 at every pose
+
+
+def _read_poses(projector, cameras) -> _Poses:
+    """Where a camera batch stands relative to the projector: one
+    relative_view_pose a camera (float64 host math, so each cx is the
+    single view's bit for bit), and the two decisions every fast entry
+    point routes on, made here once: `rotated`, and `lateral`, the
+    lateral march's pose family (no relative rotation, translation along
+    x only)."""
+    pos_list, rot_list = zip(*(
+        relative_view_pose(projector.position, projector.rotation,
+                           cam.position, cam.rotation)
+        for cam in cameras
+    ))
+    pos_b, rot_b = np.stack(pos_list), np.stack(rot_list)
+    rotated = not (np.abs(rot_b - _EYE3) <= _ROT_TOL).all()
+    lateral = not rotated and bool((np.abs(pos_b[:, 1:]) < 1e-9).all())
+    return _Poses(pos_b, rot_b, rotated, lateral)
 
 
 def plan_tiers(projector: Projector, cameras: Sequence[Camera],
@@ -1106,27 +1184,13 @@ def plan_tiers(projector: Projector, cameras: Sequence[Camera],
     if len(cameras) == 0:
         raise ValueError("render_fast_batch needs at least one camera")
     cam0 = cameras[0]
-    if not _shared_intrinsics(cameras):
+    if _intrinsics_mismatch(cameras):
         raise ValueError(
             "render_fast_batch cameras must share intrinsics "
             "(width/height/focal/skew)"
         )
 
-    pos_list, rot_list = zip(*(
-        relative_view_pose(
-            projector.position, projector.rotation, cam.position,
-            cam.rotation,
-        )
-        for cam in cameras
-    ))
-    pos_b = np.stack(pos_list)  # (B, 3)
-    rot_b = np.stack(rot_list)  # (B, 3, 3)
-    rotated = not np.allclose(rot_b, np.eye(3), atol=1e-5)
-    lateral = (
-        not rotated
-        and np.abs(pos_b[:, 1]).max() < 1e-9
-        and np.abs(pos_b[:, 2]).max() < 1e-9
-    )
+    pos_b, rot_b, rotated, lateral = _read_poses(projector, cameras)
     sk1 = np.asarray(projector.skew, np.float64)
     sk2 = np.asarray(cam0.skew, np.float64)
     skewed = bool(np.abs(sk1 - sk2).sum() > 1e-12)
@@ -1147,7 +1211,7 @@ def plan_tiers(projector: Projector, cameras: Sequence[Camera],
         try:
             return _plan_march_tier(
                 lay, f2_host, out_w_eff, cam0.width, cam0.height, pos_b,
-                rot_list, pos_list, rotated, cfg, num_planes,
+                rot_b, rotated, cfg, num_planes,
                 projector.device, dx_user=dx_pad, sk1=sk1, sk2=sk2,
             )
         except ValueError as err:
@@ -1169,8 +1233,8 @@ def plan_tiers(projector: Projector, cameras: Sequence[Camera],
             if p[0] in ("march", "scaled") else p
             for i, (lay, p) in enumerate(zip(tex_layers, planned))
         ]
-    return TierPlan(tex_layers, planned, pos_b, rot_b, pos_list, rot_list,
-                    rotated, skewed, f2_host, out_w_eff, dx_pad)
+    return TierPlan(tex_layers, planned, pos_b, rot_b, rotated, skewed,
+                    f2_host, out_w_eff, dx_pad)
 
 
 def _render_transposed(projector, cameras, return_tiers, **kwargs):
@@ -1214,9 +1278,9 @@ def _fast_batch_core(
     path: hoists the march's source prep, then renders balanced pose
     chunks of at most `pose_chunk` poses (a bound on the per-chunk
     intermediates; None: one chunk) and slices the width pad off. A call
-    whose every layer marches on CUDA takes _fused_lateral_core instead."""
+    whose every layer marches takes _fused_lateral_core instead."""
     layers = _attach_march_prep(layers, modes, plans, crops)
-    if _fuses_lateral(modes, layers[0]["disp"].device):
+    if _fuses_lateral(modes):
         return _fused_lateral_core(
             layers, plans, nums, crops, c1_b, background, refine=refine,
             feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
@@ -1254,25 +1318,26 @@ def _fast_batch_core(
     return out[:, :, :out_w_true, :] if out.shape[2] != out_w_true else out
 
 
-def _fuses_lateral(modes, device) -> bool:
+def _fuses_lateral(modes) -> bool:
     """Whether a mono call takes _fused_lateral_core: every layer routed
-    'march' and the textures on CUDA. Any other tier mix keeps the
-    per-chunk frames and their concatenation: there the call's output
-    allocated up front would stand beside the other tiers' intermediates
-    and raise the call's peak."""
-    return device.type == "cuda" and all(m == "march" for m in modes)
+    'march', on any device (the CPU finishes through the epilogue
+    kernel's plain version). Any other tier mix keeps the per-chunk
+    frames and their concatenation: there the call's output allocated up
+    front would stand beside the other tiers' intermediates and raise the
+    call's peak."""
+    return all(m == "march" for m in modes)
 
 
 def _fused_lateral_core(layers, plans, nums, crops, c1_b, background, *,
                         refine, feathering, mask_mode, to_srgb, out_h,
                         out_w_true, pose_chunk):
-    """_fast_batch_core for a call whose every layer marches on CUDA: the
-    call's (B, H, W_true, 4) frames allocated once, and each layer of each
-    pose chunk finished into its rows by the epilogue kernel (one launch
-    after each march launch: the hit test and blend, the over onto the
-    layers in front, the background and sRGB after the last layer), so no
-    frame is copied after it is written and the width pad is never
-    stored."""
+    """_fast_batch_core for a call whose every layer marches: the call's
+    (B, H, W_true, 4) frames allocated once, and each layer of each pose
+    chunk finished into its rows by the epilogue kernel (one launch after
+    each march launch: the hit test and blend, the over onto the layers
+    in front, the background and sRGB after the last layer; on the CPU
+    its plain version, lateral_epilogue_plain), so no frame is copied
+    after it is written and the width pad is never stored."""
     out = torch.empty((len(c1_b), out_h, out_w_true, 4), dtype=torch.float32,
                       device=layers[0]["disp"].device)
     last = len(layers) - 1
@@ -1439,11 +1504,8 @@ def render_fast_view(
     chunk = cfg.sweep_chunk if chunk is None else chunk
     refine = cfg.march_refine if refine is None else refine
     with profiling.span("lif.plan"):
-        pos_np, rot_np = relative_view_pose(
-            projector.position, projector.rotation, camera.position,
-            camera.rotation,
-        )
-        rotated = not np.allclose(rot_np, np.eye(3), atol=1e-5)
+        poses = _read_poses(projector, [camera])
+        pos_np, rotated = poses.pos_b[0], poses.rotated
         tex_layers = _prepared_textures(projector)
         f2_host = float(camera.focal_px)
         kw = dict(background=background, feathering=feathering,
@@ -1478,8 +1540,7 @@ def render_fast_view(
         out = render_fast_view(_transposed_projector(projector), cam_t, **kw)
         return out.transpose(0, 1).contiguous()
 
-    nonlateral = rotated or abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
-    if method != "sweep" and nonlateral:
+    if method != "sweep" and not poses.lateral:
         return render_fast_batch(projector, [camera], **kw)[0]
 
     with profiling.span("lif.plan"):
@@ -1540,38 +1601,12 @@ def render_fast_view(
                 "(matched focal and dims)"
             )
 
-        k_sweep = num_planes or cfg.sweep_planes
-        layers, setups, plans, crops, nums = [], [], [], [], []
-        for idx, (lay, mode) in enumerate(zip(tex_layers, modes)):
-            if mode == "sweep":
-                layers.append(dict(lay, sweep_invz=_sweep_tables(
-                    projector, tex_layers, k_sweep)[idx]))
-                setups.append((k_sweep, chunk, exact_color, rotated))
-                plans.append(None)
-                crops.append(0)
-                nums.append(None)
-                continue
-            # the skew fold, as in render_fast_batch, on this pose's own grid
-            plan, crop_y, phase, doff = _march_fold(
-                lay, projector.skew, camera.skew, abs(float(pos_np[0])),
-                out_w_eff, camera.height, dx_pad)
-            if cfg.plane_mode == "snap":
-                tab, k_l = _sweep_march.snap_plane_table(
-                    lay["focal_host"], float(pos_np[0]), lay["izmin_host"],
-                    lay["izmax_host"], num_planes=num_planes, phase_px=phase,
-                )
-                tab = torch.as_tensor(tab[None], device=projector.device)
-                profiling.host_sync("sync.upload.plane_table", tab.device)
-            else:
-                tab, k_l = _march_tables(projector, idx, cfg, num_planes,
-                                         pos_np[:1], phase)
-            layers.append(dict(lay, doff=doff, plane_invz=tab))
-            setups.append(None)
-            plans.append(plan)
-            crops.append(crop_y)
-            nums.append(k_l)
+        layers, setups, plans, crops, nums = _plan_layers(
+            projector, tex_layers, modes, cfg, num_planes, poses.pos_b[:, 0],
+            camera.skew, out_w_eff, camera.height, dx_pad,
+            (chunk, exact_color, rotated), view=True)
     return _fast_batch_core(
-        layers, modes, setups, pos_np[None], rot_np[None], background,
+        layers, modes, setups, poses.pos_b, poses.rot_b, background,
         plans=plans, nums=nums, crops=crops, refine=refine,
         rot_refine=cfg.rotated_refine, t_refine=cfg.target_refine,
         feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
@@ -1595,13 +1630,8 @@ def render_depth_fast(
     inv_z_map. Lateral poses only, at layer 0's focal and dims; as in
     lif_tpu, frustum skew is not applied. `config` is accepted for
     lif_tpu's signature."""
-    pos_np, rot_np = relative_view_pose(
-        projector.position, projector.rotation, camera.position,
-        camera.rotation,
-    )
-    if not np.allclose(rot_np, np.eye(3), atol=1e-5) or (
-        abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
-    ):
+    poses = _read_poses(projector, [camera])
+    if not poses.lateral:
         raise ValueError("render_depth_fast needs a lateral (x-only) pose")
     lay = _prepared_textures(projector)[0]
     if (
@@ -1610,14 +1640,14 @@ def render_depth_fast(
         or lay["h"] != camera.height
     ):
         raise ValueError("render_depth_fast needs matched focal/dims")
-    cx = float(pos_np[0])
+    cx = float(poses.pos_b[0, 0])
     plan = _march_plan(lay, abs(cx), camera.width, camera.height)
     tab, k = _sweep_march.snap_plane_tables_batch(
         lay["focal_host"], [cx], lay["izmin_host"], lay["izmax_host"],
     )
     _, _, _, izs = _sweep_march.render_translation(
         lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
-        lay["izmax_host"], pos_np, lay["focal_host"],
+        lay["izmax_host"], poses.pos_b[0], lay["focal_host"],
         torch.as_tensor(tab[0], device=projector.device),
         np.zeros(4, np.float32), plan=plan, num_planes=k, mask_mode="none",
         to_srgb=False, raw=True, skip_rows=lay.get("skip_rows"),
@@ -1654,39 +1684,25 @@ def _stereo_eye(projector, cameras, num_layers, mask_mode, cfg, num_planes):
     cam0 = cameras[0]
     f2_host = float(cam0.focal_px)
     out_w, out_h = cam0.width, cam0.height
-    pos_list, rot_list = zip(*(
-        relative_view_pose(projector.position, projector.rotation,
-                           cam.position, cam.rotation)
-        for cam in cameras
-    ))
-    pos_b, rot_b = np.stack(pos_list), np.stack(rot_list)
-    rotated = not np.allclose(rot_b, np.eye(3), atol=1e-5)
-    lateral = (
-        not rotated
-        and np.abs(pos_b[:, 1]).max() < 1e-9
-        and np.abs(pos_b[:, 2]).max() < 1e-9
-    )
+    poses = _read_poses(projector, cameras)
     _check_plane_mode(cfg)
     sk1 = np.asarray(projector.skew, np.float64)
     sk2 = np.asarray(cam0.skew, np.float64)
-    max_cx = float(np.abs(pos_b[:, 0]).max())
-    eye = _Eye(pos_b, rot_b, [], [], [], [], [], [])
+    eye = _Eye(poses.pos_b, poses.rot_b, [], [], [], [], [], [])
     for idx, lay in enumerate(_prepared_textures(projector)[:num_layers]):
         mask = _eroded_mask(lay) if mask_mode == "hard" else lay["mask"]
         plan, crop_y, k_l, setup = None, 0, None, None
-        if lateral and _march_eligible(lay, f2_host, out_w, out_h):
+        if poses.lateral and _march_eligible(lay, f2_host, out_w, out_h):
             mode = "march"
-            plan, crop_y, phase, doff = _march_fold(
-                lay, sk1, sk2, max_cx, out_w, out_h, 0.0)
-            tab, k_l = _march_tables(projector, idx, cfg, num_planes,
-                                     pos_b[:, 0], phase)
-            extra = {"plane_invz": tab}
+            lay, plan, crop_y, k_l = _plan_march_layer(
+                projector, idx, lay, cfg, num_planes, poses.pos_b[:, 0],
+                sk2, out_w, out_h)
         else:
             try:
                 mode, setup, extra = _plan_march_tier(
-                    lay, f2_host, out_w, out_w, out_h, pos_b, rot_list,
-                    pos_list, rotated, cfg, num_planes, projector.device,
-                    sk1=sk1, sk2=sk2,
+                    lay, f2_host, out_w, out_w, out_h, poses.pos_b,
+                    poses.rot_b, poses.rotated, cfg, num_planes,
+                    projector.device, sk1=sk1, sk2=sk2,
                 )
             except ValueError as err:
                 raise ValueError(
@@ -1694,8 +1710,8 @@ def _stereo_eye(projector, cameras, num_layers, mask_mode, cfg, num_planes):
                     f"tiers ({err}); use render_stereo_view"
                 ) from err
             d = -lay["focal_host"] * (sk1 - sk2)
-            doff = (float(d[0]), float(d[1]))
-        eye.layers.append(dict(lay, mask=mask, doff=doff, **extra))
+            lay = dict(lay, doff=(float(d[0]), float(d[1])), **extra)
+        eye.layers.append(dict(lay, mask=mask))
         eye.modes.append(mode)
         eye.setups.append(setup)
         eye.plans.append(plan)
@@ -1748,21 +1764,16 @@ def render_stereo_fast_batch(
     if len(cameras) == 0:
         raise ValueError("render_stereo_fast_batch needs at least one camera")
     cam0 = cameras[0]
-    for cam in cameras[1:]:
-        if (
-            cam.width != cam0.width
-            or cam.height != cam0.height
-            or abs(float(cam.focal_px) - float(cam0.focal_px)) > 1e-6
-        ):
-            raise ValueError(
-                "render_stereo_fast_batch cameras must share "
-                "width/height/focal"
-            )
-        if not np.allclose(np.asarray(cam.skew), np.asarray(cam0.skew)):
-            raise ValueError(
-                "render_stereo_fast_batch cameras must share skew; batch "
-                "per-eye frusta as separate calls"
-            )
+    mismatch = _intrinsics_mismatch(cameras)
+    if mismatch == "dims":
+        raise ValueError(
+            "render_stereo_fast_batch cameras must share width/height/focal"
+        )
+    if mismatch == "skew":
+        raise ValueError(
+            "render_stereo_fast_batch cameras must share skew; batch "
+            "per-eye frusta as separate calls"
+        )
     num_layers = min(left.num_layers, right.num_layers)
     # the dilated hard discard where LDI masks exist
     # (rayCastStereoLDI.glsl:304-305); taper only for a single layer
@@ -1958,19 +1969,11 @@ def render_fused_fast_batch(
     if len(cameras) == 0:
         raise ValueError("render_fused_fast_batch needs at least one camera")
     cam0 = cameras[0]
-    f2_host = float(cam0.focal_px)
-    sk2 = np.asarray(cam0.skew, np.float64)
-    for cam in cameras[1:]:
-        if (
-            cam.width != cam0.width
-            or cam.height != cam0.height
-            or abs(float(cam.focal_px) - f2_host) > 1e-6
-            or not np.allclose(np.asarray(cam.skew), sk2)
-        ):
-            raise ValueError(
-                "render_fused_fast_batch cameras must share "
-                "width/height/focal/skew"
-            )
+    if _intrinsics_mismatch(cameras):
+        raise ValueError(
+            "render_fused_fast_batch cameras must share "
+            "width/height/focal/skew"
+        )
     views = []
     with profiling.span("lif.plan"):
         for proj in projectors:
@@ -1989,26 +1992,15 @@ def _fused_view(proj, cameras, cfg, num_planes, mask_mode) -> _FusedView:
     ValueError for a pose or layer the lateral march cannot take."""
     cam0 = cameras[0]
     f2_host = float(cam0.focal_px)
-    sk2 = np.asarray(cam0.skew, np.float64)
-    pos_list = []
-    for cam in cameras:
-        pos_np, rot_np = relative_view_pose(
-            proj.position, proj.rotation, cam.position, cam.rotation,
+    poses = _read_poses(proj, cameras)
+    if not poses.lateral:
+        raise ValueError(
+            "render_fused_fast needs lateral poses; use "
+            "parallel.sharding.render_fused_projectors for arbitrary poses"
         )
-        if not np.allclose(rot_np, np.eye(3), atol=1e-5) or (
-            abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
-        ):
-            raise ValueError(
-                "render_fused_fast needs lateral poses; use "
-                "parallel.sharding.render_fused_projectors for "
-                "arbitrary poses"
-            )
-        pos_list.append(pos_np)
-    pos_b = np.stack(pos_list)
     _check_plane_mode(cfg)
-    max_cx = float(np.abs(pos_b[:, 0]).max())
     view = _FusedView(
-        pos_b, _default_mask_mode(proj, mask_mode), [], [], [])
+        poses.pos_b, _default_mask_mode(proj, mask_mode), [], [], [])
     for idx, lay in enumerate(_prepared_textures(proj)):
         if not _march_eligible(lay, f2_host, cam0.width, cam0.height) or (
             lay["w"] != cam0.width or lay["h"] != cam0.height
@@ -2017,11 +2009,10 @@ def _fused_view(proj, cameras, cfg, num_planes, mask_mode) -> _FusedView:
                 "render_fused_fast needs matched focal/dims per layer "
                 "and an 8-divisible width"
             )
-        plan, _, phase, doff = _march_fold(
-            lay, proj.skew, sk2, max_cx, cam0.width, cam0.height, 0.0)
-        tab, k_l = _march_tables(proj, idx, cfg, num_planes,
-                                 pos_b[:, 0], phase)
-        view.layers.append(dict(lay, plane_invz=tab, doff=doff))
+        lay, plan, _, k_l = _plan_march_layer(
+            proj, idx, lay, cfg, num_planes, poses.pos_b[:, 0], cam0.skew,
+            cam0.width, cam0.height)
+        view.layers.append(lay)
         view.plans.append(plan)
         view.nums.append(k_l)
     return view
@@ -2228,21 +2219,13 @@ def plan_billboard(projector: Projector, cameras: Sequence[Camera],
             "centered principal point, and an 8-divisible width; use "
             "render(mode='billboard') per frame otherwise"
         )
-    pos_list = []
-    for cam in cameras:
-        pos_np, rot_np = relative_view_pose(
-            projector.position, projector.rotation, cam.position,
-            cam.rotation,
+    poses = _read_poses(projector, cameras)
+    if not poses.lateral:
+        raise ValueError(
+            "render_billboard_fast_batch needs lateral poses; use "
+            "render(mode='billboard') per frame otherwise"
         )
-        if not np.allclose(rot_np, np.eye(3), atol=1e-5) or (
-            abs(pos_np[1]) > 1e-9 or abs(pos_np[2]) > 1e-9
-        ):
-            raise ValueError(
-                "render_billboard_fast_batch needs lateral poses; use "
-                "render(mode='billboard') per frame otherwise"
-            )
-        pos_list.append(pos_np)
-    pos_b = np.stack(pos_list)
+    pos_b = poses.pos_b
     f1 = lay["focal_host"]
     su_half = _splat_march.su_half_bound(point_size, lay["w"], lay["h"], f1)
     if su_half >= 1.0:

@@ -37,6 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import composite as _composite
 from .sweep_target import SKIP_SLACK, WARP
 
@@ -1034,20 +1035,24 @@ def render_translation_batch(
     if out is not None:  # the plain version of the epilogue kernel's route
         from .cuda.sweep_march import lateral_epilogue
 
-        marches = [
-            march_translation_plain(
-                rgb, disp, mask, invz_min, invz_max, cc, f1, pp, plan,
-                num_planes, refine=refine, offset=offset,
+        with profiling.span("lif.kernel.lateral"):
+            marches = [
+                march_translation_plain(
+                    rgb, disp, mask, invz_min, invz_max, cc, f1, pp, plan,
+                    num_planes, refine=refine, offset=offset,
+                )
+                for cc, pp in zip(c1, plane)
+            ]
+            found, invz_star, rgba_star = (
+                torch.stack(t) for t in zip(*marches))
+        with profiling.span("lif.epilogue.lateral"):
+            profiling.count("epilogue.lateral.fused")
+            return lateral_epilogue(
+                found, invz_star, rgba_star, torch.as_tensor(c1), plan, f1,
+                background, out, feathering=feathering, mask_mode=mask_mode,
+                to_srgb=to_srgb, offset=offset, crop_y=crop_y, first=first,
+                last=last,
             )
-            for cc, pp in zip(c1, plane)
-        ]
-        found, invz_star, rgba_star = (torch.stack(t) for t in zip(*marches))
-        return lateral_epilogue(
-            found, invz_star, rgba_star, torch.as_tensor(c1), plan, f1,
-            background, out, feathering=feathering, mask_mode=mask_mode,
-            to_srgb=to_srgb, offset=offset, crop_y=crop_y, first=first,
-            last=last,
-        )
     outs = [
         render_translation_plain(
             rgb, disp, mask, invz_min, invz_max, cc, f1, pp, background,

@@ -1310,7 +1310,7 @@ def _fused_against_chain(proj, cams, monkeypatch, **kw):
     launches = tcuda.lateral_epilogue.launches - before
     assert tcuda.sweep_lateral.launches - lateral == launches
     with monkeypatch.context() as m:
-        m.setattr(trenderer, "_fuses_lateral", lambda modes, dev: False)
+        m.setattr(trenderer, "_fuses_lateral", lambda modes: False)
         ref = lif_tpu_torch.render_fast_batch(proj, cams, **kw)
     assert tcuda.lateral_epilogue.launches - before == launches
     return got, ref, launches, fused

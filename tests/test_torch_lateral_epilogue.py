@@ -1,14 +1,15 @@
 """The lateral epilogue's plain route, on the CPU.
 
-A call whose every layer marches on CUDA finishes each layer of each pose
-chunk straight into the call's frames (models/renderer.py::
-_fused_lateral_core, ops/cuda/sweep_march.py::lateral_epilogue). The
-wrapper runs its plain version, the PyTorch chain it replaces, for CPU
-tensors. Here that route is forced on CPU textures and held bit for bit
-to the chain every other call takes: _finalize over a zero background,
-the front-to-back over of the LDI layers, finish_over_background, the
-concatenation of the pose chunks and the width-pad slice. The kernel is
-held to the same chain on the card (tests/test_torch_cuda.py).
+A call whose every layer marches finishes each layer of each pose chunk
+straight into the call's frames (models/renderer.py::_fused_lateral_core,
+ops/cuda/sweep_march.py::lateral_epilogue), on the card through the
+epilogue kernel and on the CPU through its plain version, the PyTorch
+chain it replaces. Here the CPU's default route is held bit for bit to
+the chain that mixed-tier calls take (forced by turning the route off):
+_finalize over a zero background, the front-to-back over of the LDI
+layers, finish_over_background, the concatenation of the pose chunks and
+the width-pad slice. The kernel is held to the same chain on the card
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -65,9 +66,10 @@ CASES = {
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_fused_route_plain_equals_the_torch_chain(case, monkeypatch):
-    """render_fast_batch through the fused route's plain version equals
-    the same call through today's chain bit for bit; the route finishes
-    each layer of each pose chunk once (chunks x layers epilogues)."""
+    """render_fast_batch on the CPU's default route, the fused route's
+    plain version, equals the same call through the chain bit for bit;
+    the route finishes each layer of each pose chunk once (chunks x
+    layers epilogues)."""
     layers, w, n, chunk, mask_mode, to_srgb, skewed, bg = CASES[case]
     h = 40
     skew = (0.021, -0.0137) if skewed else (0.0, 0.0)
@@ -78,8 +80,10 @@ def test_fused_route_plain_equals_the_torch_chain(case, monkeypatch):
     cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(pose_chunk=chunk)
     kw = dict(config=cfg, background=bg, to_srgb=to_srgb,
               mask_mode=mask_mode, method="march")
-    ref, tiers = lif_tpu_torch.render_fast_batch(proj, cams,
-                                                 return_tiers=True, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(renderer, "_fuses_lateral", lambda modes: False)
+        ref, tiers = lif_tpu_torch.render_fast_batch(proj, cams,
+                                                     return_tiers=True, **kw)
     assert tiers == ("march",) * layers
 
     finished = []
@@ -89,7 +93,6 @@ def test_fused_route_plain_equals_the_torch_chain(case, monkeypatch):
         finished.append((kwargs["first"], kwargs["last"]))
         return plain(*args, **kwargs)
 
-    monkeypatch.setattr(renderer, "_fuses_lateral", lambda modes, dev: True)
     monkeypatch.setattr(tcuda, "lateral_epilogue_plain", spy)
     got = lif_tpu_torch.render_fast_batch(proj, cams, **kw)
     n_chunks = len(renderer._pose_chunks(n, chunk))
@@ -126,16 +129,17 @@ def test_epilogue_writes_only_its_rows():
     assert bool(out[0].isnan().all()) and bool(out[4].isnan().all())
 
 
-@pytest.mark.parametrize("modes,device,fused", [
-    (("march",), "cuda", True),
-    (("march", "march", "march"), "cuda", True),
-    (("march", "sweep"), "cuda", False),
-    (("scaled",), "cuda", False),
-    (("target", "march"), "cuda", False),
-    (("rotated",), "cuda", False),
-    (("march",), "cpu", False),
-    (("march", "march"), "cpu", False),
+@pytest.mark.parametrize("modes,fused", [
+    (("march",), True),
+    (("march", "march", "march"), True),
+    (("march", "sweep"), False),
+    (("scaled",), False),
+    (("target", "march"), False),
+    (("rotated",), False),
+    (("march", "march"), True),
+    (("sweep", "march"), False),
 ])
-def test_route_predicate(modes, device, fused):
-    """Only an all-'march' call on CUDA textures takes the fused route."""
-    assert renderer._fuses_lateral(modes, torch.device(device)) is fused
+def test_route_predicate(modes, fused):
+    """Only an all-'march' call takes the fused route, decided by its
+    tiers alone (on any device)."""
+    assert renderer._fuses_lateral(modes) is fused

@@ -49,22 +49,27 @@ def _calls(rng):
     proj = _projector(rng)
     other = _projector(rng, position=(0.02, 0.0, 0.0))
     xs = [0.011, 0.013, 0.017, 0.019, 0.023]
+    # an all-'march' call marches and finishes its frames in the lateral
+    # kernel's and epilogue's spans, as on the card (on the CPU their plain
+    # versions); the chain's lif.composite shows in a call on another
+    # tier (view_dolly)
+    lateral = {"lif.plan", "lif.chunk", "lif.kernel.lateral",
+               "lif.epilogue.lateral"}
     return {
         "batch": (lambda: lt.render_fast_batch(proj, _cams(xs), config=CFG),
-                  {"lif.render_fast_batch", "lif.plan", "lif.prep",
-                   "lif.chunk", "lif.composite"}),
+                  {"lif.render_fast_batch", "lif.prep", *lateral}),
         "view": (lambda: lt.render_fast_view(proj, _cams([0.021])[0]),
-                 {"lif.render_fast_view", "lif.plan", "lif.chunk",
-                  "lif.composite"}),
+                 {"lif.render_fast_view", *lateral}),
         # a y-only pose: render_fast_view calls itself on the transpose
         "view_transposed": (
             lambda: lt.render_fast_view(proj, _cams([0.0], y=0.015)[0]),
-            {"lif.render_fast_view", "lif.plan", "lif.chunk"}),
+            {"lif.render_fast_view", *lateral}),
         # a dolly: render_fast_view calls render_fast_batch
         "view_dolly": (
             lambda: lt.render_fast_view(proj, lt.Camera.create(
                 W, H, focal_px=FOCAL, position=[0.0, 0.0, 0.02])),
-            {"lif.render_fast_view", "lif.render_fast_batch", "lif.plan"}),
+            {"lif.render_fast_view", "lif.render_fast_batch", "lif.plan",
+             "lif.chunk", "lif.composite"}),
         "fused": (lambda: lt.render_fused_fast_batch([proj, other],
                                                      _cams(xs), config=CFG),
                   {"lif.render_fused_fast_batch", "lif.plan", "lif.chunk",
