@@ -7,7 +7,8 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 
 1. device: a CUDA device, and its name and power limit from nvidia-smi;
 2. build: compile csrc/sweep_march.cu, csrc/sweep_target.cu,
-   csrc/sweep_scaled.cu and csrc/splat_march.cu with nvcc (sm_90a) and
+   csrc/sweep_scaled.cu, csrc/splat_march.cu and csrc/posed_epilogue.cu
+   with nvcc (sm_90a) and
    the LIF codec csrc/lif_container.cpp with g++ into
    lif_tpu_torch/_build/, one compiler per source, started together;
 3. lateral kernel vs plain: a seeded 1280x800 scene (smooth noise plus a
@@ -69,7 +70,14 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     both new paths, the kernel against its plain version (8 poses, depth
     only, refine 2), and the kernel at the tilted orbit's phase-A shapes
     beside that configuration's bound, each beside its previous design's
-    time;
+    time; then the posed epilogue kernel (posed_epilogue, in
+    csrc/posed_epilogue.cu) on one N_EPILOGUE-pose chunk of the camera
+    path's orbit ('target') and push-in ('scaled') at W x H, on its tier's
+    depth-only march outputs, against its plain version, the PyTorch
+    chain, on the card (max abs 0, as a front layer and as a layer behind
+    one), each timed, with its bound (24 bytes a pixel at 3.35 TB/s);
+    main paths 2, 3 and 4 launch it once a chunk (3, 1, 1), main path 5
+    (the rotated tier) never;
 14. billboard kernel vs plain and the oracle: the same scene, the 8
     lateral poses of phase 3 planned by renderer.plan_billboard (K = 312,
     point_size 1); the kernel's hit / texel / colour against
@@ -243,7 +251,8 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     each of the four kernels launched and held.
 
 Main paths 1-6 also check their launch counts (2, 3, 1, 1, 1, 1; main
-path 1 also 2 epilogue launches), main
+path 1 also 2 lateral epilogue launches, main paths 2-5 3, 1, 1, 0 posed
+epilogue launches), main
 paths 8, 9, 10, 14 and 15 each step's against the tiers it took, main
 path 13 each rank's against its block of poses. The
 second-to-last line is the kernels' JSON record (with each kernel's bound:
@@ -708,6 +717,7 @@ def run():
         from lif_tpu_torch.io import native
         from lif_tpu_torch.models import renderer
         from lif_tpu_torch.ops.cuda import build
+        from lif_tpu_torch.ops.cuda import posed_epilogue as kposed
         from lif_tpu_torch.ops.cuda import sweep_march as kmarch
         from lif_tpu_torch.ops.sweep_march import (
             march_translation_plain,
@@ -730,7 +740,8 @@ def run():
 
     # 2. build, one nvcc per source and g++ for the LIF codec, all started
     # together
-    sources = ("sweep_march", "sweep_target", "sweep_scaled", "splat_march")
+    sources = ("sweep_march", "sweep_target", "sweep_scaled", "splat_march",
+               "posed_epilogue")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         codec = pool.submit(native.load_library)
@@ -753,6 +764,7 @@ def run():
     def reset_counts():
         counter(reset=True)
         kmarch.lateral_epilogue.launches = 0
+        kposed.posed_epilogue.launches = 0
 
     def launch_counts():
         return counter()
@@ -884,6 +896,7 @@ def run():
     epilogue = epilogue_phase(proj, lay, cam, epilogues, card)
     target = orbit_phases(proj, focal, lay, reset_counts, card)
     scaled = scaled_phases(proj, focal, lay, reset_counts, card)
+    posed = posed_epilogue_phase(proj, focal, lay, card)
     billboard = billboard_phases(proj, focal, lay, cams, reset_counts,
                                  launch_counts, card)
     # main paths 8, 9, 10, 14 and 15 held each launch to the plain versions:
@@ -897,7 +910,7 @@ def run():
     errs14, lateral["uniform_grid"] = plane_mode_phase(
         proj, focal, lay, reset_counts, launch_counts, card)
     errs15 = bench_phase(reset_counts, launch_counts, card)
-    kernels = [lateral, epilogue, target, scaled, billboard]
+    kernels = [lateral, epilogue, target, scaled, *posed, billboard]
     for rec in kernels:
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  *(e.get(rec["name"], 0.0) for e in (
@@ -972,6 +985,97 @@ def epilogue_phase(proj, lay, cam, launches, card):
         launches, err, ms, plain_ms, (bound, "bytes"))
 
 
+def posed_epilogue_phase(proj, focal, lay, card):
+    """Phase 13, second half: the posed epilogue kernel on one
+    N_EPILOGUE-pose chunk of the camera path's orbit ('target', theta from
+    -15 deg over 28 deg about ORBIT_CENTER) and push-in ('scaled', z from
+    0.10 m over 0.09 m) at W x H under the default config, on its tier's
+    depth-only march outputs planned as render_fast_batch plans them:
+    equal to its plain version (the PyTorch chain) on the card as a front
+    layer over the background and as a layer behind one already in the
+    frames, both timed, beside the bound of its 24 bytes a pixel. Returns
+    the two kernel records."""
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops import sweep_scaled as sscaled
+    from lif_tpu_torch.ops import sweep_target as starget
+    from lif_tpu_torch.ops.cuda import posed_epilogue as kposed
+    from lif_tpu_torch.ops.sampling import pack_rgbm
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    cfg = lt.DEFAULT_CONFIG
+    dev = lay["disp"].device
+    izmin, izmax = lay["izmin_host"], lay["izmax_host"]
+    packed = pack_rgbm(lay["rgb"], lay["mask"])
+    drives = {
+        "target": orbit_cams(lt, focal, thetas=list(np.deg2rad(
+            -15.0 + 28.0 * np.arange(N_EPILOGUE) / N_EPILOGUE))),
+        "scaled": [lt.Camera.create(W, H, focal_px=focal, position=[
+            0.0, 0.0, 0.10 + 0.09 * i / N_EPILOGUE])
+            for i in range(N_EPILOGUE)],
+    }
+    records = []
+    for tier, cams in drives.items():
+        tp = renderer.plan_tiers(proj, cams)
+        mode, setup, extra = tp.planned[0]
+        check(mode == tier, f"the {tier} drive plans onto {mode!r}")
+        if tier == "target":
+            plan, k = setup
+            poses = extra["pose_sc"]
+            found, invz = starget._march_batch(
+                lay["disp"], np.float32(izmin), np.float32(izmax), poses,
+                extra["grids"], plan, k, cfg.target_refine,
+                skip_tables=lay["skip_target"])
+            solve = (plan, izmin, izmax)
+        else:
+            plan, k, fr, dxu, dyu = setup
+            poses = torch.as_tensor(tp.pos_b, dtype=torch.float32,
+                                    device=dev)
+            found, invz = sscaled.render_scaled_batch(
+                lay["rgb"], lay["disp"], lay["mask"], izmin, izmax, poses,
+                lay["focal_host"], fr, extra["grids"], None, plan, k,
+                refine=cfg.rotated_refine, dx_user=dxu, dy_user=dyu,
+                depth_only=True, skip_tables=lay["skip_scaled"])
+            solve = (plan, lay["focal_host"], fr, dxu, dyu, 0)
+        args = (tier, found, invz, poses, solve, packed, cfg.background)
+        kw = dict(feathering=cfg.feathering, mask_mode="none",
+                  to_srgb=cfg.to_srgb)
+        out = torch.empty((N_EPILOGUE, H, W, 4), device=dev)
+        twin = torch.empty_like(out)
+        err = 0.0
+        for first in (True, False):  # behind the front layer's frames
+            kposed.posed_epilogue(*args, out, first=first, **kw)
+            kposed.posed_epilogue_plain(*args, twin, first=first, **kw)
+            torch.cuda.synchronize()
+            err = max(err, float((out - twin).abs().max()))
+            check(torch.equal(out, twin),
+                  f"the {tier} epilogue kernel is not exact (first={first})")
+        print(f"posed epilogue kernel, {tier}, vs its plain version "
+              f"({N_EPILOGUE} poses, {W}x{H}, background {cfg.background}, "
+              f"sRGB {cfg.to_srgb}, as the front layer and behind it): max "
+              f"abs {err:.3g}, alpha coverage "
+              f"{float(out[..., 3].mean()):.4f}", flush=True)
+        ms = device_timer(kposed.posed_epilogue, *args, out, iters=10,
+                          repeats=5, **kw) / N_EPILOGUE
+        plain_ms = device_timer(kposed.posed_epilogue_plain, *args, twin,
+                                iters=3, repeats=5, **kw) / N_EPILOGUE
+        nbytes = tensor_bytes(found, invz, out)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3 / N_EPILOGUE
+        print(f"posed_epilogue kernel, {tier}: {ms:.5f} ms/frame, bound "
+              f"{bound:.5f} ms/frame (bytes: "
+              f"{nbytes / N_EPILOGUE / (W * H):.0f} B/px), the PyTorch "
+              f"chain {plain_ms:.5f} ms/frame ({N_EPILOGUE}-pose chunk) "
+              f"[{card}]", flush=True)
+        records.append(kernel_record(
+            f"posed_epilogue {tier}", "lif_tpu_torch/csrc/posed_epilogue.cu",
+            "none: lif_tpu leaves the fetch and epilogue to XLA's fusion",
+            None, err, ms, plain_ms, (bound, "bytes")))
+        del out, twin, found, invz
+    return records
+
+
 def orbit_phases(proj, focal, lay, reset_counts, card):
     """Phases 6-9: the target-ray kernel against its plain version, the
     120-pose orbit and the pitch route through render_fast_batch, and
@@ -982,6 +1086,7 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
     from lif_tpu_torch.core.pose import relative_view_pose
     from lif_tpu_torch.models import renderer
     from lif_tpu_torch.ops import sweep_target as starget
+    from lif_tpu_torch.ops.cuda import posed_epilogue as kposed
     from lif_tpu_torch.ops.cuda import sweep_target as ktarget
     from lif_tpu_torch.utils.profiling import device_timer
 
@@ -1056,7 +1161,9 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
     out, tiers = lt.render_fast_batch(proj, cams, return_tiers=True)
     torch.cuda.synchronize()
     launches = ktarget.sweep_target.launches
-    record_path("main path 2", {"target_march": launches})
+    epilogues = kposed.posed_epilogue.launches
+    record_path("main path 2", {"target_march": launches,
+                                "posed_epilogue target": epilogues})
     coverage = float(out[..., 3].mean())
     print(f"main path 2: render_fast_batch({N_ORBIT} orbit poses, +-"
           f"{ORBIT_DEG:g} deg) -> {tuple(out.shape)}, tiers {tiers}, "
@@ -1065,6 +1172,8 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
     MAIN_FRAMES["orbit"] = out
     check(tiers == ("target",), f"orbit tiers {tiers}")
     check(launches == 3, f"{launches} target launches for three chunks")
+    check(epilogues == 3, f"{epilogues} posed epilogue launches for three "
+                          f"chunks")
     check(tuple(out.shape) == (N_ORBIT, H, W, 4), f"shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite orbit output")
     check(0.5 < coverage <= 1.0, f"orbit alpha coverage {coverage}")
@@ -1087,7 +1196,9 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
     pout, ptiers = lt.render_fast_batch(proj, pcams, return_tiers=True)
     torch.cuda.synchronize()
     plaunches = ktarget.sweep_target.launches
-    record_path("main path 3", {"target_march": plaunches})
+    pepilogues = kposed.posed_epilogue.launches
+    record_path("main path 3", {"target_march": plaunches,
+                                "posed_epilogue target": pepilogues})
     transposed = len(renderer._TRANSPOSED_CACHE) > n_transposed
     print(f"main path 3: render_fast_batch({N_CHECK} pitch poses, +-"
           f"{PITCH_DEG:g} deg) -> {tuple(pout.shape)}, tiers {ptiers}, "
@@ -1097,6 +1208,8 @@ def orbit_phases(proj, focal, lay, reset_counts, card):
     check(ptiers == ("target",), f"pitch tiers {ptiers}")
     check(transposed, "the pitch batch did not take the transposed route")
     check(plaunches == 1, f"{plaunches} target launches on the pitch route")
+    check(pepilogues == 1, f"{pepilogues} posed epilogue launches on the "
+                           f"pitch route")
     check(tuple(pout.shape) == (N_CHECK, H, W, 4), "pitch output shape")
     check(bool(torch.isfinite(pout).all()), "non-finite pitch output")
 
@@ -1136,6 +1249,7 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
     from lif_tpu_torch.models import renderer
     from lif_tpu_torch.ops import sweep_scaled as sscaled
     from lif_tpu_torch.ops import sweep_target as starget
+    from lif_tpu_torch.ops.cuda import posed_epilogue as kposed
     from lif_tpu_torch.ops.cuda import sweep_scaled as kscaled
     from lif_tpu_torch.utils.profiling import device_timer
 
@@ -1225,7 +1339,9 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
     out, tiers = lt.render_fast_batch(proj, cams, return_tiers=True)
     torch.cuda.synchronize()
     launches = kscaled.sweep_scaled.launches
-    record_path("main path 4", {"scaled_march": launches})
+    epilogues = kposed.posed_epilogue.launches
+    record_path("main path 4", {"scaled_march": launches,
+                                "posed_epilogue scaled": epilogues})
     coverage = float(out[..., 3].mean())
     print(f"main path 4: render_fast_batch({N_DOLLY} dolly poses) -> "
           f"{tuple(out.shape)}, tiers {tiers}, scaled_march launches "
@@ -1233,6 +1349,8 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
     MAIN_FRAMES["dolly"] = out
     check(tiers == ("scaled",), f"dolly tiers {tiers}")
     check(launches == 1, f"{launches} scaled launches on the dolly")
+    check(epilogues == 1, f"{epilogues} posed epilogue launches on the "
+                          f"dolly")
     check(tuple(out.shape) == (N_DOLLY, H, W, 4), f"shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite dolly output")
     check(0.5 < coverage <= 1.0, f"dolly alpha coverage {coverage}")
@@ -1251,6 +1369,7 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
     tout, ttiers = lt.render_fast_batch(proj, tcams, return_tiers=True)
     torch.cuda.synchronize()
     tlaunches = kscaled.sweep_scaled.launches
+    tepilogues = kposed.posed_epilogue.launches
     record_path("main path 5", {"scaled_march": tlaunches})
     coverage = float(tout[..., 3].mean())
     print(f"main path 5: render_fast_batch({N_TILT} tilted orbit poses, "
@@ -1259,6 +1378,8 @@ def scaled_phases(proj, focal, lay, reset_counts, card):
           f"{tlaunches}, alpha coverage {coverage:.4f}", flush=True)
     check(ttiers == ("rotated",), f"tilted orbit tiers {ttiers}")
     check(tlaunches == 1, f"{tlaunches} scaled launches on the tilted orbit")
+    check(tepilogues == 0, f"{tepilogues} posed epilogue launches on the "
+                           f"rotated tier")
     check(tuple(tout.shape) == (N_TILT, H, W, 4), "tilted orbit shape")
     check(bool(torch.isfinite(tout).all()), "non-finite tilted orbit output")
     check(0.5 < coverage <= 1.0, f"tilted orbit alpha coverage {coverage}")
@@ -1621,13 +1742,15 @@ LAUNCHES_BY_PATH: dict = {}
 
 
 def with_epilogue(counts):
-    """A step's kernel launches and the lateral epilogue kernel's, which
-    the steps' exact launch checks leave out (it launches once after each
-    lateral launch of a call whose every layer marches): the counts since
-    the step's reset_counts."""
+    """A step's kernel launches and the epilogue kernels', which the
+    steps' exact launch checks leave out (each launches once after each
+    march launch of its tier in a call whose every layer has an epilogue
+    kernel): the counts since the step's reset_counts."""
+    from lif_tpu_torch.ops.cuda import posed_epilogue as kposed
     from lif_tpu_torch.ops.cuda import sweep_march as kmarch
 
-    return dict(counts, lateral_epilogue=kmarch.lateral_epilogue.launches)
+    return dict(counts, lateral_epilogue=kmarch.lateral_epilogue.launches,
+                posed_epilogue=kposed.posed_epilogue.launches)
 
 
 def record_path(path, counts):

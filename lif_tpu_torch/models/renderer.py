@@ -75,7 +75,7 @@ from ..ops import sweep_scaled as _sweep_scaled
 from ..ops import sweep_target as _sweep_target
 from ..ops.cuda.sweep_march import prepare_translation_src
 from ..ops.cuda.sweep_target import skip_table_buffer
-from ..ops.sampling import read_disp
+from ..ops.sampling import pack_rgbm, read_disp
 from ..utils import profiling
 from .projector import Projector
 
@@ -499,7 +499,8 @@ def _plan_layers(projector, tex_layers, modes, cfg, num_planes, cxs, sk2,
     _plan_march_layer (view: see there), a 'sweep' layer on its cached
     'hybrid' table with the setup (K, *sweep_opts), any other tier with
     the setup and extras plan_tiers planned for it (`planned`, per layer
-    (mode, setup, extras))."""
+    (mode, setup, extras)), a 'target' or 'scaled' layer with its
+    _packed_texture."""
     k_sweep = num_planes or cfg.sweep_planes
     layers, setups, plans, crops, nums = [], [], [], [], []
     for idx, (lay, mode) in enumerate(zip(tex_layers, modes)):
@@ -514,6 +515,8 @@ def _plan_layers(projector, tex_layers, modes, cfg, num_planes, cxs, sk2,
                 projector, tex_layers, k_sweep)[idx])
         else:
             _, setup, extra = planned[idx]
+            if mode in ("target", "scaled"):
+                extra = dict(extra, packed=_packed_texture(lay))
             lay = dict(lay, **extra)
         layers.append(lay)
         setups.append(setup)
@@ -575,6 +578,20 @@ def _eroded_mask(lay):
     if "eroded_mask" not in lay:
         lay["eroded_mask"] = _sweep_march.erode_mask_for_stereo(lay["mask"])
     return lay["eroded_mask"]
+
+
+def _packed_texture(lay):
+    """The pack_rgbm texture (10-bit colour and the mask bit) of one
+    cached texture layer, which the target and scaled epilogues fetch
+    from: packed on the first call that routes the layer to either tier
+    and kept in the layer's texture-cache entry, so it is keyed and
+    evicted with the texture it was packed from, and a caller that never
+    takes those tiers never holds one. It packs the texture's own mask:
+    only the mono calls' epilogue route reads it (a stereo eye may march
+    the eroded mask, and packs its own)."""
+    if "packed" not in lay:
+        lay["packed"] = pack_rgbm(lay["rgb"], lay["mask"])
+    return lay["packed"]
 
 
 def _attach_march_prep(layers, modes, plans, crops):
@@ -855,6 +872,11 @@ def _layer_tier_batch(
     feathering,
     mask_mode,
     raw=False,
+    out=None,
+    first=True,
+    last=True,
+    background=None,
+    to_srgb=False,
 ):
     """ONE LDI layer's pose-batched render through its routed tier — the
     tier switch, shared by the mono batch and the stereo cores. c1_b
@@ -862,7 +884,8 @@ def _layer_tier_batch(
     'march': the lateral translation on its (B, K) plane tables
     `plane_invz`, with the layer's constant
     source shift `doff` (the width pad's dx and the skew fold; see
-    render_fast_batch); 'scaled': the aligned march
+    render_fast_batch), from the hoisted march pack where
+    _attach_march_prep attached one; 'scaled': the aligned march
     with its setup (plan, K, fr, dx, dy) and per-pose ladders in `lay`;
     'target': the target-ray march with its setup (plan, K) and the
     per-pose pose packs and ladders in `lay`; 'rotated': the two-phase
@@ -876,8 +899,21 @@ def _layer_tier_batch(
     alpha, hit, invz*) tuple: straight colour, alpha, hit and the solved
     inverse depth, each with a leading pose axis (the stereo blend
     consumes them; the sweep has no raw outputs, and no stereo or fused
-    plan routes to it)."""
+    plan routes to it).
+
+    out: _fast_batch_core's in-place route, for a 'march', 'target' or
+    'scaled' layer: the tier's epilogue kernel (its plain version on the
+    CPU) finishes the layer into `out`, the call's (B, H, W_true, 4)
+    frames of the chunk, over the layers in front unless `first`, over
+    `background` and to sRGB if `last`, the target and scaled fetches from
+    the layer's _packed_texture; returns out."""
     zero_bg = np.zeros(4, np.float32)
+    if out is None:
+        background, to_srgb, into = zero_bg, False, {}
+    else:
+        into = dict(out=out, first=first, last=last)
+        if mode != "march":
+            into["packed"] = lay["packed"]
     if mode == "sweep":
         with profiling.span("lif.sweep"):
             return _sweep_batch(lay, setup, c1_b, rot_b, f2, out_w, out_h,
@@ -887,9 +923,10 @@ def _layer_tier_batch(
         return _sweep_scaled.render_scaled_fetch_batch(
             lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
             lay["izmax_host"], c1_b, lay["focal_host"], fr, lay["grids"],
-            zero_bg, splan, k_s, feathering=feathering, mask_mode=mask_mode,
-            to_srgb=False, refine=rot_refine, raw=raw, dx_user=dxu,
-            dy_user=dyu, skip_tables=lay.get("skip_scaled"),
+            background, splan, k_s, feathering=feathering,
+            mask_mode=mask_mode, to_srgb=to_srgb, refine=rot_refine, raw=raw,
+            dx_user=dxu, dy_user=dyu, skip_tables=lay.get("skip_scaled"),
+            **into,
         )
     if mode == "rotated":
         rplan, wi, hi, k_r, skip_a, sk1_t, sk2_t = setup
@@ -905,25 +942,13 @@ def _layer_tier_batch(
         tplan, k_t = setup
         return _sweep_target.render_target_fetch_batch(
             lay["rgb"], lay["disp"], lay["mask"], lay["izmin_host"],
-            lay["izmax_host"], lay["pose_sc"], lay["grids"], zero_bg, tplan,
-            k_t, feathering=feathering, mask_mode=mask_mode, to_srgb=False,
-            raw=raw, refine=t_refine, skip_tables=lay.get("skip_target"),
+            lay["izmax_host"], lay["pose_sc"], lay["grids"], background,
+            tplan, k_t, feathering=feathering, mask_mode=mask_mode,
+            to_srgb=to_srgb, raw=raw, refine=t_refine,
+            skip_tables=lay.get("skip_target"), **into,
         )
     if mode != "march":
         raise ValueError(f"unknown tier: {mode!r}")
-    return _march_layer_batch(
-        lay, plan, k_l, crop_y, c1_b, zero_bg, refine=refine,
-        feathering=feathering, mask_mode=mask_mode, to_srgb=False, raw=raw,
-    )
-
-
-def _march_layer_batch(lay, plan, k_l, crop_y, c1_b, background, *, refine,
-                       feathering, mask_mode, to_srgb, raw=False, out=None,
-                       first=True, last=True):
-    """ONE 'march' layer's pose batch on the lateral tier
-    (render_translation_batch): from the hoisted march pack where
-    _attach_march_prep attached one, else from the layer's own textures.
-    out/first/last: _fused_lateral_core's route into the call's frames."""
     if "march_src" in lay:  # hoisted (CUDA): the cached pack
         rgb_l, disp_l, mask_l = lay["march_src"]
     else:
@@ -934,7 +959,7 @@ def _march_layer_batch(lay, plan, k_l, crop_y, c1_b, background, *, refine,
         plan=plan, num_planes=k_l, refine=refine, feathering=feathering,
         mask_mode=mask_mode, to_srgb=to_srgb, raw=raw, offset=lay["doff"],
         crop_y=crop_y, prepared=lay.get("march_prep"),
-        skip_rows=lay.get("march_rows"), out=out, first=first, last=last,
+        skip_rows=lay.get("march_rows"), **into,
     )
 
 
@@ -1278,26 +1303,41 @@ def _fast_batch_core(
     path: hoists the march's source prep, then renders balanced pose
     chunks of at most `pose_chunk` poses (a bound on the per-chunk
     intermediates; None: one chunk) and slices the width pad off. A call
-    whose every layer marches takes _fused_lateral_core instead."""
+    whose every layer has an epilogue kernel (_fuses_epilogue) finishes
+    its frames in place instead."""
     layers = _attach_march_prep(layers, modes, plans, crops)
-    if _fuses_lateral(modes):
-        return _fused_lateral_core(
-            layers, plans, nums, crops, c1_b, background, refine=refine,
-            feathering=feathering, mask_mode=mask_mode, to_srgb=to_srgb,
-            out_h=out_h, out_w_true=out_w_true, pose_chunk=pose_chunk,
-        )
     tier_kw = dict(
         refine=refine, rot_refine=rot_refine, t_refine=t_refine,
         feathering=feathering, mask_mode=mask_mode,
     )
+    tiers = list(zip(layers, modes, setups, plans, nums, crops))
+    chunks = _pose_chunks(len(c1_b), pose_chunk)
+    if _fuses_epilogue(modes):
+        # the call's frames allocated once; each layer of each chunk
+        # finished into its rows by its tier's epilogue kernel, so no frame
+        # is copied after it is written and the width pad is never stored
+        out = torch.empty((len(c1_b), out_h, out_w_true, 4),
+                          dtype=torch.float32,
+                          device=layers[0]["disp"].device)
+        for sl in chunks:
+            with profiling.span("lif.chunk"):
+                for idx, (lay, mode, setup, plan, k_l, crop_y) in enumerate(
+                    tiers
+                ):
+                    _layer_tier_batch(
+                        _chunk_layer(lay, sl), mode, setup, plan, k_l,
+                        crop_y, c1_b[sl], rot_b[sl], f2, out_w_true, out_h,
+                        **tier_kw, out=out[sl], first=idx == 0,
+                        last=idx == len(tiers) - 1, background=background,
+                        to_srgb=to_srgb,
+                    )
+        return out
     outs = []
-    for sl in _pose_chunks(len(c1_b), pose_chunk):
+    for sl in chunks:
         # front-to-back LDI over-compositing of the chunk's layers
         with profiling.span("lif.chunk"):
             result_rgb = result_a = None
-            for lay, mode, setup, plan, k_l, crop_y in zip(
-                layers, modes, setups, plans, nums, crops
-            ):
+            for lay, mode, setup, plan, k_l, crop_y in tiers:
                 layer = _layer_tier_batch(
                     _chunk_layer(lay, sl), mode, setup, plan, k_l, crop_y,
                     c1_b[sl], rot_b[sl], f2, out_w_true, out_h, **tier_kw,
@@ -1318,41 +1358,14 @@ def _fast_batch_core(
     return out[:, :, :out_w_true, :] if out.shape[2] != out_w_true else out
 
 
-def _fuses_lateral(modes) -> bool:
-    """Whether a mono call takes _fused_lateral_core: every layer routed
-    'march', on any device (the CPU finishes through the epilogue
-    kernel's plain version). Any other tier mix keeps the per-chunk
-    frames and their concatenation: there the call's output allocated up
-    front would stand beside the other tiers' intermediates and raise the
-    call's peak."""
-    return all(m == "march" for m in modes)
-
-
-def _fused_lateral_core(layers, plans, nums, crops, c1_b, background, *,
-                        refine, feathering, mask_mode, to_srgb, out_h,
-                        out_w_true, pose_chunk):
-    """_fast_batch_core for a call whose every layer marches: the call's
-    (B, H, W_true, 4) frames allocated once, and each layer of each pose
-    chunk finished into its rows by the epilogue kernel (one launch after
-    each march launch: the hit test and blend, the over onto the layers
-    in front, the background and sRGB after the last layer; on the CPU
-    its plain version, lateral_epilogue_plain), so no frame is copied
-    after it is written and the width pad is never stored."""
-    out = torch.empty((len(c1_b), out_h, out_w_true, 4), dtype=torch.float32,
-                      device=layers[0]["disp"].device)
-    last = len(layers) - 1
-    for sl in _pose_chunks(len(c1_b), pose_chunk):
-        with profiling.span("lif.chunk"):
-            for idx, (lay, plan, k_l, crop_y) in enumerate(
-                zip(layers, plans, nums, crops)
-            ):
-                _march_layer_batch(
-                    _chunk_layer(lay, sl), plan, k_l, crop_y, c1_b[sl],
-                    background, refine=refine, feathering=feathering,
-                    mask_mode=mask_mode, to_srgb=to_srgb, out=out[sl],
-                    first=idx == 0, last=idx == last,
-                )
-    return out
+def _fuses_epilogue(modes) -> bool:
+    """Whether a mono call finishes its frames in place: every layer
+    routed to a tier with an epilogue kernel ('march': the lateral
+    epilogue; 'target' and 'scaled': the posed epilogue), on any device
+    (the CPU finishes through the kernels' plain versions). A 'rotated'
+    or 'sweep' layer keeps the call on the chain: per-chunk frames, their
+    compositing and their concatenation."""
+    return all(m in ("march", "target", "scaled") for m in modes)
 
 
 def render_mono_view(

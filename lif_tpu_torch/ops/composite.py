@@ -13,7 +13,8 @@ import torch
 from ..core.color import linear_to_srgb
 from ..utils import profiling
 
-__all__ = ["edge_alpha", "finish_over_background", "over", "smoothstep"]
+__all__ = ["edge_alpha", "finish_over_background", "over", "over_into",
+           "smoothstep"]
 
 
 def smoothstep(e0, e1, x: torch.Tensor) -> torch.Tensor:
@@ -74,3 +75,28 @@ def over(acc, layer):
     rgb, a = acc
     return (rgb + (1.0 - a[..., None]) * la[..., None] * layer[..., :3],
             la + a * (1.0 - la))
+
+
+def over_into(layer, out, background, to_srgb: bool, *, first: bool,
+              last: bool):
+    """The renderer's LDI chain for one (B, H, W, 4) layer, premultiplied
+    over a zero background, written into `out`, the caller's (B, H,
+    W_true, 4) frames (W_true <= W): the front-to-back over onto the
+    layers in front held in `out` (unless `first`), finish_over_background
+    (if `last`), then the true width into `out`. It runs at the layer's
+    width, as the renderer's chain does: on the CPU a vectorised pow
+    rounds by its place in the loop, so the layout is part of the result.
+    The epilogue kernels' plain versions end here. Returns out."""
+    w_true = out.shape[2]
+    if first:
+        rgb, a = layer[..., :3], layer[..., 3]
+    else:
+        acc = torch.nn.functional.pad(out, (0, 0, 0, layer.shape[2] - w_true))
+        rgb = acc[..., :3] + (1.0 - acc[..., 3][..., None]) * layer[..., :3]
+        a = acc[..., 3] + (1.0 - acc[..., 3]) * layer[..., 3]
+    if last:
+        done = finish_over_background(rgb, a, background, to_srgb)
+    else:
+        done = torch.cat([rgb, a[..., None]], dim=-1)
+    out.copy_(done[:, :, :w_true])
+    return out

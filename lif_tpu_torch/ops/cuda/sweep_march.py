@@ -411,26 +411,13 @@ def lateral_epilogue_plain(found, invz_star, rgba_star, c1,
     background (as _layer_tier_batch renders each layer), the front-to-back
     over of models/renderer.py::_fast_batch_core onto the layers in front
     held in `out` (unless `first`), finish_over_background (if `last`),
-    then the true width into `out`. The chain runs at the march's padded
-    width, as the renderer runs it: on the CPU a vectorised pow rounds by
-    its place in the loop, so the layout is part of the result."""
+    then the true width into `out` (composite.over_into, at the march's
+    padded width)."""
     layer = _finalize(plan, found, invz_star, rgba_star, c1, f1,
                       np.zeros(4, np.float32), feathering, mask_mode, False,
                       offset=offset, crop_y=crop_y)
-    w_true = out.shape[2]
-    if first:
-        rgb, a = layer[..., :3], layer[..., 3]
-    else:
-        pad = (0, 0, 0, layer.shape[2] - w_true)
-        acc = torch.nn.functional.pad(out, pad)
-        rgb = acc[..., :3] + (1.0 - acc[..., 3][..., None]) * layer[..., :3]
-        a = acc[..., 3] + (1.0 - acc[..., 3]) * layer[..., 3]
-    if last:
-        done = _composite.finish_over_background(rgb, a, background, to_srgb)
-    else:
-        done = torch.cat([rgb, a[..., None]], dim=-1)
-    out.copy_(done[:, :, :w_true])
-    return out
+    return _composite.over_into(layer, out, background, to_srgb, first=first,
+                                last=last)
 
 
 def lateral_epilogue(found, invz_star, rgba_star, c1, plan: TranslationPlan,

@@ -918,31 +918,60 @@ def render_scaled_fetch_batch(
     dy_user: float = 0.0,
     crop_y: int = 0,
     skip_tables=None,
+    packed=None,
+    out=None,
+    first: bool = True,
+    last: bool = True,
 ):
     """PRODUCTION scaled tier: the depth-only march + ONE packed bilinear
     color fetch (10-bit color, 1-bit mask) at the solved position, then
     the epilogue. Fetching at the solved position is exact where the
     bracket color lerp of the non-snap grid is only approximate.
     skip_tables: the kernel's skip_pack, cached with the textures (CUDA
-    only). Returns
-    (B, H, W, 4), or raw (rgba, alpha, hit, invz) tuples."""
-    h, w = disp.shape
+    only); packed: pack_rgbm(rgb, mask), if cached. Returns (B, H, W, 4),
+    or raw (rgba, alpha, hit, invz) tuples. out, first, last: finish the
+    layer into the caller's (B, H, W_true, 4) frames
+    (ops.cuda.posed_epilogue: its kernel, or its plain version for CPU
+    tensors) and return them."""
     dev = disp.device
+    c1_t = _as_f32(c1_b, dev)  # uploaded once, for the march and the fetch
+    if not isinstance(c1_b, torch.Tensor):
+        profiling.host_sync("sync.upload.poses", dev)
     found, izs = render_scaled_batch(
-        rgb, disp, mask, invz_min, invz_max, c1_b, f1, fr, plane_invz,
+        rgb, disp, mask, invz_min, invz_max, c1_t, f1, fr, plane_invz,
         None, plan, num_planes, refine=refine, dx_user=dx_user,
         dy_user=dy_user, depth_only=True, skip_tables=skip_tables,
     )
     with profiling.span("lif.epilogue.scaled"):
-        invz_star = torch.where(found > 0.5, izs, 0.0)
-        c1_t = _as_f32(c1_b, dev)
-        if not isinstance(c1_b, torch.Tensor):
-            profiling.host_sync("sync.upload.poses", dev)
-        u1, v1 = _solved_uv(plan, invz_star, c1_t, f1, fr, dx_user, dy_user,
-                            crop_y)
-        with profiling.span("lif.fetch"):
-            sampled = bilinear_sample_packed(pack_rgbm(rgb, mask), u1, v1,
-                                             w, h)
-        ha = _composite.edge_alpha(found, u1, v1, feathering,
-                                   sampled[..., 3], mask_mode)
-        return _finish(invz_star, sampled, ha, background, to_srgb, raw)
+        packed = pack_rgbm(rgb, mask) if packed is None else packed
+        if out is not None:
+            from .cuda.posed_epilogue import posed_epilogue
+
+            profiling.count("epilogue.scaled.fused")
+            return posed_epilogue(
+                "scaled", found, izs, c1_t,
+                (plan, f1, fr, dx_user, dy_user, crop_y), packed, background,
+                out, feathering=feathering, mask_mode=mask_mode,
+                to_srgb=to_srgb, first=first, last=last)
+        return fetch_finish(plan, found, izs, c1_t, f1, fr, dx_user, dy_user,
+                            crop_y, packed, background, feathering,
+                            mask_mode, to_srgb, raw)
+
+
+def fetch_finish(plan: ScaledPlan, found, izs, c1, f1, fr, dx_user,
+                 dy_user, crop_y: int, packed, background, feathering: float,
+                 mask_mode: str, to_srgb: bool, raw: bool):
+    """The production epilogue after the depth-only march: invz* where
+    found (B, H, W) is set, its solved positions under the (B, 3) float32
+    poses c1, ONE packed bilinear fetch there from `packed` (pack_rgbm of
+    the source), the edge alpha, then _finish. Returns (B, H, W, 4), or
+    the raw tuple."""
+    h, w = packed.shape
+    invz_star = torch.where(found > 0.5, izs, 0.0)
+    u1, v1 = _solved_uv(plan, invz_star, c1, f1, fr, dx_user, dy_user,
+                        crop_y)
+    with profiling.span("lif.fetch"):
+        sampled = bilinear_sample_packed(packed, u1, v1, w, h)
+    ha = _composite.edge_alpha(found, u1, v1, feathering, sampled[..., 3],
+                               mask_mode)
+    return _finish(invz_star, sampled, ha, background, to_srgb, raw)

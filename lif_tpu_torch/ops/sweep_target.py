@@ -1090,6 +1090,21 @@ def render_target_batch(
     )
 
 
+def fetch_finish(found, vstar, pose_b, packed, izmin, izmax, out_w: int,
+                 out_h: int, background, feathering: float, mask_mode: str,
+                 to_srgb: bool, raw: bool):
+    """The production epilogue after the depth-only march: the solved
+    positions of found/vstar (B, H, W) under the (B, 16) pose packs, ONE
+    packed bilinear fetch there from `packed` (pack_rgbm of the source),
+    then _finish. Returns (B, H, W, 4), or the raw tuple."""
+    h, w = packed.shape
+    u1, v1 = _solved_uv(pose_b, vstar, izmin, izmax, out_w, out_h, w, h)
+    with profiling.span("lif.fetch"):
+        rgba = bilinear_sample_packed(packed, u1, v1, w, h)
+    return _finish(found, vstar, rgba, u1, v1, background, feathering,
+                   mask_mode, to_srgb, raw)
+
+
 def render_target_fetch_batch(
     rgb,
     disp,
@@ -1107,15 +1122,21 @@ def render_target_fetch_batch(
     raw: bool = False,
     refine: int = 0,
     skip_tables=None,
+    packed=None,
+    out=None,
+    first: bool = True,
+    last: bool = True,
 ):
     """PRODUCTION target tier: depth-only target-ray march + ONE packed
     bilinear color fetch (10-bit color, 1-bit mask) at the solved
     position, then the epilogue. The bracket color lerp is only
     approximate off the snap grid; fetching at the solved position is
     exact (lif_tpu measured +7..13 dB from it). skip_tables: the kernel's
-    flat skip tables, cached with the textures (CUDA only). Returns
-    (B, out_h, out_w, 4), or raw (rgba, alpha, hit, invz) tuples."""
-    h, w = disp.shape
+    flat skip tables, cached with the textures (CUDA only); packed:
+    pack_rgbm(rgb, mask), if cached. Returns (B, out_h, out_w, 4), or raw
+    (rgba, alpha, hit, invz) tuples. out, first, last: finish the layer
+    into the caller's (B, H, W_true, 4) frames (ops.cuda.posed_epilogue:
+    its kernel, or its plain version for CPU tensors) and return them."""
     izmin, izmax = np.float32(invz_min), np.float32(invz_max)
     found, vstar = _march_batch(disp, izmin, izmax, pose_b, plane_invz,
                                 plan, num_planes, refine,
@@ -1123,9 +1144,15 @@ def render_target_fetch_batch(
     with profiling.span("lif.epilogue.target"):
         pose = torch.as_tensor(pose_b, dtype=torch.float32,
                                device=disp.device)
-        u1, v1 = _solved_uv(pose, vstar, izmin, izmax, plan.out_w,
-                            plan.out_h, w, h)
-        with profiling.span("lif.fetch"):
-            rgba = bilinear_sample_packed(pack_rgbm(rgb, mask), u1, v1, w, h)
-        return _finish(found, vstar, rgba, u1, v1, background, feathering,
-                       mask_mode, to_srgb, raw)
+        packed = pack_rgbm(rgb, mask) if packed is None else packed
+        if out is not None:
+            from .cuda.posed_epilogue import posed_epilogue
+
+            profiling.count("epilogue.target.fused")
+            return posed_epilogue(
+                "target", found, vstar, pose, (plan, izmin, izmax), packed,
+                background, out, feathering=feathering, mask_mode=mask_mode,
+                to_srgb=to_srgb, first=first, last=last)
+        return fetch_finish(found, vstar, pose, packed, izmin, izmax,
+                            plan.out_w, plan.out_h, background, feathering,
+                            mask_mode, to_srgb, raw)

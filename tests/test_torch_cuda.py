@@ -33,6 +33,7 @@ from lif_tpu_torch.ops import splat_march as tbb
 from lif_tpu_torch.ops import sweep_march as tsm
 from lif_tpu_torch.ops import sweep_scaled as tss
 from lif_tpu_torch.ops import sweep_target as tst
+from lif_tpu_torch.ops.cuda import posed_epilogue as tpe
 from lif_tpu_torch.ops.cuda import splat_march as tcuda_b
 from lif_tpu_torch.ops.cuda import sweep_march as tcuda
 from lif_tpu_torch.ops.cuda import sweep_scaled as tcuda_s
@@ -1310,7 +1311,7 @@ def _fused_against_chain(proj, cams, monkeypatch, **kw):
     launches = tcuda.lateral_epilogue.launches - before
     assert tcuda.sweep_lateral.launches - lateral == launches
     with monkeypatch.context() as m:
-        m.setattr(trenderer, "_fuses_lateral", lambda modes: False)
+        m.setattr(trenderer, "_fuses_epilogue", lambda modes: False)
         ref = lif_tpu_torch.render_fast_batch(proj, cams, **kw)
     assert tcuda.lateral_epilogue.launches - before == launches
     return got, ref, launches, fused
@@ -1369,18 +1370,21 @@ def test_lateral_epilogue_kernel_at_the_main_path_shape(cuda, n,
     cams = [lif_tpu_torch.Camera.create(
         w, h, focal_px=0.78 * w, position=[0.135 + 0.02 * i / n, 0.0, 0.0])
         for i in range(n)]
+    posed = tpe.posed_epilogue.launches
     got, ref, launches, fused = _fused_against_chain(proj, cams,
                                                      monkeypatch)
     assert launches == fused == 9
+    assert tpe.posed_epilogue.launches == posed
     assert (got - ref).abs().max().item() == 0.0
     del got, ref
 
 
-def test_mixed_tier_ldi_takes_no_fused_launch(cuda):
-    """An LDI whose back layer is not march-eligible (another focal: the
-    scaled tier) keeps the per-chunk frames and their concatenation: no
-    epilogue launch, no epilogue.lateral.fused count; the single view
-    of the march-only projector does take it (one launch a layer)."""
+def test_mixed_tier_ldi_takes_both_epilogue_kernels(cuda):
+    """An LDI whose front layer is not march-eligible (another focal: the
+    scaled tier) in front of a march layer finishes in place: one lateral
+    and one posed epilogue launch a chunk, each counted; the single view
+    of the march-only projector takes the lateral one alone (one launch a
+    layer)."""
     from torch.profiler import ProfilerActivity, profile
 
     from lif_tpu_torch.utils import profiling
@@ -1389,26 +1393,31 @@ def test_mixed_tier_ldi_takes_no_fused_launch(cuda):
     rgb0, disp0, mask0 = _scene(40, h, w)
     rgb1, disp1, mask1 = _scene(41, h, w)
     mixed = lif_tpu_torch.projector_from_arrays(
-        rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
+        rgb0, disp0, mask0, focal_px=0.9 * w, invz_min=2.0, invz_max=0.6,
         baseline=1.0, device=cuda,
         extra_layers=[dict(rgb=rgb1, disp=disp1, mask=mask1,
-                           focal_px=0.9 * w, invz_min=0.5, invz_max=0.1)])
+                           focal_px=0.78 * w, invz_min=0.5, invz_max=0.1)])
     cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
                                         position=[x, 0.0, 0.0])
             for x in (0.01, 0.02, 0.03)]
-    before = tcuda.lateral_epilogue.launches
+    lateral = tcuda.lateral_epilogue.launches
+    posed = tpe.posed_epilogue.launches
     profiling.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         _, tiers = lif_tpu_torch.render_fast_batch(mixed, cams,
                                                    return_tiers=True)
         torch.cuda.synchronize()
-    assert tiers == ("march", "scaled")
-    assert tcuda.lateral_epilogue.launches == before
-    assert "epilogue.lateral.fused" not in profiling.snapshot()["counters"]
+    counters = profiling.snapshot()["counters"]
+    assert tiers == ("scaled", "march")
+    assert tcuda.lateral_epilogue.launches == lateral + 1
+    assert tpe.posed_epilogue.launches == posed + 1
+    assert counters["epilogue.lateral.fused"] == 1
+    assert counters["epilogue.scaled.fused"] == 1
     ldi = _epilogue_projector(3, h, w, cuda=cuda)
     lif_tpu_torch.render_fast_view(ldi, cams[1])
     torch.cuda.synchronize()
-    assert tcuda.lateral_epilogue.launches == before + 3
+    assert tcuda.lateral_epilogue.launches == lateral + 4
+    assert tpe.posed_epilogue.launches == posed + 1
 
 
 def test_lateral_epilogue_rejects_bad_inputs(cuda):
@@ -1438,3 +1447,233 @@ def test_lateral_epilogue_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         tcuda.lateral_epilogue(found, invz, rgba, c1, plan, 30.0, _BG, out,
                                **dict(kw, mask_mode="soft"))
+
+
+def _posed_drive(cuda, tier, n, w=1280, h=800):
+    """The camera path's orbit ('target': yaw theta from -15 deg over 28
+    deg about (0, 0, -1) m at 1 m) or push-in ('scaled': z from 0.1 m
+    over 0.09 m) of n poses over the smoke's seeded w x h scene, on the
+    card."""
+    from lif_tpu_torch.bench.scenes import scene_projector
+
+    proj = scene_projector(lif_tpu_torch, 0, w=w, h=h, device=cuda)
+    f = float(proj.focal[0])
+    if tier == "target":
+        poses = [lif_tpu_torch.orbit_pose([0.0, 0.0, -1.0], 1.0,
+                                          np.deg2rad(-15.0 + 28.0 * i / n))
+                 for i in range(n)]
+    else:
+        poses = [([0.0, 0.0, 0.1 + 0.09 * i / n], np.eye(3))
+                 for i in range(n)]
+    return proj, [lif_tpu_torch.Camera.create(w, h, focal_px=f, position=p,
+                                              rotation=r) for p, r in poses]
+
+
+def _posed_against_chain(proj, cams, monkeypatch, **kw):
+    """(frames through the posed epilogue kernel, frames through the
+    PyTorch chain on the card, posed epilogue launches, the
+    epilogue.<tier>.fused counts) of one render_fast_batch call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lif_tpu_torch.utils import profiling
+
+    before = tpe.posed_epilogue.launches
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = lif_tpu_torch.render_fast_batch(proj, cams, **kw)
+        torch.cuda.synchronize()
+    counters = profiling.snapshot()["counters"]
+    fused = {t: counters.get(f"epilogue.{t}.fused", 0)
+             for t in ("target", "scaled")}
+    launches = tpe.posed_epilogue.launches - before
+    with monkeypatch.context() as m:
+        m.setattr(trenderer, "_fuses_epilogue", lambda modes: False)
+        ref = lif_tpu_torch.render_fast_batch(proj, cams, **kw)
+    assert tpe.posed_epilogue.launches - before == launches
+    return got, ref, launches, fused
+
+
+_ORBIT = [(_roty(-6.0), [-0.1, 0.0, 0.01]), (_roty(0.0), [0.0, 0.0, 0.0]),
+          (_roty(8.0), [0.15, 0.0, -0.01])]
+_ZOOM = [(np.eye(3), [0.004, 0.002, 0.03 + 0.01 * i]) for i in range(3)]
+
+
+@pytest.mark.parametrize("case", [
+    # (layers, width, poses, focal of the back layer and the camera,
+    #  mask_mode, to_srgb, background, tiers)
+    (1, 128, "orbit", 0.78, "none", True, "host", ("target",)),
+    (1, 128, "orbit", 0.78, "multiply", False, "host", ("target",)),
+    (3, 128, "orbit", 0.78, "hard", True, "host", ("target",) * 3),
+    (1, 128, "zoom", 0.78, "none", True, "cuda", ("scaled",)),
+    (3, 128, "zoom", 0.78, "multiply", True, "host", ("scaled",) * 3),
+    (3, 124, "zoom", 0.78, "hard", False, "host", ("scaled",) * 3),
+    (2, 124, "lateral", 0.9, "multiply", True, "host", ("scaled", "march")),
+], ids=["orbit", "orbit-linear", "orbit-ldi-hard", "zoom-cuda-background",
+        "zoom-ldi", "zoom-ldi-odd-width", "scaled-over-padded-march"])
+def test_posed_epilogue_kernel_equals_the_chain(cuda, case, monkeypatch):
+    """render_fast_batch through the posed epilogue kernel equals the same
+    call through the PyTorch chain on the card bit for bit (max |diff|
+    0), with one posed launch (and one epilogue.<tier>.fused count) for
+    each target or scaled layer of each pose chunk."""
+    layers, w, kind, focal, mask_mode, to_srgb, bg, tiers = case
+    h = 96
+    rgb0, disp0, mask0 = _scene(50, h, w)
+    extra = []
+    for i in range(layers - 1):
+        rgb, disp, mask = _scene(51 + i, h + 16, w + 32)
+        extra.append(dict(rgb=rgb, disp=disp, mask=mask, focal_px=focal * w,
+                          invz_min=0.5 - 0.1 * i, invz_max=0.1))
+    proj = lif_tpu_torch.projector_from_arrays(
+        rgb0, disp0, mask0, focal_px=0.78 * w, invz_min=2.0, invz_max=0.6,
+        baseline=1.0, device=cuda, extra_layers=extra)
+    poses = {"orbit": _ORBIT, "zoom": _ZOOM,
+             "lateral": [(np.eye(3), [0.01 * (i + 1), 0.0, 0.0])
+                         for i in range(3)]}[kind]
+    cams = [lif_tpu_torch.Camera.create(w, h, focal_px=focal * w,
+                                        position=c, rotation=r)
+            for r, c in poses]
+    background = torch.tensor(_BG, device=cuda) if bg == "cuda" else _BG
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(pose_chunk=2)
+    _, got_tiers = lif_tpu_torch.render_fast_batch(
+        proj, cams, config=cfg, return_tiers=True)
+    assert got_tiers == tiers
+    got, ref, launches, fused = _posed_against_chain(
+        proj, cams, monkeypatch, config=cfg, background=background,
+        to_srgb=to_srgb, mask_mode=mask_mode)
+    chunks = len(trenderer._pose_chunks(len(cams), 2))
+    assert launches == sum(fused.values()) == chunks * sum(
+        t != "march" for t in tiers)
+    assert got.shape == ref.shape == (len(cams), h, w, 4)
+    assert (got - ref).abs().max().item() == 0.0
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("tier", ["target", "scaled"])
+def test_posed_epilogue_kernel_at_the_main_path_shape(cuda, tier):
+    """One 48-pose chunk of the camera path's orbit or push-in at
+    1280x800: the kernel equals its plain version on the tier's own march
+    outputs bit for bit, finishing a front layer (over the background,
+    sRGB) and a layer behind one already in `out`."""
+    from lif_tpu_torch.ops.sampling import pack_rgbm
+
+    proj, cams = _posed_drive(cuda, tier, 48)
+    tp = trenderer.plan_tiers(proj, cams)
+    mode, setup, extra = tp.planned[0]
+    assert mode == tier
+    lay = trenderer._prepared_textures(proj)[0]
+    izmin, izmax = lay["izmin_host"], lay["izmax_host"]
+    packed = pack_rgbm(lay["rgb"], lay["mask"])
+    if tier == "target":
+        plan, k = setup
+        poses = extra["pose_sc"]
+        found, invz = tst._march_batch(
+            lay["disp"], izmin, izmax, poses, extra["grids"], plan, k,
+            lif_tpu_torch.DEFAULT_CONFIG.target_refine,
+            skip_tables=lay["skip_target"])
+        solve = (plan, izmin, izmax)
+    else:
+        plan, k, fr, dxu, dyu = setup
+        poses = torch.as_tensor(tp.pos_b, dtype=torch.float32, device=cuda)
+        found, invz = tss.render_scaled_batch(
+            lay["rgb"], lay["disp"], lay["mask"], izmin, izmax, poses,
+            lay["focal_host"], fr, extra["grids"], None, plan, k,
+            refine=lif_tpu_torch.DEFAULT_CONFIG.rotated_refine,
+            dx_user=dxu, dy_user=dyu, depth_only=True,
+            skip_tables=lay["skip_scaled"])
+        solve = (plan, lay["focal_host"], fr, dxu, dyu, 0)
+    args = (tier, found, invz, poses, solve, packed, _BG)
+    for first, last in ((True, True), (False, True), (True, False)):
+        out = torch.rand((48, 800, 1280, 4), device=cuda)
+        twin = out.clone()
+        kw = dict(feathering=0.1, mask_mode="multiply", to_srgb=True,
+                  first=first, last=last)
+        tpe.posed_epilogue(*args, out, **kw)
+        tpe.posed_epilogue_plain(*args, twin, **kw)
+        torch.cuda.synchronize()
+        assert (out - twin).abs().max().item() == 0.0
+        assert torch.equal(out, twin)
+        del out, twin
+
+
+@pytest.mark.parametrize("tier", ["target", "scaled"])
+def test_posed_call_launches_one_epilogue_a_chunk(cuda, tier):
+    """A 144-pose camera-path segment (orbit or push-in) at 1280x800:
+    three pose chunks, so three march launches, three posed epilogue
+    launches and three epilogue.<tier>.fused counts; no lateral epilogue;
+    no channel or chunk concatenation in the device trace: the orbit has
+    no CatArrayBatchedCopy, the push-in one a chunk, the stack of its
+    march's (B, 5, K) plane tables (scaled_table_stack), a few
+    microseconds where a chunk's frames would take about half a
+    millisecond."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lif_tpu_torch.utils import profiling
+
+    proj, cams = _posed_drive(cuda, tier, 144)
+    lif_tpu_torch.render_fast_batch(proj, cams)  # plans and warms up
+    torch.cuda.synchronize()
+    wrapper = tcuda_t.sweep_target if tier == "target" else \
+        tcuda_s.sweep_scaled
+    marches = wrapper.launches
+    posed = tpe.posed_epilogue.launches
+    lateral = tcuda.lateral_epilogue.launches
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, tiers = lif_tpu_torch.render_fast_batch(proj, cams,
+                                                     return_tiers=True)
+        torch.cuda.synchronize()
+    counters = profiling.snapshot()["counters"]
+    assert tiers == (tier,)
+    assert tuple(out.shape) == (144, 800, 1280, 4) and out.is_contiguous()
+    assert wrapper.launches - marches == 3
+    assert tpe.posed_epilogue.launches - posed == 3
+    assert counters[f"epilogue.{tier}.fused"] == 3
+    assert tcuda.lateral_epilogue.launches == lateral
+    events = prof.key_averages()
+    assert any("posed_epilogue_kernel" in e.key for e in events)
+    cats = [e for e in events if "CatArrayBatchedCopy" in e.key]
+    if tier == "target":
+        assert not cats
+    else:
+        assert sum(e.count for e in cats) == 3
+        assert sum(e.device_time_total for e in cats) < 100.0  # us
+
+
+def test_posed_epilogue_rejects_bad_inputs(cuda):
+    """The wrapper raises on what the kernel does not take: a true width
+    beyond the march's, a plan of other dims, a pose table of the other
+    tier's width, a float texture, a CPU pose table, an unknown mask mode
+    or tier."""
+    from lif_tpu_torch.ops.sampling import pack_rgbm
+
+    b, h, w = 2, 16, 32
+    found = torch.ones((b, h, w), device=cuda)
+    invz = torch.full((b, h, w), 0.5, device=cuda)
+    poses = torch.zeros((b, 16), device=cuda)
+    packed = pack_rgbm(torch.rand((h, w, 3), device=cuda),
+                       torch.ones((h, w), device=cuda))
+    plan = tst.TargetPlan(*([0] * len(tst.TargetPlan._fields)))._replace(
+        src_w=w, src_h=h, out_w=w, out_h=h)
+    solve = (plan, 2.0, 0.6)
+    kw = dict(feathering=0.1, mask_mode="none", to_srgb=True)
+    out = torch.empty((b, h, w, 4), device=cuda)
+    tpe.posed_epilogue("target", found, invz, poses, solve, packed, _BG,
+                       out, **kw)
+    bad = [
+        dict(out=torch.empty((b, h, w + 8, 4), device=cuda)),
+        dict(solve=(plan._replace(out_w=w + 8), 2.0, 0.6)),
+        dict(poses=torch.zeros((b, 3), device=cuda)),
+        dict(packed=packed.float()),
+        dict(poses=poses.cpu()),
+        dict(tier="rotated"),
+        dict(kw=dict(kw, mask_mode="soft")),
+    ]
+    for change in bad:
+        a = dict(tier="target", poses=poses, solve=solve, packed=packed,
+                 out=out, kw=kw)
+        a.update(change)
+        with pytest.raises(ValueError):
+            tpe.posed_epilogue(a["tier"], found, invz, a["poses"],
+                               a["solve"], a["packed"], _BG, a["out"],
+                               **a["kw"])

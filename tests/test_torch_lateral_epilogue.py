@@ -1,11 +1,12 @@
 """The lateral epilogue's plain route, on the CPU.
 
 A call whose every layer marches finishes each layer of each pose chunk
-straight into the call's frames (models/renderer.py::_fused_lateral_core,
-ops/cuda/sweep_march.py::lateral_epilogue), on the card through the
-epilogue kernel and on the CPU through its plain version, the PyTorch
-chain it replaces. Here the CPU's default route is held bit for bit to
-the chain that mixed-tier calls take (forced by turning the route off):
+straight into the call's frames (models/renderer.py::_fast_batch_core's
+in-place route, ops/cuda/sweep_march.py::lateral_epilogue), on the card
+through the epilogue kernel and on the CPU through its plain version, the
+PyTorch chain it replaces. Here the CPU's default route is held bit for
+bit to the chain that calls with a 'rotated' or 'sweep' layer take
+(forced by turning the route off):
 _finalize over a zero background, the front-to-back over of the LDI
 layers, finish_over_background, the concatenation of the pose chunks and
 the width-pad slice. The kernel is held to the same chain on the card
@@ -81,7 +82,7 @@ def test_fused_route_plain_equals_the_torch_chain(case, monkeypatch):
     kw = dict(config=cfg, background=bg, to_srgb=to_srgb,
               mask_mode=mask_mode, method="march")
     with monkeypatch.context() as m:
-        m.setattr(renderer, "_fuses_lateral", lambda modes: False)
+        m.setattr(renderer, "_fuses_epilogue", lambda modes: False)
         ref, tiers = lif_tpu_torch.render_fast_batch(proj, cams,
                                                      return_tiers=True, **kw)
     assert tiers == ("march",) * layers
@@ -133,13 +134,21 @@ def test_epilogue_writes_only_its_rows():
     (("march",), True),
     (("march", "march", "march"), True),
     (("march", "sweep"), False),
-    (("scaled",), False),
-    (("target", "march"), False),
+    (("scaled", "rotated"), False),
+    (("target", "sweep"), False),
     (("rotated",), False),
     (("march", "march"), True),
     (("sweep", "march"), False),
+    (("scaled",), True),
+    (("target",), True),
+    (("target", "march"), True),
+    (("scaled", "march"), True),
+    (("march", "target", "scaled"), True),
+    (("target", "rotated"), False),
 ])
 def test_route_predicate(modes, fused):
-    """Only an all-'march' call takes the fused route, decided by its
-    tiers alone (on any device)."""
-    assert renderer._fuses_lateral(modes) is fused
+    """A call takes the in-place route where every layer's tier has an
+    epilogue kernel ('march', 'target', 'scaled'), decided by its tiers
+    alone (on any device); a 'rotated' or 'sweep' layer keeps the
+    chain."""
+    assert renderer._fuses_epilogue(modes) is fused

@@ -51,8 +51,9 @@ def _calls(rng):
     xs = [0.011, 0.013, 0.017, 0.019, 0.023]
     # an all-'march' call marches and finishes its frames in the lateral
     # kernel's and epilogue's spans, as on the card (on the CPU their plain
-    # versions); the chain's lif.composite shows in a call on another
-    # tier (view_dolly)
+    # versions); a call on the scaled tier finishes in its epilogue's span
+    # (view_dolly); the chain's lif.composite shows in the raw callers'
+    # (fused, stereo)
     lateral = {"lif.plan", "lif.chunk", "lif.kernel.lateral",
                "lif.epilogue.lateral"}
     return {
@@ -69,7 +70,7 @@ def _calls(rng):
             lambda: lt.render_fast_view(proj, lt.Camera.create(
                 W, H, focal_px=FOCAL, position=[0.0, 0.0, 0.02])),
             {"lif.render_fast_view", "lif.render_fast_batch", "lif.plan",
-             "lif.chunk", "lif.composite"}),
+             "lif.chunk", "lif.plan.scaled", "lif.epilogue.scaled"}),
         "fused": (lambda: lt.render_fused_fast_batch([proj, other],
                                                      _cams(xs), config=CFG),
                   {"lif.render_fused_fast_batch", "lif.plan", "lif.chunk",
