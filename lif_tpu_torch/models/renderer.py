@@ -477,6 +477,7 @@ def _plan_march_layer(projector, idx, lay, cfg, num_planes, cxs, sk2, out_w,
     can double the stride where an endpoint plane is filtered. Returns
     (the layer dict with its `plane_invz` and `doff`, the plan, crop_y,
     K)."""
+    profiling.count("plan.march_layer")
     plan, crop_y, phase, doff = _march_fold(
         lay, projector.skew, sk2, float(np.abs(cxs).max()), out_w, out_h,
         dx_pad)

@@ -361,6 +361,8 @@ def render_translation_batch_cuda(
     with profiling.span("lif.epilogue.lateral"):
         if out is not None:
             profiling.count("epilogue.lateral.fused")
+            if not first:
+                profiling.count("epilogue.lateral.behind")
             return lateral_epilogue(
                 found, invz_star, rgba_star, poses, plan, f1, background,
                 out, feathering=feathering, mask_mode=mask_mode,

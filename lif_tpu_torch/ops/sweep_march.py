@@ -1047,6 +1047,8 @@ def render_translation_batch(
                 torch.stack(t) for t in zip(*marches))
         with profiling.span("lif.epilogue.lateral"):
             profiling.count("epilogue.lateral.fused")
+            if not first:
+                profiling.count("epilogue.lateral.behind")
             return lateral_epilogue(
                 found, invz_star, rgba_star, torch.as_tensor(c1), plan, f1,
                 background, out, feathering=feathering, mask_mode=mask_mode,

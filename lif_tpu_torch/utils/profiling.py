@@ -20,7 +20,10 @@ every span inside carries that call's id. Names are constant strings
 idle gaps sum by name. Counters count where the work happens: "sync.*"
 each point where the host waits for a CUDA stream (host_sync),
 "cache.<name>.hit" / ".miss" the renderer's caches, "route.<tier>" the
-tier each layer of a render_fast_batch call renders on. snapshot() sums the
+tier each layer of a render_fast_batch call renders on, "plan.march_layer"
+each layer planned on the lateral march, "epilogue.<tier>.fused" each
+launch of a tier's epilogue kernel and "epilogue.lateral.behind" each
+such lateral launch behind an LDI's front layer. snapshot() sums the
 records; reset() clears them; trace() resets on entry and writes them
 beside the timeline.
 """

@@ -276,6 +276,34 @@ def test_route_counts_every_layer(rng):
     assert profiling.snapshot()["counters"]["route.march"] == 2
 
 
+@pytest.mark.parametrize("layers", [1, 3])
+def test_counts_march_layers_and_behind_epilogues(rng, layers):
+    """A lateral call plans each layer once (plan.march_layer) and
+    finishes every layer behind the front one, in each pose chunk, over
+    the layers in front (epilogue.lateral.behind): a 3-layer call in 3
+    chunks counts 3 and 6, a one-layer call 1 and 0."""
+    disp = (0.3 + 0.4 * rng.random((layers, H, W))).astype(np.float32)
+    rgb = rng.random((layers, H, W, 3)).astype(np.float32)
+    extra = [dict(rgb=rgb[i], disp=disp[i], focal_px=FOCAL,
+                  invz_min=2.0 / (i + 1), invz_max=0.1 / (i + 1),
+                  mask=(rng.random((H, W)) > 0.5).astype(np.float32))
+             for i in range(1, layers)]
+    proj = lt.projector_from_arrays(
+        rgb[0], disp[0], focal_px=FOCAL, invz_min=2.0, invz_max=0.1,
+        baseline=1.0, device="cpu", extra_layers=extra)
+    xs = [0.011, 0.013, 0.017, 0.019, 0.023]
+    _, tiers = lt.render_fast_batch(proj, _cams(xs), config=CFG,
+                                    return_tiers=True)
+    assert tiers == ("march",) * layers
+    _traced(lambda: lt.render_fast_batch(proj, _cams(xs), config=CFG))
+    counters = profiling.snapshot()["counters"]
+    chunks = 3
+    assert counters["plan.march_layer"] == 2 * layers
+    assert counters["epilogue.lateral.fused"] == 2 * chunks * layers
+    assert counters.get("epilogue.lateral.behind", 0) == (
+        2 * chunks * (layers - 1))
+
+
 @pytest.mark.parametrize("motion,span", [("orbit", "lif.plan.target"),
                                          ("zoom", "lif.plan.scaled")])
 def test_tier_planners_nest_in_plan(rng, motion, span):
