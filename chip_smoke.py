@@ -7,8 +7,8 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 
 1. device: a CUDA device, and its name and power limit from nvidia-smi;
 2. build: compile csrc/sweep_march.cu, csrc/sweep_target.cu,
-   csrc/sweep_scaled.cu, csrc/splat_march.cu and csrc/posed_epilogue.cu
-   with nvcc (sm_90a) and
+   csrc/sweep_scaled.cu, csrc/splat_march.cu, csrc/posed_epilogue.cu and
+   csrc/fused_epilogue.cu with nvcc (sm_90a) and
    the LIF codec csrc/lif_container.cpp with g++ into
    lif_tpu_torch/_build/, one compiler per source, started together;
 3. lateral kernel vs plain: a seeded 1280x800 scene (smooth noise plus a
@@ -154,15 +154,22 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     on the CPU (make_fusion_projectors), moved to the card and resampled
     there to 3840x2160 (scale 3, center crop); render_fused_fast_batch
     at four cameras x = 0.05 + 0.002 j m, counts reset just before:
-    exactly 4 lateral launches (one per projector) and no other kernel's,
-    finite output, coverage in (0.5, 1], the peak device memory; each
+    exactly 4 lateral launches (one per projector) and no other march
+    kernel's, one fused epilogue launch (csrc/fused_epilogue.cu), finite
+    output, coverage in (0.5, 1], the peak device memory; each
     launch held to the plain versions on its own inputs (2 poses each);
     a second call reusing every texture entry and march pack, its frames
     equal to the first; the frames equal to their plain-version render
-    (plain_lateral); fused frames/s by CUDA events (median of 5 after a
+    (plain_lateral, which also runs the fused epilogue's plain version);
+    the fused epilogue kernel on the 4-camera chunk's marches against its
+    plain version, the PyTorch chain (max abs 0), each timed, with its
+    bound (24 bytes a projector layer read and 16 written a pixel at 3.35
+    TB/s); fused frames/s by CUDA events (median of 5 after a
     warm-up) at 4 cameras and at 1; the peak device memory at 8 and 16
-    cameras, and 24 cameras in one call (its pose chunk bounded by the
-    free device memory: exactly 4 launches a chunk) frame for frame
+    cameras (its growth a camera within the chunk bound,
+    renderer._FUSED_BYTES_PER_LAYER_PX), and 24 cameras in one call (its
+    pose chunk bounded by the free device memory: exactly 4 lateral
+    launches and one fused epilogue launch a chunk) frame for frame
     against calls of 4 cameras (max abs <= 1e-5); at 1280x800, the fused
     frame at x = 0.05 m against the port's 640-step
     render_fused_projectors at the default fuse_tol and at 0.1, each at
@@ -717,6 +724,7 @@ def run():
         from lif_tpu_torch.io import native
         from lif_tpu_torch.models import renderer
         from lif_tpu_torch.ops.cuda import build
+        from lif_tpu_torch.ops.cuda import fused_epilogue as kfused
         from lif_tpu_torch.ops.cuda import posed_epilogue as kposed
         from lif_tpu_torch.ops.cuda import sweep_march as kmarch
         from lif_tpu_torch.ops.sweep_march import (
@@ -741,7 +749,7 @@ def run():
     # 2. build, one nvcc per source and g++ for the LIF codec, all started
     # together
     sources = ("sweep_march", "sweep_target", "sweep_scaled", "splat_march",
-               "posed_epilogue")
+               "posed_epilogue", "fused_epilogue")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         codec = pool.submit(native.load_library)
@@ -765,6 +773,7 @@ def run():
         counter(reset=True)
         kmarch.lateral_epilogue.launches = 0
         kposed.posed_epilogue.launches = 0
+        kfused.fused_epilogue.launches = 0
 
     def launch_counts():
         return counter()
@@ -903,14 +912,14 @@ def run():
     # their worst errors join each kernel's record
     errs, views = lif_phase(reset_counts, launch_counts, card)
     errs9 = stereo_phase(reset_counts, launch_counts, card, views[1])
-    errs10 = fusion_phase(reset_counts, launch_counts, card)
+    errs10, fused = fusion_phase(reset_counts, launch_counts, card)
     sweep_phase(proj, focal, reset_counts, launch_counts, card)
     fit_phase(reset_counts, launch_counts, card, dev)
     shard_phase(proj, focal, reset_counts, launch_counts, card)
     errs14, lateral["uniform_grid"] = plane_mode_phase(
         proj, focal, lay, reset_counts, launch_counts, card)
     errs15 = bench_phase(reset_counts, launch_counts, card)
-    kernels = [lateral, epilogue, target, scaled, *posed, billboard]
+    kernels = [lateral, epilogue, target, scaled, *posed, billboard, fused]
     for rec in kernels:
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  *(e.get(rec["name"], 0.0) for e in (
@@ -1745,12 +1754,15 @@ def with_epilogue(counts):
     """A step's kernel launches and the epilogue kernels', which the
     steps' exact launch checks leave out (each launches once after each
     march launch of its tier in a call whose every layer has an epilogue
-    kernel): the counts since the step's reset_counts."""
+    kernel; the fused one once a pose chunk of a fused call): the counts
+    since the step's reset_counts."""
+    from lif_tpu_torch.ops.cuda import fused_epilogue as kfused
     from lif_tpu_torch.ops.cuda import posed_epilogue as kposed
     from lif_tpu_torch.ops.cuda import sweep_march as kmarch
 
     return dict(counts, lateral_epilogue=kmarch.lateral_epilogue.launches,
-                posed_epilogue=kposed.posed_epilogue.launches)
+                posed_epilogue=kposed.posed_epilogue.launches,
+                fused_epilogue=kfused.fused_epilogue.launches)
 
 
 def record_path(path, counts):
@@ -2022,24 +2034,25 @@ def plain_lateral():
     march and _finalize run pose by pose where the kernel would launch
     (on the epilogue kernel's route, the plain march pose by pose and the
     epilogue's plain version, the PyTorch chain, for the batch).
+    A fused call marches the same way and finishes each pose chunk in the
+    fused epilogue's plain version, the PyTorch chain.
     A render inside is the plain-version twin of the same render outside;
-    the kernel is exact against the plain march, so the two must be
+    the kernels are exact against their plain versions, so the two must be
     equal."""
     import torch
 
     from lif_tpu_torch.models import renderer
     from lif_tpu_torch.ops import sweep_march as smarch
+    from lif_tpu_torch.ops.cuda import fused_epilogue as kfused
     from lif_tpu_torch.ops.cuda import sweep_march as kmarch
 
     def plain_batch(rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz,
                     background, plan, num_planes, prepared=None, rows=None,
                     out=None, first=True, last=True, **kw):
         if out is not None:  # the epilogue kernel's route: its plain twin
-            marches = [smarch.march_translation_plain(
-                rgb, disp, mask, invz_min, invz_max, cc, f1, pp, plan,
-                num_planes, refine=kw["refine"], offset=kw["offset"])
-                for cc, pp in zip(c1, plane_invz)]
-            found, invz, rgba = (torch.stack(t) for t in zip(*marches))
+            found, invz, rgba = smarch.march_translation_batch_plain(
+                rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz,
+                plan, num_planes, refine=kw["refine"], offset=kw["offset"])
             c1_t = torch.as_tensor(np.asarray(c1, np.float32),
                                    device=disp.device)
             return kmarch.lateral_epilogue_plain(
@@ -2055,14 +2068,15 @@ def plain_lateral():
         return torch.stack(outs)
 
     saved = (kmarch.render_translation_batch_cuda,
-             renderer._attach_march_prep)
+             renderer._attach_march_prep, kfused.fused_epilogue)
     kmarch.render_translation_batch_cuda = plain_batch
     renderer._attach_march_prep = lambda layers, *_: list(layers)
+    kfused.fused_epilogue = kfused.fused_epilogue_plain
     try:
         yield
     finally:
-        (kmarch.render_translation_batch_cuda,
-         renderer._attach_march_prep) = saved
+        (kmarch.render_translation_batch_cuda, renderer._attach_march_prep,
+         kfused.fused_epilogue) = saved
 
 
 def stereo_phase(reset_counts, launch_counts, card, ldi):
@@ -2211,6 +2225,7 @@ def fusion_phase(reset_counts, launch_counts, card):
 
     import lif_tpu_torch as lt
     from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops.cuda import fused_epilogue as kfused
     from lif_tpu_torch.parallel.sharding import render_fused_projectors
     from lif_tpu_torch.utils.profiling import device_timer
 
@@ -2262,6 +2277,9 @@ def fusion_phase(reset_counts, launch_counts, card):
           f"{resident / 2**30:.2f} GiB resident before the call); per launch "
           f"(K, pad_lo_x, src_w) {plans}", flush=True)
     check(counts == want, f"4K fused launches {counts}")
+    check(kfused.fused_epilogue.launches == 1,
+          f"{kfused.fused_epilogue.launches} fused epilogue launches for one "
+          f"pose chunk")
     check(len(calls) == N_FUSED, f"{len(calls)} recorded calls")
     check(tuple(out.shape) == (N_FUSED, H4, W4, 4), "4K fused output shape")
     check(bool(torch.isfinite(out).all()), "non-finite 4K fused output")
@@ -2302,6 +2320,8 @@ def fusion_phase(reset_counts, launch_counts, card):
                                   "plain-version render")
     del out, twin
     torch.cuda.empty_cache()
+    fused = fused_epilogue_phase(projs4, cams4, card)
+    torch.cuda.empty_cache()
 
     # timing: CUDA events, median of 5 after a warm-up
     batch_ms = device_timer(lt.render_fused_fast_batch, projs4, cams4,
@@ -2318,9 +2338,9 @@ def fusion_phase(reset_counts, launch_counts, card):
     # (each call twice: the first builds the march packs of its batch's
     # plan, the second, measured, reuses them; no call recorded, since
     # recorded_calls keeps a copy of every kernel output), its growth per
-    # camera as bytes per projector, pixel and pose (against the bound's
-    # renderer._FUSED_BYTES_PER_VIEW_PX), then N_FUSED_MANY cameras in one
-    # call, its pose chunk bounded by the free memory
+    # camera as bytes per projector layer, pixel and pose (against the
+    # bound's renderer._FUSED_BYTES_PER_LAYER_PX), then N_FUSED_MANY
+    # cameras in one call, its pose chunk bounded by the free memory
     # (renderer._fused_pose_chunk, spied on), against groups of FUSED_GROUP
     def cams_4k(n):
         return [lt.Camera.create(W4, H4, focal_px=focal4, position=[
@@ -2338,7 +2358,7 @@ def fusion_phase(reset_counts, launch_counts, card):
         many = lt.render_fused_fast_batch(projs4, cams_4k(n))
         torch.cuda.synchronize()
         counts = launch_counts()
-        record_path(path10.name, counts)
+        record_path(path10.name, with_epilogue(counts))
         peak = torch.cuda.max_memory_allocated()
         above[n] = peak - resident
         print(f"main path 10: render_fused_fast_batch({N_FUSED} projectors, "
@@ -2351,11 +2371,12 @@ def fusion_phase(reset_counts, launch_counts, card):
         del many
     lo, hi = FUSED_FOOTPRINT
     slope = (above[hi] - above[lo]) / (hi - lo)
+    per_px = renderer._FUSED_BYTES_PER_LAYER_PX
     print(f"main path 10: the footprint grows {slope / 2**30:.3f} GiB a "
-          f"camera = {slope / (N_FUSED * W4 * H4):.1f} bytes per projector, "
-          f"pixel and pose (the chunk bound assumes "
-          f"{renderer._FUSED_BYTES_PER_VIEW_PX}) [{card}]", flush=True)
-    check(slope <= renderer._FUSED_BYTES_PER_VIEW_PX * N_FUSED * W4 * H4,
+          f"camera = {slope / (N_FUSED * W4 * H4):.1f} bytes per projector "
+          f"layer, pixel and pose on the fused epilogue kernel's route (the "
+          f"chunk bound assumes {per_px}) [{card}]", flush=True)
+    check(slope <= per_px * N_FUSED * W4 * H4,
           "the fused core holds more per pose than its chunk bound assumes")
     torch.cuda.empty_cache()
     chunks = []
@@ -2371,7 +2392,8 @@ def fusion_phase(reset_counts, launch_counts, card):
         many = lt.render_fused_fast_batch(projs4, cams_4k(N_FUSED_MANY))
         torch.cuda.synchronize()
         counts = launch_counts()
-        record_path(path10.name, counts)
+        fused_launches = kfused.fused_epilogue.launches
+        record_path(path10.name, with_epilogue(counts))
     finally:
         renderer._fused_pose_chunk = bound
     n_chunks = len(renderer._pose_chunks(N_FUSED_MANY, chunks[0]))
@@ -2389,6 +2411,9 @@ def fusion_phase(reset_counts, launch_counts, card):
           f"{int(flipped)} values over {FUSED_GROUP_TOL:g}", flush=True)
     check(counts["lateral_march"] == N_FUSED * n_chunks,
           f"{N_FUSED_MANY} fused cameras: launches {counts}")
+    check(fused_launches == n_chunks, f"{N_FUSED_MANY} fused cameras: "
+                                      f"{fused_launches} fused epilogue "
+                                      f"launches in {n_chunks} chunks")
     check(worst <= FUSED_GROUP_TOL,
           f"{N_FUSED_MANY} fused cameras differ from groups of {FUSED_GROUP}"
           f" by {worst:.3g}")
@@ -2419,7 +2444,65 @@ def fusion_phase(reset_counts, launch_counts, card):
               f"coverage {float(fast[..., 3].mean()):.4f}", flush=True)
         check(q >= ref_db - 1.0, f"fused fuse_tol {name}: {q:.3f} dB, "
                                  f"lif_tpu {ref_db}")
-    return path10.errs
+    return path10.errs, fused
+
+
+def fused_epilogue_phase(projs, cams, card):
+    """Phase 20, second part: the fused epilogue kernel at main path 10's
+    shape, one pose chunk of its 4K fusion (the projectors' lateral
+    marches planned and launched as render_fused_fast_batch does), equal
+    to its plain version (the PyTorch chain) on the card, both timed,
+    beside the bound of its bytes (24 a projector layer read and 16
+    written a pixel). Returns its kernel record."""
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops.cuda import fused_epilogue as kfused
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    cfg = lt.DEFAULT_CONFIG
+    n = len(cams)
+    views = [renderer._fused_view(p, cams, cfg, None, None) for p in projs]
+    views = [v._replace(layers=renderer._attach_march_prep(
+        v.layers, ["march"] * len(v.layers), v.plans, [0] * len(v.layers)))
+        for v in views]
+    poses = kmarch.upload_poses(np.stack([v.pos_b for v in views]),
+                                projs[0].device)
+    sl = slice(0, n)
+    marched = [(v.mask_mode, renderer._fused_marches(
+        v, poses[i, sl], sl, cfg.march_refine)) for i, v in enumerate(views)]
+    args = (marched,)
+    kw = dict(background=cfg.background, feathering=cfg.feathering,
+              fuse_tol=float(cfg.fuse_tol), to_srgb=cfg.to_srgb)
+    out = torch.empty((n, H4, W4, 4), device=projs[0].device)
+    twin = torch.empty_like(out)
+    kfused.fused_epilogue(*args, out, **kw)
+    kfused.fused_epilogue_plain(*args, twin, **kw)
+    torch.cuda.synchronize()
+    err = float((out - twin).abs().max())
+    print(f"fused epilogue kernel vs its plain version ({len(projs)} "
+          f"projectors, {n} cameras, {W4}x{H4}, fuse_tol {cfg.fuse_tol}, "
+          f"background {cfg.background}, sRGB {cfg.to_srgb}): max abs "
+          f"{err:.3g}, equal {torch.equal(out, twin)}, alpha coverage "
+          f"{float(out[..., 3].mean()):.4f}", flush=True)
+    check(torch.equal(out, twin), "the fused epilogue kernel is not exact")
+    ms = device_timer(kfused.fused_epilogue, *args, out, iters=10,
+                      repeats=5, **kw) / n
+    plain_ms = device_timer(kfused.fused_epilogue_plain, *args, twin,
+                            iters=2, repeats=5, **kw) / n
+    nbytes = tensor_bytes(out, *(t for _, lays in marched for lay in lays
+                                 for t in lay[:3]))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3 / n
+    print(f"fused_epilogue kernel: {ms:.5f} ms/frame, bound {bound:.5f} "
+          f"ms/frame (bytes: {nbytes / n / (W4 * H4):.0f} B/px), the "
+          f"PyTorch chain {plain_ms:.5f} ms/frame ({n}-pose chunk of "
+          f"{len(projs)} projectors at {W4}x{H4}) [{card}]", flush=True)
+    return kernel_record(
+        "fused_epilogue", "lif_tpu_torch/csrc/fused_epilogue.cu",
+        "none: lif_tpu leaves the fused composite and merge to XLA's fusion",
+        None, err, ms, plain_ms, (bound, "bytes"))
 
 
 def sweep_phase(proj, focal, reset_counts, launch_counts, card):

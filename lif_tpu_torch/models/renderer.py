@@ -38,7 +38,9 @@ kernel does; LDI eyes march the eroded stereo mask (_eroded_mask).
 Multi-projector fusion: render_fused_fast_batch and render_fused_fast
 march every layer of every projector on the lateral tier with its raw
 outputs, composite each projector's LDI and merge the projectors at the
-frontmost surface (_fusion_weights, config.fuse_tol); the exact fused
+frontmost surface (composite.fusion_weights, config.fuse_tol): on the card
+in one fused epilogue kernel a pose chunk (ops/cuda/fused_epilogue.py),
+on the CPU in its plain version, the PyTorch chain; the exact fused
 oracle is parallel.sharding.render_fused_projectors.
 
 Host-side planning (relative poses, plane grids, pad plans, the tiers'
@@ -73,6 +75,8 @@ from ..ops import sweep_fast as _sweep_fast
 from ..ops import sweep_march as _sweep_march
 from ..ops import sweep_scaled as _sweep_scaled
 from ..ops import sweep_target as _sweep_target
+from ..ops.cuda import fused_epilogue as _fused_epilogue
+from ..ops.cuda import sweep_march as _cuda_march
 from ..ops.cuda.sweep_march import prepare_translation_src
 from ..ops.cuda.sweep_target import skip_table_buffer
 from ..ops.sampling import pack_rgbm, read_disp
@@ -1963,7 +1967,7 @@ def render_fused_fast_batch(
     baseline-normalized range, comparable across projectors) is kept.
     Across projectors: candidates within config.fuse_tol relative inverse
     depth of the frontmost surface blend with triangular weights
-    (_fusion_weights; fuse_tol=0 is the hard nearest-wins merge with
+    (composite.fusion_weights; fuse_tol=0 is the hard nearest-wins merge with
     exact ties averaged). Frustum skew (sk1 per projector, a shared sk2)
     folds into each projector's march as in render_fast_batch.
 
@@ -2032,12 +2036,14 @@ def _fused_view(proj, cameras, cfg, num_planes, mask_mode) -> _FusedView:
     return view
 
 
-# Device bytes the fused core holds per projector, output pixel and pose
-# of a chunk, rounded up from the 76.0 that chip_smoke.py's main path 10
+# Device bytes the fused core holds per projector layer, output pixel and
+# pose of a chunk on CUDA, where only the marches' outputs (24 bytes) and
+# the output stay alive until the fused epilogue kernel finishes the
+# chunk: rounded up from the 28.0 that chip_smoke.py's main path 10
 # measures (the growth of max_memory_allocated from 8 to 16 cameras of 4
-# projectors at 3840x2160, 2.348 GiB a camera, on an NVIDIA H100 80GB
-# HBM3 at 700 W); the smoke fails if the growth exceeds it.
-_FUSED_BYTES_PER_VIEW_PX = 80
+# one-layer projectors at 3840x2160, 0.865 GiB a camera; it fails if the
+# growth exceeds this bound), on an NVIDIA H100 80GB HBM3 at 700 W.
+_FUSED_BYTES_PER_LAYER_PX = 32
 
 
 def _free_device_bytes(device) -> int | None:
@@ -2052,26 +2058,59 @@ def _free_device_bytes(device) -> int | None:
                 - torch.cuda.memory_allocated(device))
 
 
-def _fused_pose_chunk(n_views, out_h, out_w, pose_chunk, free_bytes):
+def _fused_pose_chunk(n_layers, out_h, out_w, pose_chunk, free_bytes):
     """The fused core's pose chunk: at most `pose_chunk` (None or 0: no
     bound), and at most what `free_bytes` holds at
-    _FUSED_BYTES_PER_VIEW_PX (at least 1). free_bytes None: pose_chunk."""
+    _FUSED_BYTES_PER_LAYER_PX for each of `n_layers` projector layers,
+    output pixel and pose (at least 1). free_bytes None: pose_chunk."""
     if free_bytes is None:
         return pose_chunk
-    per_pose = n_views * out_h * out_w * _FUSED_BYTES_PER_VIEW_PX
+    per_pose = n_layers * out_h * out_w * _FUSED_BYTES_PER_LAYER_PX
     fit = max(1, free_bytes // per_pose)
     return min(pose_chunk, fit) if pose_chunk else fit
+
+
+def _fused_marches(view, poses, sl, refine):
+    """Each layer of one projector of a fused pose chunk on the lateral
+    march, front to back, as a list of fused_epilogue.FusedLayer. On CUDA
+    the kernel on the cached march pack, with the chunk's poses already on
+    the device (`poses`, (B, 3)); on the CPU the plain march, pose by
+    pose."""
+    c1 = np.asarray(view.pos_b[sl], np.float32)
+    marched = []
+    for lay, plan, k_l in zip(view.layers, view.plans, view.nums):
+        planes = lay["plane_invz"][sl]
+        with profiling.span("lif.kernel.lateral"):
+            if "march_prep" in lay:  # hoisted (CUDA): the cached pack
+                found, invz, rgba = _cuda_march.march_translation_cuda(
+                    *lay["march_src"], lay["izmin_host"], lay["izmax_host"],
+                    c1, lay["focal_host"], planes, plan, k_l,
+                    offset=(lay["doff"][0], 0.0), prepared=lay["march_prep"],
+                    refine=refine, rows=lay["march_rows"], poses=poses)
+            else:
+                found, invz, rgba = _sweep_march.march_translation_batch_plain(
+                    *_march_sources(lay, plan, 0), lay["izmin_host"],
+                    lay["izmax_host"], c1, lay["focal_host"], planes, plan,
+                    k_l, refine=refine, offset=lay["doff"])
+        marched.append(_fused_epilogue.FusedLayer(
+            found, invz, rgba, poses, plan, lay["focal_host"], lay["doff"],
+            0))
+    return marched
 
 
 def _fused_fast_core(views, background, *, refine, feathering, to_srgb,
                      fuse_tol, pose_chunk, out_h, out_w):
     """The body of render_fused_fast_batch: hoists each projector's march
-    source prep, allocates the (B, H, W, 4) output, then renders balanced
-    pose chunks into it, each through every projector's LDI composite on
-    the raw march outputs and the tolerance-blended nearest-surface merge,
-    in lif_tpu's order of operations. The (V, B, H, W, ...) intermediates
-    never exceed a chunk, and a chunk never exceeds pose_chunk nor, on
-    CUDA, what the device's free memory holds (_fused_pose_chunk, from the
+    source prep, allocates the (B, H, W, 4) output and uploads every
+    projector's poses once, then renders balanced pose chunks into it,
+    each through every projector's lateral marches (_fused_marches) and
+    the fused epilogue (ops/cuda/fused_epilogue.py): each projector's LDI
+    composite on the raw march outputs, the tolerance-blended
+    nearest-surface merge, the background and sRGB, in lif_tpu's order of
+    operations; one kernel launch a chunk on the card, its plain version,
+    the PyTorch chain, on the CPU, either counted once a chunk as
+    epilogue.fused.merge. A chunk never exceeds pose_chunk nor, on CUDA,
+    what the device's free memory holds (_fused_pose_chunk, from the
     shapes and the free memory after the output is allocated)."""
     views = [
         view._replace(layers=_attach_march_prep(
@@ -2083,90 +2122,23 @@ def _fused_fast_core(views, background, *, refine, feathering, to_srgb,
     device = views[0].layers[0]["disp"].device
     out = torch.empty((batch, out_h, out_w, 4), dtype=torch.float32,
                       device=device)
-    chunk = _fused_pose_chunk(len(views), out_h, out_w, pose_chunk,
-                              _free_device_bytes(device))
+    chunk = _fused_pose_chunk(sum(len(view.layers) for view in views), out_h,
+                              out_w, pose_chunk, _free_device_bytes(device))
+    poses = _cuda_march.upload_poses(
+        np.stack([view.pos_b for view in views]), device)
     for sl in _pose_chunks(batch, chunk):
         with profiling.span("lif.chunk"):
-            view_rgb, view_a, view_front = [], [], []
-            for view in views:
-                acc_rgb = acc_a = front = None
-                for lay, plan, k_l in zip(view.layers, view.plans,
-                                          view.nums):
-                    rgba, alpha, _, izs = _layer_tier_batch(
-                        _chunk_layer(lay, sl), "march", None, plan, k_l, 0,
-                        view.pos_b[sl], None, None, None, None,
-                        refine=refine, rot_refine=0, t_refine=0,
-                        feathering=feathering, mask_mode=view.mask_mode,
-                        raw=True,
-                    )
-                    with profiling.span("lif.composite"):
-                        if acc_rgb is None:
-                            acc_rgb = alpha[..., None] * rgba[..., :3]
-                            acc_a = alpha
-                            front = torch.where(alpha > 0.0, izs, 0.0)
-                        else:
-                            acc_rgb = acc_rgb + (
-                                1.0 - acc_a[..., None]
-                            ) * alpha[..., None] * rgba[..., :3]
-                            new_hit = (alpha > 0.0) & (front == 0.0)
-                            front = torch.where(new_hit, izs, front)
-                            acc_a = acc_a + (1.0 - acc_a) * alpha
-                view_rgb.append(acc_rgb)
-                view_a.append(acc_a)
-                view_front.append(front)
-            with profiling.span("lif.merge"):
-                color, alpha = _fuse_views(torch.stack(view_rgb),
-                                           torch.stack(view_a),
-                                           torch.stack(view_front), fuse_tol)
-            with profiling.span("lif.composite"):
-                out[sl] = _composite.finish_over_background(
-                    color, alpha, background, to_srgb)
+            marched = [(view.mask_mode,
+                        _fused_marches(view, poses[v, sl], sl, refine))
+                       for v, view in enumerate(views)]
+            with profiling.span("lif.epilogue.fused"):
+                profiling.count("epilogue.fused.merge")
+                _fused_epilogue.fused_epilogue(
+                    marched, out[sl], background=background,
+                    feathering=feathering, fuse_tol=fuse_tol,
+                    to_srgb=to_srgb)
+            del marched
     return out
-
-
-def _fuse_views(rgb_s, a_s, front_s, tol: float, reduce_max=None,
-                reduce_sum=None):
-    """The merge across the view axis, shared by the fast and the exact
-    fusion, in one process and over a mesh (lif_tpu's, its pmax/psum as
-    reduce_max/reduce_sum): rgb_s (V, ..., 3) each view's premultiplied
-    composite, a_s (V, ...) its alpha, front_s (V, ...) its frontmost
-    hit's absolute inverse depth. The reductions default to amax/sum over
-    axis 0 of the stacked views; the mesh form (parallel.sharding) passes
-    all_reduce closures over the view group, each rank holding its one
-    view without the V axis. Returns the merged (premultiplied colour,
-    alpha), alpha 0 where no view hit."""
-    if reduce_max is None:
-        def reduce_max(t):
-            return t.amax(dim=0)
-    if reduce_sum is None:
-        def reduce_sum(t):
-            return t.sum(dim=0)
-    hit = a_s > 0.0
-    key = torch.where(hit, front_s, -torch.inf)
-    best = reduce_max(key)
-    w = _fusion_weights(key, best, hit, tol)
-    wsum = torch.clamp(reduce_sum(w), min=1e-12)
-    color = reduce_sum(w[..., None] * rgb_s) / wsum[..., None]
-    alpha = reduce_sum(w * a_s) / wsum
-    return color, torch.where(torch.isfinite(best), alpha, 0.0)
-
-
-def _fusion_weights(key, best, hit, tol: float):
-    """Per-candidate merge weights of multi-projector fusion (lif_tpu's
-    _fusion_weights, shared with parallel.sharding's merge). Triangular in
-    relative inverse-depth distance from the frontmost: w = 1 at key ==
-    best, 0 at key <= best*(1 - tol); non-hit candidates weigh 0. tol <= 0
-    is the hard nearest-wins merge (exact ties weigh 1 each). Where both
-    key and best are -inf the gap is NaN, which the clamp keeps and the
-    isfinite(key) guard removes."""
-    if tol <= 0.0:
-        return (hit & (key >= best)).to(torch.float32)
-    edge = torch.abs(best) * tol
-    gap = best - key  # >= 0; +inf for a non-hit
-    w = 1.0 - gap / torch.clamp(edge, min=1e-30)
-    w = torch.where(torch.isfinite(key), torch.clamp(w, 0.0, 1.0), 0.0)
-    # an exact tie at best == 0 (edge 0): gap 0 gives w = 1 - 0/eps = 1
-    return torch.where(hit, w, 0.0)
 
 
 def render(projectors, camera: Camera, mode: RenderMode = "raycast",

@@ -13,8 +13,8 @@ import torch
 from ..core.color import linear_to_srgb
 from ..utils import profiling
 
-__all__ = ["edge_alpha", "finish_over_background", "over", "over_into",
-           "smoothstep"]
+__all__ = ["edge_alpha", "finish_over_background", "fuse_views",
+           "fusion_weights", "over", "over_into", "smoothstep"]
 
 
 def smoothstep(e0, e1, x: torch.Tensor) -> torch.Tensor:
@@ -100,3 +100,47 @@ def over_into(layer, out, background, to_srgb: bool, *, first: bool,
         done = torch.cat([rgb, a[..., None]], dim=-1)
     out.copy_(done[:, :, :w_true])
     return out
+
+
+def fuse_views(rgb_s, a_s, front_s, tol: float, reduce_max=None,
+               reduce_sum=None):
+    """The merge across the view axis of multi-projector fusion, shared by
+    the fast and the exact fusion, in one process and over a mesh
+    (lif_tpu's, its pmax/psum as reduce_max/reduce_sum): rgb_s (V, ..., 3)
+    each view's premultiplied composite, a_s (V, ...) its alpha, front_s
+    (V, ...) its frontmost hit's absolute inverse depth. The reductions
+    default to amax/sum over axis 0 of the stacked views; the mesh form
+    (parallel.sharding) passes all_reduce closures over the view group,
+    each rank holding its one view without the V axis. Returns the merged
+    (premultiplied colour, alpha), alpha 0 where no view hit."""
+    if reduce_max is None:
+        def reduce_max(t):
+            return t.amax(dim=0)
+    if reduce_sum is None:
+        def reduce_sum(t):
+            return t.sum(dim=0)
+    hit = a_s > 0.0
+    key = torch.where(hit, front_s, -torch.inf)
+    best = reduce_max(key)
+    w = fusion_weights(key, best, hit, tol)
+    wsum = torch.clamp(reduce_sum(w), min=1e-12)
+    color = reduce_sum(w[..., None] * rgb_s) / wsum[..., None]
+    alpha = reduce_sum(w * a_s) / wsum
+    return color, torch.where(torch.isfinite(best), alpha, 0.0)
+
+
+def fusion_weights(key, best, hit, tol: float):
+    """Per-candidate merge weights of multi-projector fusion (lif_tpu's
+    _fusion_weights). Triangular in relative inverse-depth distance from
+    the frontmost: w = 1 at key == best, 0 at key <= best*(1 - tol);
+    non-hit candidates weigh 0. tol <= 0 is the hard nearest-wins merge
+    (exact ties weigh 1 each). Where both key and best are -inf the gap is
+    NaN, which the clamp keeps and the isfinite(key) guard removes."""
+    if tol <= 0.0:
+        return (hit & (key >= best)).to(torch.float32)
+    edge = torch.abs(best) * tol
+    gap = best - key  # >= 0; +inf for a non-hit
+    w = 1.0 - gap / torch.clamp(edge, min=1e-30)
+    w = torch.where(torch.isfinite(key), torch.clamp(w, 0.0, 1.0), 0.0)
+    # an exact tie at best == 0 (edge 0): gap 0 gives w = 1 - 0/eps = 1
+    return torch.where(hit, w, 0.0)

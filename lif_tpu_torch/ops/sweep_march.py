@@ -45,6 +45,7 @@ __all__ = [
     "TranslationPlan",
     "erode_mask_for_stereo",
     "hit_and_alpha",
+    "march_translation_batch_plain",
     "march_translation_plain",
     "march_translation_skip_plain",
     "pad_sources",
@@ -938,6 +939,22 @@ def march_translation_skip_plain(
                            izmax, plan.pad_lo_x, refine=refine)
 
 
+def march_translation_batch_plain(rgb, disp, mask, invz_min, invz_max, c1,
+                                  f1, plane_invz, plan, num_planes,
+                                  refine=0, offset=(0.0, 0.0)):
+    """march_translation_plain pose by pose over (B, 3) host poses c1 and
+    (B, K) plane_invz: the lateral kernel's plain version on a batch.
+    Returns found (B, H, W), invz* (B, H, W) and rgba* (B, H, W, 4)."""
+    marches = [
+        march_translation_plain(
+            rgb, disp, mask, invz_min, invz_max, cc, f1, pp, plan,
+            num_planes, refine=refine, offset=offset,
+        )
+        for cc, pp in zip(c1, plane_invz)
+    ]
+    return tuple(torch.stack(t) for t in zip(*marches))
+
+
 def render_translation_plain(
     rgb,
     disp,
@@ -1036,15 +1053,9 @@ def render_translation_batch(
         from .cuda.sweep_march import lateral_epilogue
 
         with profiling.span("lif.kernel.lateral"):
-            marches = [
-                march_translation_plain(
-                    rgb, disp, mask, invz_min, invz_max, cc, f1, pp, plan,
-                    num_planes, refine=refine, offset=offset,
-                )
-                for cc, pp in zip(c1, plane)
-            ]
-            found, invz_star, rgba_star = (
-                torch.stack(t) for t in zip(*marches))
+            found, invz_star, rgba_star = march_translation_batch_plain(
+                rgb, disp, mask, invz_min, invz_max, c1, f1, plane, plan,
+                num_planes, refine=refine, offset=offset)
         with profiling.span("lif.epilogue.lateral"):
             profiling.count("epilogue.lateral.fused")
             if not first:

@@ -35,10 +35,10 @@ import torch.distributed as dist
 from ..config import DEFAULT_CONFIG
 from ..core.camera import Camera
 from ..core.pose import relative_view_pose
-from ..models.renderer import (_default_mask_mode, _fuse_views, _view_args,
+from ..models.renderer import (_default_mask_mode, _view_args,
                                render_fast_batch)
 from ..ops import raycast as _raycast
-from ..ops.composite import finish_over_background
+from ..ops.composite import finish_over_background, fuse_views
 
 __all__ = [
     "make_mesh",
@@ -241,7 +241,7 @@ def _view_composite(p, camera, s2x, s2y, fskr2, bg, mode: str,
 
 def _all_reduce(op, group):
     """A reduction over the ranks of `group` (all_reduce with `op`) of a
-    copy of its argument, for models.renderer._fuse_views."""
+    copy of its argument, for ops.composite.fuse_views."""
     def reduce(t):
         t = t.clone()
         dist.all_reduce(t, op=op, group=group)
@@ -268,7 +268,7 @@ def render_fused_projectors(
     Each projector's FULL LDI stack is ray-marched and composited front to
     back, keeping its frontmost hit's inverse depth; the views are merged
     at the frontmost surface with the triangular weights of
-    models.renderer._fusion_weights. This is the multi-projector fusion
+    ops.composite.fusion_weights. This is the multi-projector fusion
     the reference lacks (it renders only the first projector;
     HoloRenderer.ts:186-189), and the oracle of render_fused_fast_batch.
 
@@ -303,7 +303,7 @@ def render_fused_projectors(
         s2x, s2y = _raycast._pixel_grid(camera.width, camera.height, device)
         views = [_view_composite(p, camera, s2x, s2y, fskr2, bg, mode,
                                  num_steps) for p in projectors]
-        color, alpha = _fuse_views(*(torch.stack(v) for v in zip(*views)),
+        color, alpha = fuse_views(*(torch.stack(v) for v in zip(*views)),
                                    tol)
         return finish_over_background(color, alpha, bg, to_srgb=to_srgb)
 
@@ -319,7 +319,7 @@ def render_fused_projectors(
     s2x, s2y = _raycast._pixel_grid(camera.width, tile_h, device,
                                     full_h=camera.height,
                                     row_start=t * tile_h)
-    color, alpha = _fuse_views(
+    color, alpha = fuse_views(
         *_view_composite(projectors[v], camera, s2x, s2y, fskr2, bg, mode,
                          num_steps), tol,
         _all_reduce(dist.ReduceOp.MAX, view_group),

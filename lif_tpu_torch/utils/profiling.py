@@ -22,8 +22,11 @@ each point where the host waits for a CUDA stream (host_sync),
 "cache.<name>.hit" / ".miss" the renderer's caches, "route.<tier>" the
 tier each layer of a render_fast_batch call renders on, "plan.march_layer"
 each layer planned on the lateral march, "epilogue.<tier>.fused" each
-launch of a tier's epilogue kernel and "epilogue.lateral.behind" each
-such lateral launch behind an LDI's front layer. snapshot() sums the
+launch of a tier's epilogue kernel, "epilogue.lateral.behind" each
+such lateral launch behind an LDI's front layer and "epilogue.fused.merge"
+each launch of the fused epilogue kernel (render_fused_fast_batch, a
+pose chunk, in the "lif.epilogue.fused" span; on the CPU each call of its
+plain version). snapshot() sums the
 records; reset() clears them; trace() resets on entry and writes them
 beside the timeline.
 """

@@ -1677,3 +1677,197 @@ def test_posed_epilogue_rejects_bad_inputs(cuda):
             tpe.posed_epilogue(a["tier"], found, invz, a["poses"],
                                a["solve"], a["packed"], _BG, a["out"],
                                **a["kw"])
+
+
+def _fused_projectors(n, layers, h, w, skew=(0.0, 0.0), cuda=None):
+    """n projectors 1 cm apart along x on the card, each one layer or a
+    masked 2-layer LDI of the camera's dims."""
+    projs = []
+    for i in range(n):
+        rgb0, disp0, mask0 = _scene(60 + i, h, w)
+        extra = []
+        if layers > 1:
+            rgb1, disp1, mask1 = _scene(80 + i, h, w)
+            extra.append(dict(rgb=rgb1, disp=disp1, mask=mask1,
+                              focal_px=0.78 * w, invz_min=0.5, invz_max=0.1))
+        projs.append(lif_tpu_torch.projector_from_arrays(
+            rgb0, disp0, mask0 if layers > 1 else None, focal_px=0.78 * w,
+            invz_min=2.0, invz_max=0.6, baseline=1.0,
+            position=(0.01 * i - 0.015, 0.0, 0.0), skew=skew, device=cuda,
+            extra_layers=extra))
+    return projs
+
+
+def _fused_kernel_against_chain(projs, cams, monkeypatch, **kw):
+    """(frames through the fused epilogue kernel, frames through the
+    PyTorch chain on the card, fused epilogue launches,
+    epilogue.fused.merge count) of one render_fused_fast_batch call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lif_tpu_torch.ops.cuda import fused_epilogue as tfe
+    from lif_tpu_torch.utils import profiling
+
+    before = tfe.fused_epilogue.launches
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = lif_tpu_torch.render_fused_fast_batch(projs, cams, **kw)
+        torch.cuda.synchronize()
+    merged = profiling.snapshot()["counters"].get("epilogue.fused.merge", 0)
+    launches = tfe.fused_epilogue.launches - before
+    with monkeypatch.context() as m:
+        m.setattr(tfe, "fused_epilogue", tfe.fused_epilogue_plain)
+        ref = lif_tpu_torch.render_fused_fast_batch(projs, cams, **kw)
+    assert tfe.fused_epilogue.launches - before == launches
+    return got, ref, launches, merged
+
+
+@pytest.mark.parametrize("case", [
+    # (projectors, layers, poses, pose_chunk, fuse_tol, to_srgb, skewed, bg)
+    (1, 1, 3, 48, 0.05, True, False, "host"),
+    (2, 1, 5, 2, 0.0, True, False, "host"),
+    (4, 1, 5, 2, 0.05, True, False, "host"),
+    (4, 1, 3, 48, 0.0, False, False, "host"),
+    (2, 2, 5, 2, 0.05, True, False, "host"),
+    (4, 2, 3, 2, 0.0, False, False, "cuda"),
+    (4, 1, 4, 3, 0.05, True, True, "host"),
+    (2, 2, 3, 48, 0.05, True, True, "cuda"),
+    (6, 1, 3, 2, 0.05, True, False, "host"),
+    (10, 1, 3, 2, 0.05, True, False, "host"),
+    (17, 2, 3, 48, 0.0, False, False, "cuda"),
+], ids=["one", "two-hard-chunks", "four-chunks", "four-hard-linear",
+        "ldi-chunks", "ldi-four-hard-linear", "four-skewed",
+        "ldi-skewed", "six", "ten-chunks", "ldi-seventeen-hard-linear"])
+def test_fused_epilogue_kernel_equals_the_chain(cuda, case, monkeypatch):
+    """render_fused_fast_batch through the fused epilogue kernel equals the
+    same call through the PyTorch chain on the card bit for bit (max |diff|
+    0), with one launch and one epilogue.fused.merge count a pose chunk,
+    for any number of projectors and layers (past the four projectors
+    the kernel keeps in registers, and past the 32 layers its parameters
+    hold); LDI projectors take mask 'multiply'."""
+    n, layers, poses, chunk, tol, to_srgb, skewed, bg = case
+    h, w = 64, 128
+    projs = _fused_projectors(n, layers, h, w,
+                              (0.021, -0.0137) if skewed else (0.0, 0.0),
+                              cuda)
+    cams = [lif_tpu_torch.Camera.create(
+        w, h, focal_px=0.78 * w, position=[0.004 * i - 0.006, 0.0, 0.0],
+        skew=(0.004, 0.0061) if skewed else (0.0, 0.0))
+        for i in range(poses)]
+    background = torch.tensor(_BG, device=cuda) if bg == "cuda" else _BG
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(pose_chunk=chunk,
+                                               fuse_tol=tol)
+    got, ref, launches, merged = _fused_kernel_against_chain(
+        projs, cams, monkeypatch, config=cfg, background=background,
+        to_srgb=to_srgb)
+    assert launches == merged == len(trenderer._pose_chunks(poses, chunk))
+    assert got.shape == ref.shape == (poses, h, w, 4)
+    assert 0.0 < float(got[..., 3].mean()) <= 1.0
+    assert (got - ref).abs().max().item() == 0.0
+    assert torch.equal(got, ref)
+
+
+def test_fused_epilogue_kernel_at_the_benchmark_shape(cuda, monkeypatch):
+    """fusion4k.trajectory's call: four one-layer 3840x2160 projectors 2 cm
+    apart, four cameras at fuse_tol 0.05 and sRGB, through the kernel and
+    through the chain: max |diff| 0, one launch; the device trace holds
+    the kernel and no CatArrayBatchedCopy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    h, w = 2160, 3840
+    projs = []
+    for i in range(4):
+        rgb, disp, _ = _scene(90 + i, h, w)
+        projs.append(lif_tpu_torch.projector_from_arrays(
+            rgb, disp, focal_px=0.78 * w, invz_min=0.09 / 0.045,
+            invz_max=0.0001 / 0.045, baseline=0.045,
+            position=(0.02 * i, 0.0, 0.0), device=cuda))
+    cams = [lif_tpu_torch.Camera.create(
+        w, h, focal_px=0.78 * w, position=[0.05 + 0.002 * j, 0.0, 0.0])
+        for j in range(4)]
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(fuse_tol=0.05)
+    got, ref, launches, merged = _fused_kernel_against_chain(
+        projs, cams, monkeypatch, config=cfg)
+    assert launches == merged == 1
+    assert (got - ref).abs().max().item() == 0.0
+    del ref
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lif_tpu_torch.render_fused_fast_batch(projs, cams, config=cfg)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    assert any("fused_epilogue_kernel" in e.key for e in events)
+    assert not [e for e in events if "CatArrayBatchedCopy" in e.key]
+
+
+@pytest.mark.parametrize("mask_modes,bg", [
+    (("multiply", "none", "hard"), "host"),
+    (("hard", "multiply", "none"), "cuda"),
+])
+@pytest.mark.parametrize("tol", [0.0, 0.05])
+def test_fused_epilogue_kernel_on_padded_cropped_entries(cuda, mask_modes,
+                                                         bg, tol):
+    """The kernel against its plain version on march outputs it is not
+    given by the renderer's call: a march width padded past the true width,
+    an outpaint crop, x and y offsets and mixed layer counts (2, 1, 3) and
+    mask modes, on the card: max |diff| 0 over every pixel of `out`."""
+    from lif_tpu_torch.ops.cuda import fused_epilogue as tfe
+
+    b, h, w, w_true = 3, 24, 72, 67
+    plan = tsm.translation_plan(w + 8, h + 4, w, h, 6.0, 0.0)
+    g = torch.Generator(device="cpu").manual_seed(5)
+
+    def layer(k):
+        hit = (torch.rand((b, h, w), generator=g) > 0.3).float()
+        invz = torch.rand((b, h, w), generator=g) * 0.8 + 0.1
+        invz[:, :, k::7] = 0.55  # ties across projectors
+        rgba = torch.rand((b, h, w, 4), generator=g)
+        poses = torch.tensor([[0.01 * (k + j), 0.0, 0.0] for j in range(b)])
+        return tfe.FusedLayer(hit.to(cuda), invz.to(cuda), rgba.to(cuda),
+                              poses.to(cuda), plan, 30.0 + k,
+                              (0.75 - 0.5 * k, 0.25 * k), 2 * k)
+
+    layers = [[layer(0), layer(1)], [layer(2)], [layer(3), layer(4),
+                                                 layer(5)]]
+    views = list(zip(mask_modes, layers))
+    background = torch.tensor(_BG, device=cuda) if bg == "cuda" else _BG
+    kw = dict(background=background, feathering=0.1, fuse_tol=tol,
+              to_srgb=True)
+    before = tfe.fused_epilogue.launches
+    got = torch.full((b, h, w_true, 4), 7.0, device=cuda)
+    ref = torch.empty_like(got)
+    tfe.fused_epilogue(views, got, **kw)
+    tfe.fused_epilogue_plain(views, ref, **kw)
+    torch.cuda.synchronize()
+    assert tfe.fused_epilogue.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() == 0.0
+    assert torch.equal(got, ref)
+
+
+def test_fused_epilogue_rejects_bad_inputs(cuda):
+    """The wrapper raises on what the kernel does not take: a true width
+    beyond the march's, a plan of other dims, CPU poses, an unknown mask
+    mode, no projector, a projector without a layer."""
+    from lif_tpu_torch.ops.cuda import fused_epilogue as tfe
+
+    b, h, w = 2, 16, 32
+    plan = tsm.translation_plan(w, h, w, h, 4.0, 0.0)
+    lay = tfe.FusedLayer(
+        torch.ones((b, h, w), device=cuda),
+        torch.full((b, h, w), 0.5, device=cuda),
+        torch.rand((b, h, w, 4), device=cuda),
+        torch.zeros((b, 3), device=cuda), plan, 30.0)
+    kw = dict(background=_BG, feathering=0.1, fuse_tol=0.05, to_srgb=True)
+    out = torch.empty((b, h, w, 4), device=cuda)
+    tfe.fused_epilogue([("none", [lay])], out, **kw)
+    bad = [
+        ([("none", [lay])], torch.empty((b, h, w + 8, 4), device=cuda)),
+        ([("none", [lay._replace(plan=plan._replace(out_w=w + 8))])], out),
+        ([("none", [lay._replace(poses=lay.poses.cpu())])], out),
+        ([("soft", [lay])], out),
+        ([], out),
+        ([("none", [lay]), ("none", [])], out),
+    ]
+    for views, o in bad:
+        with pytest.raises(ValueError):
+            tfe.fused_epilogue(views, o, **kw)

@@ -1,4 +1,4 @@
-"""Multi-projector fusion against lif_tpu (CPU): _fusion_weights,
+"""Multi-projector fusion against lif_tpu (CPU): the merge's weights,
 render_fused_fast(_batch) and the exact fused oracle
 parallel.sharding.render_fused_projectors.
 
@@ -8,7 +8,8 @@ its shard_map oracle on a 2- or 4-device virtual CPU mesh) and, carried
 across with projector_from_reference, through lif_tpu_torch on CPU
 tensors (the plain twin of the lateral kernel; the oracle stacked on one
 device). Gates:
-  * _fusion_weights: equal, element for element.
+  * ops.composite.fusion_weights (lif_tpu's _fusion_weights): equal,
+    element for element.
   * the fast form: lif_tpu's kernel-vs-twin gate, max abs < 3e-5
     (tests/test_sweep_march.py:139), outside the FMA-flip pixels: where
     one projector's composited alpha is > 0 in one package and exactly 0
@@ -35,6 +36,7 @@ from lif_tpu.models import renderer as jrenderer
 from lif_tpu.parallel.sharding import make_mesh
 from lif_tpu.parallel.sharding import render_fused_projectors as jfused
 from lif_tpu_torch.models import renderer as trenderer
+from lif_tpu_torch.ops import composite as tcomposite
 from lif_tpu_torch.parallel.sharding import (
     render_fused_projectors as tfused,
 )
@@ -166,8 +168,8 @@ def _assert_fast_gate(got, ref, flips):
 
 @pytest.mark.parametrize("tol", [0.0, 0.05, 0.1])
 def test_fusion_weights_match_lif_tpu(rng, tol):
-    """_fusion_weights on hand-made candidates (distinct, tied at the
-    front, inside and outside the band, at its edge, a lone hit, no hit,
+    """composite.fusion_weights on hand-made candidates (distinct, tied at
+    the front, inside and outside the band, at its edge, a lone hit, no hit,
     best = 0 with a tie, negative keys) and on 4096 random ones with
     misses, against lif_tpu's, element for element."""
     inf = np.inf
@@ -185,7 +187,7 @@ def test_fusion_weights_match_lif_tpu(rng, tol):
         best = key.max(axis=0)
         ref = np.asarray(jrenderer._fusion_weights(
             jnp.asarray(key), jnp.asarray(best), jnp.asarray(hit), tol))
-        got = trenderer._fusion_weights(
+        got = tcomposite.fusion_weights(
             torch.from_numpy(key), torch.from_numpy(best),
             torch.from_numpy(hit), tol)
         assert got.dtype == torch.float32
@@ -275,19 +277,25 @@ def test_fused_fast_pose_chunks_equal_one_chunk(rng):
 
 def test_fused_fast_memory_bound_chunks_equal_one_chunk(rng, monkeypatch):
     """The fused core bounds its pose chunk by the device's free memory at
-    _FUSED_BYTES_PER_VIEW_PX (on CUDA; the CPU has no bound): with free
-    memory for two poses of two projectors, five poses render in chunks
+    _FUSED_BYTES_PER_LAYER_PX (on CUDA; the CPU has no bound, so the test
+    hands it a free-memory reading): with free memory for two poses of
+    two projectors of three layers in all, five poses render in chunks
     of 2 + 2 + 1 and equal the one-chunk call bit for bit; pose_chunk
     stays an upper bound."""
     projs, _, _ = _case("ldi_and_single", rng)
     tps = [_both(kw)[1] for kw in projs]
     _, tcams = _cams([[0.004 * i, 0.0, 0.0] for i in range(5)])
     whole = lif_tpu_torch.render_fused_fast_batch(tps, tcams)
-    per_pose = 2 * H * W * trenderer._FUSED_BYTES_PER_VIEW_PX
-    assert trenderer._fused_pose_chunk(2, H, W, 48, None) == 48
-    assert trenderer._fused_pose_chunk(2, H, W, 48, 2 * per_pose + 1) == 2
-    assert trenderer._fused_pose_chunk(2, H, W, 1, 2 * per_pose) == 1
-    assert trenderer._fused_pose_chunk(2, H, W, None, per_pose - 1) == 1
+    n_layers = sum(p.num_layers for p in tps)
+    per_pose = n_layers * H * W * trenderer._FUSED_BYTES_PER_LAYER_PX
+
+    def chunk(pose_chunk, free):
+        return trenderer._fused_pose_chunk(n_layers, H, W, pose_chunk, free)
+
+    assert chunk(48, None) == 48
+    assert chunk(48, 2 * per_pose + 1) == 2
+    assert chunk(1, 2 * per_pose) == 1
+    assert chunk(None, per_pose - 1) == 1
     assert trenderer._free_device_bytes(torch.device("cpu")) is None
     chunks = []
     real = trenderer._pose_chunks
