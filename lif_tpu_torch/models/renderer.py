@@ -174,8 +174,8 @@ _LRU_COUNTERS = {
 }
 
 
-# the tier each layer of a render_fast_batch call renders on, counted by
-# the call that renders it (the pitch route's inner call)
+# the tier each layer of a render_fast_batch call (the pitch route's inner
+# call) and each eye-layer of a render_stereo_fast_batch call renders on
 _ROUTE_COUNTERS = {mode: f"route.{mode}" for mode in
                    ("march", "scaled", "target", "rotated", "sweep")}
 
@@ -1698,7 +1698,8 @@ def _stereo_eye(projector, cameras, num_layers, mask_mode, cfg, num_planes):
     ValueError naming render_stereo_view. Each layer dict carries the mask
     it marches (the eroded stereo mask in the 'hard' mode) and the skew
     fold's constant shift `doff`, which _stretch_conf reads on every
-    tier."""
+    tier. Each layer counts route.<tier> for the tier it renders on, as
+    render_fast_batch counts it."""
     cam0 = cameras[0]
     f2_host = float(cam0.focal_px)
     out_w, out_h = cam0.width, cam0.height
@@ -1729,6 +1730,7 @@ def _stereo_eye(projector, cameras, num_layers, mask_mode, cfg, num_planes):
                 ) from err
             d = -lay["focal_host"] * (sk1 - sk2)
             lay = dict(lay, doff=(float(d[0]), float(d[1])), **extra)
+        profiling.count(_ROUTE_COUNTERS[mode])
         eye.layers.append(dict(lay, mask=mask))
         eye.modes.append(mode)
         eye.setups.append(setup)
@@ -1829,7 +1831,8 @@ def _stereo_core(eyes, w_r, background, *, refine, rot_refine, t_refine,
     """The body of render_stereo_fast_batch: hoists each eye's march
     source prep, then renders balanced pose chunks, each layer through
     both eyes' tiers (raw outputs), the stretch-mark confidence and
-    occlusion_blend, over-composited front to back. w_r: (B, 1, 1, 1) on
+    occlusion_blend, over-composited front to back; each layer blended
+    in a chunk counts stereo.blend once (both eyes). w_r: (B, 1, 1, 1) on
     the device."""
     eyes = [
         eye._replace(layers=_attach_march_prep(eye.layers, eye.modes,
@@ -1860,6 +1863,7 @@ def _stereo_core(eyes, w_r, background, *, refine, rot_refine, t_refine,
                             lay, eye.pos_b[sl], eye.rot_b[sl], hit, invz,
                             f2, out_w, out_h))
                 with profiling.span("lif.stereo.blend"):
+                    profiling.count("stereo.blend")
                     blend = _stereo.occlusion_blend(*views, *confs, w_r[sl])
                 with profiling.span("lif.composite"):
                     acc = _composite.over(acc, blend)

@@ -20,7 +20,10 @@ every span inside carries that call's id. Names are constant strings
 idle gaps sum by name. Counters count where the work happens: "sync.*"
 each point where the host waits for a CUDA stream (host_sync),
 "cache.<name>.hit" / ".miss" the renderer's caches, "route.<tier>" the
-tier each layer of a render_fast_batch call renders on, "plan.march_layer"
+tier each layer of a render_fast_batch call (and each eye-layer of a
+render_stereo_fast_batch call) renders on, "stereo.blend" each layer of a
+stereo pose chunk blended across both eyes (its work in the
+"lif.stereo.conf" and "lif.stereo.blend" spans), "plan.march_layer"
 each layer planned on the lateral march, "epilogue.<tier>.fused" each
 launch of a tier's epilogue kernel, "epilogue.lateral.behind" each
 such lateral launch behind an LDI's front layer and "epilogue.fused.merge"

@@ -1067,6 +1067,42 @@ def test_stereo_rotated_eyes_on_cuda_match_cpu(cuda):
     assert (got[..., 3] > 0.5).float().mean().item() > 0.5
 
 
+def test_stereo_ldi_cell_call_on_cuda_matches_cpu(cuda):
+    """One call of the benchmark's stereo cell (sfmoma.stereo) at its full
+    size: 48 pairs over two 3-layer views of 1408x928 layers, in two pose
+    chunks. On the card every eye-layer takes the lateral kernel once a
+    chunk (12 launches). The same cameras' frames agree with the call on
+    CPU tensors under the fast-stereo gate (at most 0.1% of the pixels
+    off by more than 1e-3). The CPU call renders 4 of the 96 cameras: the
+    first and last of each chunk, which hold every view's largest offset,
+    so each ladder, plan and weight is the full call's."""
+    from pathlib import Path
+
+    from benchmark.lifbench import harness, parts, traffic
+
+    cell = harness.Cell(Path(__file__).resolve().parents[1], "sfmoma.stereo")
+    scene = parts.load("scenes", cell.config["scene"])
+    srcs = scene.build(cell.config, 2**31 + 2409, cuda)
+    projs = scene.projectors(lif_tpu_torch, srcs, cell.config)
+    poses = traffic.PoseStream(cell.traffic,
+                               np.random.default_rng(2409)).next()
+    cams = traffic.cameras(lif_tpu_torch, poses, cell.config)
+    cfg = lif_tpu_torch.RenderConfig(**cell.config["render_config"])
+    before = tcuda.sweep_lateral.launches
+    got, tiers = lif_tpu_torch.render_stereo_fast_batch(
+        *projs, cams, config=cfg, return_tiers=True)
+    torch.cuda.synchronize()
+    assert got.shape == (96, 800, 1280, 4)
+    assert tiers == (("march",) * 3,) * 2
+    assert tcuda.sweep_lateral.launches == before + 12
+    pick = [0, 47, 48, 95]
+    ref = lif_tpu_torch.render_stereo_fast_batch(
+        *(p.to("cpu") for p in projs), [cams[j] for j in pick], config=cfg)
+    err = (got[pick].cpu() - ref).abs().amax(-1)
+    assert (err > 1e-3).float().mean().item() <= 1e-3
+    assert (got[..., 3] > 0.5).float().mean().item() > 0.9
+
+
 def test_fused_fast_on_cuda_matches_cpu(cuda):
     """render_fused_fast_batch on the card, two 2-layer LDI projectors at
     three poses: exactly one lateral launch per projector and layer (one

@@ -6,8 +6,9 @@ is even made; under torch.profiler.profile each public fast entry point
 is one root call however it recurses, every span carries its root's call
 id and shows in the profiler's own events, self time never exceeds total
 time, a replayed pose batch hits the snap-table cache, a CPU run counts
-no host sync, and trace() resets the records and writes them to
-spans.json.
+no host sync, each layer counts its route (each eye-layer of a stereo
+call too) and each stereo chunk its blended layers, and trace() resets
+the records and writes them to spans.json.
 """
 
 import json
@@ -302,6 +303,29 @@ def test_counts_march_layers_and_behind_epilogues(rng, layers):
     assert counters["epilogue.lateral.fused"] == 2 * chunks * layers
     assert counters.get("epilogue.lateral.behind", 0) == (
         2 * chunks * (layers - 1))
+
+
+@pytest.mark.parametrize("poses,chunks", [(2, 1), (5, 3)])
+def test_stereo_counts_routes_and_blends(rng, poses, chunks):
+    """A stereo call counts route.<tier> once an eye-layer, for the tier
+    it renders on, and stereo.blend once a layer blended in each pose
+    chunk: a one-layer pair counts 2 route.march a call and 1 blend a
+    chunk, with no other route."""
+    proj = _projector(rng)
+    other = _projector(rng, position=(0.02, 0.0, 0.0))
+    xs = [0.011, 0.013, 0.017, 0.019, 0.023][:poses]
+
+    def fn():
+        return lt.render_stereo_fast_batch(proj, other, _cams(xs), config=CFG,
+                                           return_tiers=True)
+
+    assert fn()[1] == (("march",), ("march",))
+    _traced(fn, calls=2)
+    counters = profiling.snapshot()["counters"]
+    routes = {k: n for k, n in counters.items() if k.startswith("route.")}
+    assert routes == {"route.march": 2 * 2}
+    assert counters["stereo.blend"] == 2 * chunks
+    assert counters["plan.march_layer"] == 2 * 2
 
 
 @pytest.mark.parametrize("motion,span", [("orbit", "lif.plan.target"),
