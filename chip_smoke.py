@@ -7,8 +7,9 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
 
 1. device: a CUDA device, and its name and power limit from nvidia-smi;
 2. build: compile csrc/sweep_march.cu, csrc/sweep_target.cu,
-   csrc/sweep_scaled.cu, csrc/splat_march.cu, csrc/posed_epilogue.cu and
-   csrc/fused_epilogue.cu with nvcc (sm_90a) and
+   csrc/sweep_scaled.cu, csrc/splat_march.cu, csrc/posed_epilogue.cu,
+   csrc/fused_epilogue.cu and csrc/stereo_epilogue.cu with nvcc (sm_90a)
+   and
    the LIF codec csrc/lif_container.cpp with g++ into
    lif_tpu_torch/_build/, one compiler per source, started together;
 3. lateral kernel vs plain: a seeded 1280x800 scene (smooth noise plus a
@@ -148,7 +149,12 @@ neither jax nor lif_tpu. Phases, each of which exits 1 on failure:
     pack), the second mono frame equal to the first and every layer's
     march packs holding both masks. Every launch is held to the plain
     versions on its own inputs (the pair batch's launches on 4 poses
-    each).
+    each). Last the stereo epilogue kernel (csrc/stereo_epilogue.cu) at
+    the sfmoma.stereo cell's chunk, 48 cameras over that LDI pair, its
+    three layers front to back against its plain version, the PyTorch
+    chain, on the card (max abs 0), each timed, beside the bounds of the
+    work's bytes and of the per-layer design's; its launches are the LDI
+    stereo call's, exactly 3.
 20. main path 10 (multi-projector fusion, BASELINE config 4): four
     projectors synthesized from make_scene(0) at x = 0.02 i m by the port
     on the CPU (make_fusion_projectors), moved to the card and resampled
@@ -726,6 +732,7 @@ def run():
         from lif_tpu_torch.ops.cuda import build
         from lif_tpu_torch.ops.cuda import fused_epilogue as kfused
         from lif_tpu_torch.ops.cuda import posed_epilogue as kposed
+        from lif_tpu_torch.ops.cuda import stereo_epilogue as kstereo
         from lif_tpu_torch.ops.cuda import sweep_march as kmarch
         from lif_tpu_torch.ops.sweep_march import (
             march_translation_plain,
@@ -749,7 +756,7 @@ def run():
     # 2. build, one nvcc per source and g++ for the LIF codec, all started
     # together
     sources = ("sweep_march", "sweep_target", "sweep_scaled", "splat_march",
-               "posed_epilogue", "fused_epilogue")
+               "posed_epilogue", "fused_epilogue", "stereo_epilogue")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         codec = pool.submit(native.load_library)
@@ -774,6 +781,7 @@ def run():
         kmarch.lateral_epilogue.launches = 0
         kposed.posed_epilogue.launches = 0
         kfused.fused_epilogue.launches = 0
+        kstereo.stereo_epilogue.launches = 0
 
     def launch_counts():
         return counter()
@@ -911,7 +919,8 @@ def run():
     # main paths 8, 9, 10, 14 and 15 held each launch to the plain versions:
     # their worst errors join each kernel's record
     errs, views = lif_phase(reset_counts, launch_counts, card)
-    errs9 = stereo_phase(reset_counts, launch_counts, card, views[1])
+    errs9, stereo = stereo_phase(reset_counts, launch_counts, card,
+                                 views[1])
     errs10, fused = fusion_phase(reset_counts, launch_counts, card)
     sweep_phase(proj, focal, reset_counts, launch_counts, card)
     fit_phase(reset_counts, launch_counts, card, dev)
@@ -919,7 +928,8 @@ def run():
     errs14, lateral["uniform_grid"] = plane_mode_phase(
         proj, focal, lay, reset_counts, launch_counts, card)
     errs15 = bench_phase(reset_counts, launch_counts, card)
-    kernels = [lateral, epilogue, target, scaled, *posed, billboard, fused]
+    kernels = [lateral, epilogue, target, scaled, *posed, billboard, fused,
+               stereo]
     for rec in kernels:
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  *(e.get(rec["name"], 0.0) for e in (
@@ -1754,15 +1764,18 @@ def with_epilogue(counts):
     """A step's kernel launches and the epilogue kernels', which the
     steps' exact launch checks leave out (each launches once after each
     march launch of its tier in a call whose every layer has an epilogue
-    kernel; the fused one once a pose chunk of a fused call): the counts
-    since the step's reset_counts."""
+    kernel; the fused one once a pose chunk of a fused call, the stereo
+    one once a layer of a stereo pose chunk that both eyes march): the
+    counts since the step's reset_counts."""
     from lif_tpu_torch.ops.cuda import fused_epilogue as kfused
     from lif_tpu_torch.ops.cuda import posed_epilogue as kposed
+    from lif_tpu_torch.ops.cuda import stereo_epilogue as kstereo
     from lif_tpu_torch.ops.cuda import sweep_march as kmarch
 
     return dict(counts, lateral_epilogue=kmarch.lateral_epilogue.launches,
                 posed_epilogue=kposed.posed_epilogue.launches,
-                fused_epilogue=kfused.fused_epilogue.launches)
+                fused_epilogue=kfused.fused_epilogue.launches,
+                stereo_epilogue=kstereo.stereo_epilogue.launches)
 
 
 def record_path(path, counts):
@@ -2035,7 +2048,8 @@ def plain_lateral():
     (on the epilogue kernel's route, the plain march pose by pose and the
     epilogue's plain version, the PyTorch chain, for the batch).
     A fused call marches the same way and finishes each pose chunk in the
-    fused epilogue's plain version, the PyTorch chain.
+    fused epilogue's plain version, the PyTorch chain; a stereo call
+    finishes each layer both eyes march in the stereo epilogue's.
     A render inside is the plain-version twin of the same render outside;
     the kernels are exact against their plain versions, so the two must be
     equal."""
@@ -2044,6 +2058,7 @@ def plain_lateral():
     from lif_tpu_torch.models import renderer
     from lif_tpu_torch.ops import sweep_march as smarch
     from lif_tpu_torch.ops.cuda import fused_epilogue as kfused
+    from lif_tpu_torch.ops.cuda import stereo_epilogue as kstereo
     from lif_tpu_torch.ops.cuda import sweep_march as kmarch
 
     def plain_batch(rgb, disp, mask, invz_min, invz_max, c1, f1, plane_invz,
@@ -2068,15 +2083,17 @@ def plain_lateral():
         return torch.stack(outs)
 
     saved = (kmarch.render_translation_batch_cuda,
-             renderer._attach_march_prep, kfused.fused_epilogue)
+             renderer._attach_march_prep, kfused.fused_epilogue,
+             kstereo.stereo_epilogue)
     kmarch.render_translation_batch_cuda = plain_batch
     renderer._attach_march_prep = lambda layers, *_: list(layers)
     kfused.fused_epilogue = kfused.fused_epilogue_plain
+    kstereo.stereo_epilogue = kstereo.stereo_epilogue_plain
     try:
         yield
     finally:
         (kmarch.render_translation_batch_cuda, renderer._attach_march_prep,
-         kfused.fused_epilogue) = saved
+         kfused.fused_epilogue, kstereo.stereo_epilogue) = saved
 
 
 def stereo_phase(reset_counts, launch_counts, card, ldi):
@@ -2084,8 +2101,9 @@ def stereo_phase(reset_counts, launch_counts, card, ldi):
     note). `ldi` is main path 8's 3-layer view. Every step zeroes the
     launch counts just before it and checks them just after, exactly, and
     holds each launch it made to the kernel's plain versions on that
-    launch's inputs. Returns {kernel: max abs against its plain
-    versions}."""
+    launch's inputs. Then the stereo epilogue kernel on that LDI pair
+    (stereo_epilogue_phase). Returns ({kernel: max abs against its plain
+    versions}, the stereo epilogue's kernel record)."""
     import dataclasses
     import hashlib
 
@@ -2187,9 +2205,14 @@ def stereo_phase(reset_counts, launch_counts, card, ldi):
               ("march",) * 6),
              ("mono again", lambda: lt.render(ldi, cam, mode="fast"),
               ("march",) * 3))
-    frames = []
+    frames, fused = [], {}
     for step, fn, want in steps:
         img, counts, calls = path9.counted(fn)
+        # the stereo epilogue's launches since counted() zeroed them: one
+        # a layer of the stereo call's single pose chunk
+        fused[step] = with_epilogue(counts)["stereo_epilogue"]
+        check(fused[step] == (3 if step == "stereo" else 0),
+              f"LDI {step}: {fused[step]} stereo epilogue launches")
         with plain_lateral():
             twin = fn()
         torch.cuda.synchronize()
@@ -2212,7 +2235,97 @@ def stereo_phase(reset_counts, launch_counts, card, ldi):
         held = {id(mask) for mask, _ in lay["march_packs"].values()}
         check(held == {id(lay["mask"]), id(lay["eroded_mask"])},
               "the march packs do not hold both masks")
-    return path9.errs
+    return path9.errs, stereo_epilogue_phase(ldi, ldi_r, fused["stereo"],
+                                             card)
+
+
+def stereo_epilogue_phase(ldi, ldi_r, launches, card):
+    """Phase 19, last part: the stereo epilogue kernel at the
+    sfmoma.stereo cell's chunk, N_EPILOGUE cameras over main path 8's
+    3-layer LDI view and its copy one baseline to the right (1408x928
+    layers outpainted by 128 px, the hard discard), from left of the left
+    view to right of the right one; each eye-layer's march planned and
+    launched as render_stereo_fast_batch does; the three layers finished
+    front to back, equal to its plain version (the PyTorch chain) on the
+    card, both timed, beside two bounds of bytes: the work's (each eye's
+    24 bytes of march outputs read a layer, the frame written once) and
+    the per-layer design's (the frames also written after each layer and
+    read back behind the front one). `launches`: main path 9's LDI stereo
+    call's. Returns its kernel record."""
+    import torch
+
+    import lif_tpu_torch as lt
+    from lif_tpu_torch.models import renderer
+    from lif_tpu_torch.ops.cuda import stereo_epilogue as kstereo
+    from lif_tpu_torch.ops.cuda import sweep_march as kmarch
+    from lif_tpu_torch.ops.stereo import view_weight
+    from lif_tpu_torch.utils.profiling import device_timer
+
+    cfg = lt.DEFAULT_CONFIG
+    n = N_EPILOGUE
+    x0 = float(ldi.position[0])
+    cams = [lt.Camera.create(
+        W, H, focal_px=float(ldi.focal[0]),
+        position=[x0 - 0.01 + (BASELINE + 0.02) * i / (n - 1), 0.0, 0.0])
+        for i in range(n)]
+    eyes = [renderer._stereo_eye(p, cams, 3, "hard", cfg, None)
+            for p in (ldi, ldi_r)]
+    check(all(eye.modes == ["march"] * 3 for eye in eyes),
+          f"stereo epilogue tiers {[eye.modes for eye in eyes]}")
+    eyes = [eye._replace(layers=renderer._attach_march_prep(
+        eye.layers, eye.modes, eye.plans, eye.crops)) for eye in eyes]
+    dev = ldi.disp.device
+    w_r = view_weight(np.zeros(3), eyes[0].pos_b, eyes[1].pos_b).to(dev)
+    poses = kmarch.upload_poses(np.stack([eye.pos_b for eye in eyes]), dev)
+    sl = slice(0, n)
+    tfs = renderer._stereo_transforms(eyes, sl, float(cams[0].focal_px), W,
+                                      H, dev)
+    layers = [[renderer._stereo_march(eye, i, poses[e, sl], tfs[i, e], sl,
+                                      cfg.march_refine)
+               for e, eye in enumerate(eyes)] for i in range(3)]
+    kws = [dict(background=cfg.background, feathering=cfg.feathering,
+                mask_mode="hard", to_srgb=cfg.to_srgb, first=i == 0,
+                last=i == 2) for i in range(3)]
+    out = torch.empty((n, H, W, 4), device=dev)
+    twin = torch.empty_like(out)
+
+    def finish(fn, frames):
+        for lay, kw in zip(layers, kws):
+            fn(lay, w_r, frames, **kw)
+
+    finish(kstereo.stereo_epilogue, out)
+    finish(kstereo.stereo_epilogue_plain, twin)
+    torch.cuda.synchronize()
+    err = float((out - twin).abs().max())
+    print(f"stereo epilogue kernel vs its plain version ({n} cameras, 3 "
+          f"layers x 2 eyes, {W}x{H}, hard discard, background "
+          f"{cfg.background}, sRGB {cfg.to_srgb}): max abs {err:.3g}, equal "
+          f"{torch.equal(out, twin)}, alpha coverage "
+          f"{float(out[..., 3].mean()):.4f}", flush=True)
+    check(torch.equal(out, twin), "the stereo epilogue kernel is not exact")
+    ms = device_timer(finish, kstereo.stereo_epilogue, out, iters=10,
+                      repeats=5) / n
+    plain_ms = device_timer(finish, kstereo.stereo_epilogue_plain, twin,
+                            iters=2, repeats=5) / n
+    # the work: each eye's march outputs read once, the frames written
+    # once; the per-layer design also writes the frames after each layer
+    # and reads them back behind the front one
+    marches = tensor_bytes(*(t for lay in layers for eye in lay
+                             for t in eye[:3]))
+    nbytes = marches + tensor_bytes(out)
+    design = marches + (2 * len(layers) - 1) * tensor_bytes(out)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3 / n
+    design_bound = design / HBM_BYTES_PER_S * 1e3 / n
+    print(f"stereo_epilogue kernel: {ms:.5f} ms/frame, bound {bound:.5f} "
+          f"ms/frame (the work's bytes: {nbytes / n / (W * H):.0f} B/px), "
+          f"{design_bound:.5f} ms/frame for the per-layer design's "
+          f"({design / n / (W * H):.0f} B/px), the PyTorch chain "
+          f"{plain_ms:.5f} ms/frame ({n}-camera chunk, 3 layers, {W}x{H}) "
+          f"[{card}]", flush=True)
+    return kernel_record(
+        "stereo_epilogue", "lif_tpu_torch/csrc/stereo_epilogue.cu",
+        "none: lif_tpu leaves the stereo confidence, fill and blend to "
+        "XLA's fusion", launches, err, ms, plain_ms, (bound, "bytes"))
 
 
 def fusion_phase(reset_counts, launch_counts, card):

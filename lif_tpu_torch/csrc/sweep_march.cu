@@ -69,6 +69,8 @@
 #include <climits>
 #include <cmath>
 
+#include "epilogue.cuh"
+
 namespace {
 
 constexpr int kMaxPlanes = 1024;
@@ -458,45 +460,24 @@ extern "C" int lif_lateral_march(
 // Python number is the product with the number's float32 reciprocal,
 // taken on the host; each Python constant is a double rounded to float;
 // clamps pass NaN through; the zero-background blend of each layer is
-// kept (it turns -0 into +0). The plain version is
-// lif_tpu_torch/ops/cuda/sweep_march.py::lateral_epilogue_plain.
+// kept (it turns -0 into +0). The hit test and the finish are
+// csrc/epilogue.cuh's, which the stereo epilogue shares. The plain version
+// is lif_tpu_torch/ops/cuda/sweep_march.py::lateral_epilogue_plain.
 
 namespace {
 
 constexpr int kEpilogueThreads = 256;
 
+using lif_epilogue::HitGeom;
+using lif_epilogue::Taper;
+
 struct EpiloguePlan {
-  float f1, bx, by, off_x, off_y, crop_y;
-  float inv_src_w, inv_src_h;  // 1 / src_w, 1 / (src_h + 2 crop_y)
-  float inv_f;                 // smoothstep(0, f): 1 / f
-  float e0, inv_e;             // smoothstep(1 - f, 1): 1 - f, its 1 / width
-  float bg[4];                 // the background, unless given on the device
-  int mask_mode;               // 0 none, 1 multiply, 2 hard
+  HitGeom geom;
+  Taper taper;
+  float bg[4];    // the background, unless given on the device
+  int mask_mode;  // 0 none, 1 multiply, 2 hard
   int to_srgb, first, last;
 };
-
-// clamp(x, lo, hi) as PyTorch's CUDA clamp: NaN passes through
-__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
-}
-
-// GLSL smoothstep(e0, e1, x), inv = 1 / (e1 - e0): t * t * (3 - 2 t)
-__device__ __forceinline__ float smoothstep_rn(float x, float e0, float inv) {
-  const float t = clamp_nan(__fmul_rn(__fsub_rn(x, e0), inv), 0.0f, 1.0f);
-  return __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.0f, __fmul_rn(2.0f, t)));
-}
-
-// core/color.py::linear_to_srgb
-__device__ __forceinline__ float srgb_rn(float x) {
-  if (x <= static_cast<float>(0.0031308)) {
-    return __fmul_rn(x, static_cast<float>(12.92));
-  }
-  const float b = isnan(x) ? x : fmaxf(x, static_cast<float>(1e-12));
-  return __fsub_rn(
-      __fmul_rn(powf(b, static_cast<float>(1.0 / 2.4)),
-                static_cast<float>(1.055)),
-      static_cast<float>(0.055));
-}
 
 __global__ void __launch_bounds__(kEpilogueThreads) lateral_epilogue_kernel(
     const float* __restrict__ found,  // (B, H, W) 0/1
@@ -514,35 +495,13 @@ __global__ void __launch_bounds__(kEpilogueThreads) lateral_epilogue_kernel(
   const int i = static_cast<int>(r % H);
   const int b = static_cast<int>(r / H);
   const long long s = r * W + j;
-  const float iz = invz[s];
   const float4 c = rgba[s];
 
   // _finalize's hit test at the true source position (hit_and_alpha)
-  const float sx = __fmul_rn(c1[3 * b], p.f1);
-  const float sy = __fmul_rn(c1[3 * b + 1], p.f1);
-  const float gx = __fadd_rn(
-      __fsub_rn(__fadd_rn(static_cast<float>(j), p.bx), __fmul_rn(sx, iz)),
-      p.off_x);
-  const float gy = __fadd_rn(
-      __fsub_rn(__fadd_rn(static_cast<float>(i), p.by), __fmul_rn(sy, iz)),
-      p.off_y);
-  const float u = __fmul_rn(__fadd_rn(gx, 0.5f), p.inv_src_w);
-  const float v = __fmul_rn(__fadd_rn(__fadd_rn(gy, p.crop_y), 0.5f),
-                            p.inv_src_h);
-  // composite.edge_alpha
-  const float inside =
-      (u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f) ? 1.0f : 0.0f;
-  const float tap = __fmul_rn(
-      __fmul_rn(__fmul_rn(smoothstep_rn(u, 0.0f, p.inv_f),
-                          __fsub_rn(1.0f, smoothstep_rn(u, p.e0, p.inv_e))),
-                smoothstep_rn(v, 0.0f, p.inv_f)),
-      __fsub_rn(1.0f, smoothstep_rn(v, p.e0, p.inv_e)));
-  float alpha = __fmul_rn(__fmul_rn(found[s], inside), tap);
-  if (p.mask_mode == 1) {
-    alpha = __fmul_rn(alpha, clamp_nan(c.w, 0.0f, 1.0f));
-  } else if (p.mask_mode == 2) {
-    alpha = __fmul_rn(alpha, c.w >= 0.5f ? 1.0f : 0.0f);
-  }
+  float hit;
+  const float alpha = lif_epilogue::hit_alpha(
+      p.geom, p.taper, p.mask_mode, c1[3 * b], c1[3 * b + 1], i, j,
+      found[s], invz[s], c.w, &hit);
   // premultiplied over the zero background: 0 * 0 * (1 - alpha) + rgb * alpha
   const float z = __fmul_rn(__fmul_rn(0.0f, 0.0f), __fsub_rn(1.0f, alpha));
   float rgb[3] = {__fadd_rn(z, __fmul_rn(c.x, alpha)),
@@ -559,18 +518,11 @@ __global__ void __launch_bounds__(kEpilogueThreads) lateral_epilogue_kernel(
     rgb[2] = __fadd_rn(acc.z, __fmul_rn(t, rgb[2]));
     a = __fadd_rn(acc.w, __fmul_rn(t, a));
   }
-  // finish_over_background
   if (p.last) {
     float bg[4];
 #pragma unroll
     for (int ch = 0; ch < 4; ++ch) bg[ch] = bgp ? bgp[ch] : p.bg[ch];
-    const float t = __fsub_rn(1.0f, a);
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      rgb[ch] = __fadd_rn(__fmul_rn(__fmul_rn(bg[ch], bg[3]), t), rgb[ch]);
-      if (p.to_srgb) rgb[ch] = srgb_rn(rgb[ch]);
-    }
-    a = __fadd_rn(bg[3], __fmul_rn(a, __fsub_rn(1.0f, bg[3])));
+    lif_epilogue::finish_rn(rgb, a, bg, p.to_srgb != 0);
   }
   out[q] = make_float4(rgb[0], rgb[1], rgb[2], a);
 }
@@ -593,17 +545,17 @@ extern "C" int lif_lateral_epilogue(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   EpiloguePlan p;
-  p.f1 = static_cast<float>(f1);
-  p.bx = static_cast<float>(bx);
-  p.by = static_cast<float>(by);
-  p.off_x = static_cast<float>(off_x);
-  p.off_y = static_cast<float>(off_y);
-  p.crop_y = static_cast<float>(crop_y);
-  p.inv_src_w = 1.0f / static_cast<float>(src_w);
-  p.inv_src_h = 1.0f / static_cast<float>(src_h_total);
-  p.inv_f = 1.0f / static_cast<float>(feather);
-  p.e0 = static_cast<float>(e0);
-  p.inv_e = 1.0f / static_cast<float>(e_span);
+  p.geom.f1 = static_cast<float>(f1);
+  p.geom.bx = static_cast<float>(bx);
+  p.geom.by = static_cast<float>(by);
+  p.geom.off_x = static_cast<float>(off_x);
+  p.geom.off_y = static_cast<float>(off_y);
+  p.geom.crop_y = static_cast<float>(crop_y);
+  p.geom.inv_src_w = 1.0f / static_cast<float>(src_w);
+  p.geom.inv_src_h = 1.0f / static_cast<float>(src_h_total);
+  p.taper.inv_f = 1.0f / static_cast<float>(feather);
+  p.taper.e0 = static_cast<float>(e0);
+  p.taper.inv_e = 1.0f / static_cast<float>(e_span);
   p.bg[0] = bg0;
   p.bg[1] = bg1;
   p.bg[2] = bg2;

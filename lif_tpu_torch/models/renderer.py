@@ -31,10 +31,13 @@ the CPU its plain version billboard_scatter_plain).
 The stereo modes: render_stereo_view (render(mode='stereo')) blends two
 projectors' exact marches (ops/stereo.py); render_stereo_fast_batch and
 render_stereo_fast (render(mode='stereo_fast')) route each eye's layers
-through the same tiers with their raw outputs (raw=True of
-_layer_tier_batch: colour, alpha, hit, invz*), add the stretch-mark
-confidence (_stretch_conf) and fill and blend the eyes as the exact
-kernel does; LDI eyes march the eroded stereo mask (_eroded_mask).
+through the same tiers with their raw outputs, add the stretch-mark
+confidence and fill and blend the eyes as the exact kernel does: a layer
+both eyes march laterally in one stereo epilogue kernel a pose chunk
+(ops/cuda/stereo_epilogue.py; on the CPU its plain version, the PyTorch
+chain), any other layer through the chain (raw=True of _layer_tier_batch:
+colour, alpha, hit, invz*; _stretch_conf; occlusion_blend); LDI eyes
+march the eroded stereo mask (_eroded_mask).
 Multi-projector fusion: render_fused_fast_batch and render_fused_fast
 march every layer of every projector on the lateral tier with its raw
 outputs, composite each projector's LDI and merge the projectors at the
@@ -63,7 +66,6 @@ import torch
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..core.camera import Camera
 from ..core.pose import relative_view_pose
-from ..core.transforms import inv3, mat_from_focal, mm, shader_rotation
 from ..ops import composite as _composite
 from ..ops import mesh as _mesh
 from ..ops import raycast as _raycast
@@ -76,10 +78,11 @@ from ..ops import sweep_march as _sweep_march
 from ..ops import sweep_scaled as _sweep_scaled
 from ..ops import sweep_target as _sweep_target
 from ..ops.cuda import fused_epilogue as _fused_epilogue
+from ..ops.cuda import stereo_epilogue as _stereo_epilogue
 from ..ops.cuda import sweep_march as _cuda_march
 from ..ops.cuda.sweep_march import prepare_translation_src
 from ..ops.cuda.sweep_target import skip_table_buffer
-from ..ops.sampling import pack_rgbm, read_disp
+from ..ops.sampling import pack_rgbm
 from ..utils import profiling
 from .projector import Projector
 
@@ -133,8 +136,6 @@ _TRANSPOSED_CACHE_MAX = 8
 # the mask marched (the texture's or the eroded stereo mask), the skew
 # fold's y shift, the crop and the plan
 _MARCH_PACK_MAX = 4
-
-_F32 = np.float32
 
 # x<->y axis swap: transposing every image conjugates all camera-space
 # quantities by this permutation. Applied by INDEXING, so it is exact.
@@ -1760,9 +1761,10 @@ def render_stereo_fast_batch(
     The exact stereo kernel's semantics (reference:
     rayCastStereoLDI.glsl:165-170, 368-436) on the march tiers: per layer,
     each eye's tier render with its raw outputs, the stretch-mark
-    confidence of each (_stretch_conf), ops.stereo.occlusion_blend with
-    the per-pose view_weight, then front-to-back LDI compositing, the
-    background and the gamma. Each eye routes as _stereo_eye says:
+    confidence of each, ops.stereo.occlusion_blend with the per-pose
+    view_weight, then front-to-back LDI compositing, the background and
+    the gamma (_stereo_core: one stereo epilogue kernel a layer and pose
+    chunk where both eyes march). Each eye routes as _stereo_eye says:
     lateral poses on the plane march (on CUDA the lateral kernel, one
     launch per eye, layer and pose chunk), other poses on the scaled,
     target or rotated tier. Frustum skew (sk1 per eye, a shared sk2) rides
@@ -1808,7 +1810,7 @@ def render_stereo_fast_batch(
                                   eyes[1].pos_b).to(left.device)
         profiling.host_sync("sync.upload.weights", w_r.device)
     out = _stereo_core(
-        eyes, w_r[:, None, None, None], background,
+        eyes, w_r, background,
         refine=refine, rot_refine=cfg.rotated_refine,
         t_refine=cfg.target_refine, feathering=feathering,
         mask_mode=mask_mode, to_srgb=to_srgb, f2=float(cam0.focal_px),
@@ -1825,29 +1827,106 @@ def render_stereo_fast(left: Projector, right: Projector, camera: Camera,
     return render_stereo_fast_batch(left, right, [camera], **kw)[0]
 
 
+def _stereo_fuses(eyes, i) -> bool:
+    """Whether layer i of a stereo call finishes in the stereo epilogue
+    (ops/cuda/stereo_epilogue.py): both eyes march it on the lateral tier.
+    A layer where either eye takes another tier keeps the chain: each
+    eye's raw tier render, _stretch_conf, occlusion_blend."""
+    return all(eye.modes[i] == "march" for eye in eyes)
+
+
+def _stereo_transforms(eyes, sl, f2, out_w, out_h, device):
+    """The chunk's confidence transforms of every layer and both eyes
+    (conf_transforms, float32 on the host) as one (L, 2, B, 12) tensor on
+    `device`: p row-major, then c_vec. On CUDA one pinned upload that
+    rides the stream without a wait."""
+    rows = []
+    for i in range(len(eyes[0].layers)):
+        for eye in eyes:
+            lay = eye.layers[i]
+            p, c_vec = _stereo_epilogue.conf_transforms(
+                lay["focal_host"], lay["disp"].shape[1], lay["disp"].shape[0],
+                eye.pos_b[sl], eye.rot_b[sl], f2, out_w, out_h)
+            rows.append(torch.cat([p.reshape(len(p), 9), c_vec], dim=-1))
+    rows = torch.stack(rows).reshape(len(eyes[0].layers), len(eyes), -1, 12)
+    if device.type == "cuda":
+        # pinned, so the copy rides the stream without a wait; the host
+        # allocator keeps the block until the copy has run
+        rows = rows.pin_memory().to(device, non_blocking=True)
+    return rows
+
+
+def _stereo_march(eye, i, poses, transforms, sl, refine):
+    """Layer i of one eye of a stereo pose chunk on the lateral march
+    (_lateral_march), raw, as a stereo_epilogue.StereoEye with the chunk's
+    device poses and confidence transforms."""
+    lay = _chunk_layer(eye.layers[i], sl)
+    found, invz, rgba = _lateral_march(lay, eye.plans[i], eye.nums[i],
+                                       eye.crops[i], eye.pos_b[sl], poses,
+                                       refine)
+    return _stereo_epilogue.StereoEye(
+        found, invz, rgba, poses, eye.plans[i], lay["focal_host"],
+        lay["doff"], eye.crops[i], lay["disp"], lay["izmin_host"],
+        lay["izmax_host"], transforms)
+
+
 def _stereo_core(eyes, w_r, background, *, refine, rot_refine, t_refine,
                  feathering, mask_mode, to_srgb, f2, out_w, out_h,
                  pose_chunk):
     """The body of render_stereo_fast_batch: hoists each eye's march
-    source prep, then renders balanced pose chunks, each layer through
-    both eyes' tiers (raw outputs), the stretch-mark confidence and
-    occlusion_blend, over-composited front to back; each layer blended
-    in a chunk counts stereo.blend once (both eyes). w_r: (B, 1, 1, 1) on
-    the device."""
+    source prep, allocates the (B, H, W, 4) output and, where a layer
+    fuses (_stereo_fuses), uploads both eyes' poses once, then renders
+    balanced pose chunks into it, layer by layer front to back. A layer
+    both eyes march takes both lateral marches (_stereo_march) and the
+    stereo epilogue (ops/cuda/stereo_epilogue.py: each eye's hit test and
+    stretch-mark confidence, the occlusion fill and blend, the over onto
+    the layers in front and, on the last layer, the background and sRGB;
+    one kernel launch on the card, its plain version, the PyTorch chain,
+    on the CPU, counted as epilogue.stereo.fused), its confidence
+    transforms uploaded with the chunk's. Any other layer keeps the
+    chain: both eyes' tiers with their raw outputs and _stretch_conf,
+    then stereo_epilogue.blend_over_into the output (occlusion_blend,
+    over, finish).
+    Each layer blended in a chunk counts stereo.blend once (both eyes).
+    w_r: (B,) float32 on the device."""
     eyes = [
         eye._replace(layers=_attach_march_prep(eye.layers, eye.modes,
                                                eye.plans, eye.crops))
         for eye in eyes
     ]
+    n_layers = len(eyes[0].layers)
+    fused = [_stereo_fuses(eyes, i) for i in range(n_layers)]
+    device = eyes[0].layers[0]["disp"].device
+    batch = len(w_r)
+    out = torch.empty((batch, out_h, out_w, 4), dtype=torch.float32,
+                      device=device)
+    poses = None
+    if any(fused):
+        poses = _cuda_march.upload_poses(
+            np.stack([eye.pos_b for eye in eyes]), device)
     tier_kw = dict(
         refine=refine, rot_refine=rot_refine, t_refine=t_refine,
         feathering=feathering, mask_mode=mask_mode, raw=True,
     )
-    outs = []
-    for sl in _pose_chunks(len(w_r), pose_chunk):
+    for sl in _pose_chunks(batch, pose_chunk):
         with profiling.span("lif.chunk"):
-            acc = None
-            for i in range(len(eyes[0].layers)):
+            tfs = (_stereo_transforms(eyes, sl, f2, out_w, out_h, device)
+                   if any(fused) else None)
+            for i in range(n_layers):
+                into = dict(background=background, to_srgb=to_srgb,
+                            first=i == 0, last=i == n_layers - 1)
+                if fused[i]:
+                    marched = [_stereo_march(eye, i, poses[e, sl],
+                                             tfs[i, e], sl, refine)
+                               for e, eye in enumerate(eyes)]
+                    with profiling.span("lif.stereo.blend"):
+                        profiling.count("stereo.blend")
+                        profiling.count("epilogue.stereo.fused")
+                        _stereo_epilogue.stereo_epilogue(
+                            marched, w_r[sl], out[sl], feathering=feathering,
+                            mask_mode=mask_mode, **into)
+                    del marched
+                    continue
                 views, confs = [], []
                 for eye in eyes:
                     lay = _chunk_layer(eye.layers[i], sl)
@@ -1856,75 +1935,32 @@ def _stereo_core(eyes, w_r, background, *, refine, rot_refine, t_refine,
                         eye.nums[i], eye.crops[i], eye.pos_b[sl],
                         eye.rot_b[sl], f2, out_w, out_h, **tier_kw,
                     )
-                    views.append(torch.cat([rgba[..., :3],
-                                            alpha[..., None]], dim=-1))
+                    views.append((rgba, alpha))
                     with profiling.span("lif.stereo.conf"):
                         confs.append(_stretch_conf(
                             lay, eye.pos_b[sl], eye.rot_b[sl], hit, invz,
                             f2, out_w, out_h))
                 with profiling.span("lif.stereo.blend"):
                     profiling.count("stereo.blend")
-                    blend = _stereo.occlusion_blend(*views, *confs, w_r[sl])
-                with profiling.span("lif.composite"):
-                    acc = _composite.over(acc, blend)
-            with profiling.span("lif.composite"):
-                outs.append(_composite.finish_over_background(
-                    *acc, background, to_srgb))
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+                    _stereo_epilogue.blend_over_into(views, confs, w_r[sl],
+                                                     out[sl], **into)
+    return out
 
 
 def _stretch_conf(lay, c1_b, rot_b, hit, invz, f2, out_w, out_h):
-    """The exact march's stretch-mark confidence for a fast tier's raw
-    solution (lif_tpu's _stretch_conf). The exact kernel's occlusion fill
-    keys on the march's confidence, zeroed where a crossing step saw a
-    disparity jump above grad_thr (rayCastMonoLDI.glsl:236, 265-267):
-    per production step (range / 40) that is a slope of 0.02 * 140 =
-    2.8. So the disparity is read at the solved crossing and one step dv
-    in front of it along the exact ray s1(v) = q + v (c - c_z q), and
-    confidence dies where the two differ by more than 2.8 dv, on hit
-    pixels. Evaluated on a coarse grid (every 4th, else 2nd, else every
-    pixel, as the output dims divide), at each block's first pixel, and
-    nearest-upsampled. The skew fold's constant shift `doff` moves the
-    probes. Returns (B, H, W) float32 confidence, 0 or 1."""
+    """stereo_epilogue.stretch_conf for one layer dict of a stereo eye on
+    any tier (its disparity texture, range and skew fold's shift `doff`),
+    with the poses' transforms (conf_transforms) uploaded here. Returns
+    (B, H, W) float32 confidence, 0 or 1."""
     disp = lay["disp"]
     hs, ws = disp.shape
-    dev = disp.device
-    izmin, izmax = _F32(lay["izmin_host"]), _F32(lay["izmax_host"])
-    f1, f2 = _F32(lay["focal_host"]), _F32(f2)
-    ds = 4 if (out_h % 4 == 0 and out_w % 4 == 0) else (
-        2 if (out_h % 2 == 0 and out_w % 2 == 0) else 1
-    )
-    jx = (torch.arange(out_w // ds, dtype=torch.float32, device=dev) * ds
-          + 0.5) / out_w - 0.5
-    iy = (torch.arange(out_h // ds, dtype=torch.float32, device=dev) * ds
-          + 0.5) / out_h - 0.5
-    s2x, s2y = jx[None, None, :], iy[None, :, None]
-    # per-pose source transforms, float32 on the host
-    fskr1 = mm(mat_from_focal(f1 / _F32(ws), f1 / _F32(hs)),
-               shader_rotation(np.asarray(rot_b, np.float32)))
-    p = mm(fskr1, inv3(mat_from_focal(f2 / _F32(out_w), f2 / _F32(out_h))))
-    c_vec = (fskr1 @ -torch.as_tensor(np.asarray(c1_b, np.float32))[..., None])
-    p, c_vec = p.to(dev)[..., None, None], c_vec[..., 0].to(dev)[..., None, None]
-    profiling.host_sync("sync.upload.poses", dev, 2)
-    den = p[:, 2, 0] * s2x + p[:, 2, 1] * s2y + p[:, 2, 2]
-    qx = (p[:, 0, 0] * s2x + p[:, 0, 1] * s2y + p[:, 0, 2]) / den
-    qy = (p[:, 1, 0] * s2x + p[:, 1, 1] * s2y + p[:, 1, 2]) / den
-    dsx = c_vec[:, 0] - c_vec[:, 2] * qx
-    dsy = c_vec[:, 1] - c_vec[:, 2] * qy
-    dxp = float(_F32(lay["doff"][0]) / _F32(ws))
-    dyp = float(_F32(lay["doff"][1]) / _F32(hs))
-    dv = (izmin - izmax) / _F32(40.0)
-
-    def disp_at(v):
-        return read_disp(disp, qx + v * dsx + 0.5 + dxp,
-                         qy + v * dsy + 0.5 + dyp, float(izmin),
-                         float(izmax), ws, hs)
-
-    invz_c = invz[:, ::ds, ::ds]
-    kill = (torch.abs(disp_at(invz_c) - disp_at(invz_c + float(dv)))
-            > float(_F32(2.8) * dv))
-    kill = kill.repeat_interleave(ds, 1).repeat_interleave(ds, 2)
-    return torch.where(kill & (hit > 0.5), 0.0, 1.0)
+    p, c_vec = _stereo_epilogue.conf_transforms(
+        lay["focal_host"], ws, hs, c1_b, rot_b, f2, out_w, out_h)
+    p, c_vec = p.to(disp.device), c_vec.to(disp.device)
+    profiling.host_sync("sync.upload.poses", disp.device, 2)
+    return _stereo_epilogue.stretch_conf(
+        disp, lay["izmin_host"], lay["izmax_host"], lay["doff"], p, c_vec,
+        hit, invz, out_w, out_h)
 
 
 def render_fused_fast(projectors: Sequence[Projector], camera: Camera, **kw):
@@ -2074,28 +2110,34 @@ def _fused_pose_chunk(n_layers, out_h, out_w, pose_chunk, free_bytes):
     return min(pose_chunk, fit) if pose_chunk else fit
 
 
+def _lateral_march(lay, plan, k_l, crop_y, c1, poses, refine):
+    """One layer of a pose chunk on the lateral march, raw: (found,
+    invz_star, rgba_star). lay: the layer dict cut to the chunk
+    (_chunk_layer); c1: the chunk's (B, 3) host positions. On CUDA the
+    kernel on the cached march pack, with the chunk's poses already on the
+    device (`poses`, (B, 3)); on the CPU the plain march, pose by pose."""
+    c1 = np.asarray(c1, np.float32)
+    with profiling.span("lif.kernel.lateral"):
+        if "march_prep" in lay:  # hoisted (CUDA): the cached pack
+            return _cuda_march.march_translation_cuda(
+                *lay["march_src"], lay["izmin_host"], lay["izmax_host"], c1,
+                lay["focal_host"], lay["plane_invz"], plan, k_l,
+                offset=(lay["doff"][0], 0.0), prepared=lay["march_prep"],
+                refine=refine, rows=lay["march_rows"], poses=poses)
+        return _sweep_march.march_translation_batch_plain(
+            *_march_sources(lay, plan, crop_y), lay["izmin_host"],
+            lay["izmax_host"], c1, lay["focal_host"], lay["plane_invz"],
+            plan, k_l, refine=refine, offset=lay["doff"])
+
+
 def _fused_marches(view, poses, sl, refine):
     """Each layer of one projector of a fused pose chunk on the lateral
-    march, front to back, as a list of fused_epilogue.FusedLayer. On CUDA
-    the kernel on the cached march pack, with the chunk's poses already on
-    the device (`poses`, (B, 3)); on the CPU the plain march, pose by
-    pose."""
-    c1 = np.asarray(view.pos_b[sl], np.float32)
+    march (_lateral_march), front to back, as a list of
+    fused_epilogue.FusedLayer with the chunk's device poses."""
     marched = []
     for lay, plan, k_l in zip(view.layers, view.plans, view.nums):
-        planes = lay["plane_invz"][sl]
-        with profiling.span("lif.kernel.lateral"):
-            if "march_prep" in lay:  # hoisted (CUDA): the cached pack
-                found, invz, rgba = _cuda_march.march_translation_cuda(
-                    *lay["march_src"], lay["izmin_host"], lay["izmax_host"],
-                    c1, lay["focal_host"], planes, plan, k_l,
-                    offset=(lay["doff"][0], 0.0), prepared=lay["march_prep"],
-                    refine=refine, rows=lay["march_rows"], poses=poses)
-            else:
-                found, invz, rgba = _sweep_march.march_translation_batch_plain(
-                    *_march_sources(lay, plan, 0), lay["izmin_host"],
-                    lay["izmax_host"], c1, lay["focal_host"], planes, plan,
-                    k_l, refine=refine, offset=lay["doff"])
+        found, invz, rgba = _lateral_march(_chunk_layer(lay, sl), plan, k_l,
+                                           0, view.pos_b[sl], poses, refine)
         marched.append(_fused_epilogue.FusedLayer(
             found, invz, rgba, poses, plan, lay["focal_host"], lay["doff"],
             0))

@@ -3,7 +3,8 @@
 Each kernel source ``lif_tpu_torch/csrc/<name>.cu`` exposes a plain C
 interface. At first use it is compiled by ``nvcc`` for Hopper (sm_90a)
 into ``lif_tpu_torch/_build/lib<name>-<hash>.so`` and loaded with ctypes;
-the hash covers the source and the flags, so an edited source rebuilds.
+the hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds.
 Nothing is prebuilt: a machine without nvcc cannot launch a kernel, and
 the loader raises there.
 """
@@ -52,8 +53,10 @@ def _nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu (once per source hash) and load it."""
     src = CSRC_DIR / f"{name}.cu"
+    # the shared device headers a source may include rebuild it too
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if not lib.exists():

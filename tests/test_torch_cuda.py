@@ -1907,3 +1907,201 @@ def test_fused_epilogue_rejects_bad_inputs(cuda):
     for views, o in bad:
         with pytest.raises(ValueError):
             tfe.fused_epilogue(views, o, **kw)
+
+
+def _stereo_pair(layers, h, w, skew=(0.0, 0.0), cuda=None,
+                 margins=((16, 32), (8, 16))):
+    """Two views at -+0.1 m on the card: one layer each, or masked 3-layer
+    LDIs whose back two layers are outpainted by `margins` (rows,
+    columns): by default even ones, which the lateral march takes."""
+    pair = []
+    for seed, x in ((110, -0.1), (120, 0.1)):
+        rgb0, disp0, mask0 = _scene(seed, h, w)
+        extra = []
+        for i, (dh, dw) in enumerate(margins[: layers - 1]):
+            rgb, disp, mask = _scene(seed + i + 1, h + dh, w + dw)
+            extra.append(dict(rgb=rgb, disp=disp, mask=mask,
+                              focal_px=0.78 * w, invz_min=0.5 - 0.1 * i,
+                              invz_max=0.1))
+        pair.append(lif_tpu_torch.projector_from_arrays(
+            rgb0, disp0, mask0 if layers > 1 else None, focal_px=0.78 * w,
+            invz_min=2.0, invz_max=0.6, baseline=1.0, position=(x, 0.0, 0.0),
+            skew=skew, device=cuda, extra_layers=extra))
+    return pair
+
+
+def _stereo_kernel_against_chain(pair, cams, monkeypatch, **kw):
+    """(frames through the stereo epilogue kernel, frames through its
+    plain version, the PyTorch chain, on the card, kernel launches, the
+    call's counters) of one render_stereo_fast_batch call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lif_tpu_torch.ops.cuda import stereo_epilogue as tse
+    from lif_tpu_torch.utils import profiling
+
+    before = tse.stereo_epilogue.launches
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = lif_tpu_torch.render_stereo_fast_batch(*pair, cams, **kw)
+        torch.cuda.synchronize()
+    counters = profiling.snapshot()["counters"]
+    launches = tse.stereo_epilogue.launches - before
+    with monkeypatch.context() as m:
+        m.setattr(tse, "stereo_epilogue", tse.stereo_epilogue_plain)
+        ref = lif_tpu_torch.render_stereo_fast_batch(*pair, cams, **kw)
+        torch.cuda.synchronize()
+    assert tse.stereo_epilogue.launches - before == launches
+    return got, ref, launches, counters
+
+
+@pytest.mark.parametrize("case", [
+    # (layers, h, w, poses, pose_chunk, to_srgb, skewed, bg)
+    (1, 64, 128, 5, 48, True, False, "host"),
+    (1, 62, 128, 5, 2, True, False, "cuda"),
+    (1, 63, 120, 3, 2, False, False, "host"),
+    (3, 64, 128, 5, 2, True, False, "host"),
+    (3, 62, 128, 3, 48, False, False, "cuda"),
+    (3, 63, 128, 5, 3, True, True, "host"),
+], ids=["one-ds4", "one-ds2-chunks", "one-ds1-linear", "ldi-ds4-chunks",
+        "ldi-ds2-linear", "ldi-ds1-skewed-chunks"])
+def test_stereo_epilogue_kernel_equals_the_chain(cuda, case, monkeypatch):
+    """render_stereo_fast_batch through the stereo epilogue kernel equals
+    the same call through the PyTorch chain on the card bit for bit (max
+    |diff| 0), with one launch, one stereo.blend and one
+    epilogue.stereo.fused count a layer of each pose chunk: one layer
+    (taper only) and three (outpainted, the hard discard), every
+    confidence step (4, 2, 1 at heights 64, 62, 63), cameras left of,
+    between and right of the views (blend weights 0, between and 1)."""
+    layers, h, w, poses, chunk, to_srgb, skewed, bg = case
+    pair = _stereo_pair(layers, h, w,
+                        (0.021, -0.0137) if skewed else (0.0, 0.0), cuda)
+    xs = [-0.12, -0.04, 0.015, 0.06, 0.13][:poses]
+    cams = [lif_tpu_torch.Camera.create(
+        w, h, focal_px=0.78 * w, position=[x, 0.0, 0.0],
+        skew=(0.004, 0.0061) if skewed else (0.0, 0.0)) for x in xs]
+    background = torch.tensor(_BG, device=cuda) if bg == "cuda" else _BG
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(pose_chunk=chunk)
+    got, ref, launches, counters = _stereo_kernel_against_chain(
+        pair, cams, monkeypatch, config=cfg, background=background,
+        to_srgb=to_srgb)
+    n = len(trenderer._pose_chunks(poses, chunk)) * layers
+    assert launches == counters["epilogue.stereo.fused"] == n
+    assert counters["stereo.blend"] == n
+    assert got.shape == ref.shape == (poses, h, w, 4)
+    assert 0.0 < float(got[..., 3].mean()) <= 1.0
+    assert (got - ref).abs().max().item() == 0.0
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("off,margins", [
+    (1, ((17, 33), (8, 16))), (2, ((16, 32), (9, 17)))],
+    ids=["middle-off", "back-off"])
+def test_stereo_epilogue_mixed_call_equals_the_chain(cuda, off, margins,
+                                                     monkeypatch):
+    """A lateral LDI call whose layer `off` is outpainted by odd margins,
+    so that both eyes take it off the lateral march: the kernel finishes
+    the other layers and the chain that one, each reading what the other
+    left premultiplied in the frames (a chain layer between two kernel
+    layers, or behind them). Bit for bit the same call with every layer
+    on the chain, with one launch and epilogue.stereo.fused count per
+    march layer of each chunk, and stereo.blend per layer."""
+    h, w, poses, chunk = 64, 128, 5, 2
+    pair = _stereo_pair(3, h, w, cuda=cuda, margins=margins)
+    cams = [lif_tpu_torch.Camera.create(w, h, focal_px=0.78 * w,
+                                        position=[x, 0.0, 0.0])
+            for x in (-0.12, -0.04, 0.015, 0.06, 0.13)]
+    cfg = lif_tpu_torch.DEFAULT_CONFIG.replace(pose_chunk=chunk)
+    tiers = trenderer.render_stereo_fast_batch(*pair, cams, config=cfg,
+                                               return_tiers=True)[1]
+    assert tiers[0] == tiers[1]
+    assert [t == "march" for t in tiers[0]] == [i != off for i in range(3)]
+    got, ref, launches, counters = _stereo_kernel_against_chain(
+        pair, cams, monkeypatch, config=cfg, background=_BG)
+    chunks = len(trenderer._pose_chunks(poses, chunk))
+    assert launches == counters["epilogue.stereo.fused"] == 2 * chunks
+    assert counters["stereo.blend"] == 3 * chunks
+    assert 0.0 < float(got[..., 3].mean()) <= 1.0
+    assert (got - ref).abs().max().item() == 0.0
+    assert torch.equal(got, ref)
+
+
+def test_stereo_epilogue_kernel_at_the_cell_shape(cuda, monkeypatch):
+    """One call of the benchmark's stereo cell (sfmoma.stereo: 96 cameras
+    over two 3-layer views of 1408x928 layers, two pose chunks of 48)
+    through the kernel and through the chain on the card: the check's
+    numbers (max_gap, mean_gap, mismatch_share) 0, within the cell's
+    limits; a traced call counts 6 epilogue.stereo.fused and 6
+    stereo.blend (3 layers x 2 chunks), with 6 launches; the device trace
+    holds the kernel and no CatArrayBatchedCopy."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.lifbench import check, harness, parts, traffic
+
+    cell = harness.Cell(Path(__file__).resolve().parents[1], "sfmoma.stereo")
+    scene = parts.load("scenes", cell.config["scene"])
+    srcs = scene.build(cell.config, 2**31 + 2509, cuda)
+    projs = scene.projectors(lif_tpu_torch, srcs, cell.config)
+    poses = traffic.PoseStream(cell.traffic,
+                               np.random.default_rng(2509)).next()
+    cams = traffic.cameras(lif_tpu_torch, poses, cell.config)
+    cfg = lif_tpu_torch.RenderConfig(**cell.config["render_config"])
+    got, ref, launches, counters = _stereo_kernel_against_chain(
+        projs, cams, monkeypatch, config=cfg)
+    assert got.shape == (96, 800, 1280, 4)
+    assert launches == counters["epilogue.stereo.fused"] == 6
+    assert counters["stereo.blend"] == 6
+    numbers = check.gaps(list(zip(got, ref)))
+    ok, rows = check.judge(numbers, cell.check["limits"])
+    assert ok, rows
+    assert numbers == {"max_gap": 0.0, "mean_gap": 0.0,
+                       "mismatch_share": 0.0}
+    del ref
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lif_tpu_torch.render_stereo_fast_batch(*projs, cams, config=cfg)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    assert any("stereo_epilogue_kernel" in e.key for e in events)
+    assert not [e for e in events if "CatArrayBatchedCopy" in e.key]
+
+
+def test_stereo_epilogue_rejects_bad_inputs(cuda):
+    """The wrapper raises on what the kernel does not take: one eye, a
+    march of another width than the output (a width pad), CPU poses,
+    transforms of another shape, a disparity texture whose rows are not
+    contiguous, weights of another length, an unknown mask mode; it takes
+    a texture with padded rows."""
+    from lif_tpu_torch.ops.cuda import stereo_epilogue as tse
+
+    b, h, w = 2, 16, 32
+    plan = tsm.translation_plan(w, h, w, h, 4.0, 0.0)
+    eye = tse.StereoEye(
+        torch.ones((b, h, w), device=cuda),
+        torch.full((b, h, w), 0.5, device=cuda),
+        torch.rand((b, h, w, 4), device=cuda),
+        torch.zeros((b, 3), device=cuda), plan, 30.0, (0.0, 0.0), 0,
+        torch.rand((h, w), device=cuda), 2.0, 0.6,
+        torch.rand((b, 12), device=cuda))
+    w_r = torch.full((b,), 0.5, device=cuda)
+    kw = dict(background=_BG, feathering=0.1, mask_mode="none",
+              to_srgb=True)
+    out = torch.empty((b, h, w, 4), device=cuda)
+    tse.stereo_epilogue([eye, eye], w_r, out, **kw)
+    padded = eye._replace(disp=torch.rand((h, w + 8), device=cuda)[:, :w])
+    tse.stereo_epilogue([eye, padded], w_r, out, **kw)
+    wide = eye._replace(plan=plan._replace(out_w=w + 8))
+    bad = [
+        ([eye], w_r, out, kw),
+        ([eye, wide], w_r, out, kw),
+        ([eye, eye._replace(poses=eye.poses.cpu())], w_r, out, kw),
+        ([eye, eye._replace(transforms=eye.transforms[:, :9].contiguous())],
+         w_r, out, kw),
+        ([eye, eye._replace(disp=eye.disp.t())], w_r, out, kw),
+        ([eye, eye], w_r[:1], out, kw),
+        ([eye, eye], w_r, out, dict(kw, mask_mode="soft")),
+    ]
+    for eyes, weights, o, args in bad:
+        with pytest.raises(ValueError):
+            tse.stereo_epilogue(eyes, weights, o, **args)
